@@ -1,0 +1,124 @@
+"""The SELL-C-sigma SpMV of uspmv_tpu_torch against the JAX package.
+
+On the CPU ``spmv_scs`` runs its plain PyTorch version; it must agree with
+the TPU lane-tile kernel ``spmv_lane_tiles`` (Pallas interpret mode) on the
+very same SCS arrays, carried across with ``scs_from_reference``. The CUDA
+kernel itself is checked on the card (tests/test_torch_cuda.py and
+chip_smoke.py)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+from uspmv_tpu.formats.scs import convert_to_scs as j_convert
+from uspmv_tpu.formats.scs import permute_scs_cols as j_permute
+from uspmv_tpu.io import generators as jgen
+from uspmv_tpu.ops.pallas_scs import build_device_lane_tiles, spmv_lane_tiles
+
+from uspmv_tpu_torch.formats.scs import scs_from_reference
+from uspmv_tpu_torch.ops import _build, scs_spmv
+from uspmv_tpu_torch.ops.device_format import build_device_scs
+from uspmv_tpu_torch.ops.scs_spmv import spmv_scs, spmv_scs_plain
+
+CPU = torch.device("cpu")
+
+MATRICES = {
+    "laplace2d(40)": lambda: jgen.laplace2d(40),
+    "tridiag(1500)": lambda: jgen.tridiag(1500),
+    "random_banded(2500,60,11)": lambda: jgen.random_banded(2500, 60, 11, seed=8),
+}
+
+
+def jax_scs(mtx, C, sigma, dtype):
+    """The JAX package's SCS with the symmetric column permutation applied,
+    as its operator builds it."""
+    scs = j_convert(mtx.astype(dtype), C, sigma, native=False)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    j_permute(scs, perm)
+    return scs
+
+
+def permuted_x(scs, seed, dtype):
+    x = np.random.default_rng(seed).standard_normal(scs.n_rows).astype(dtype)
+    xp = np.zeros(scs.n_rows_padded, dtype)
+    xp[scs.old_to_new_idx] = x
+    return xp
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("sigma", [1, 1024])
+def test_plain_matches_lane_tile_kernel(name, sigma):
+    jscs = jax_scs(MATRICES[name](), 1024, sigma, np.float32)
+    xp = permuted_x(jscs, 0, np.float32)
+    y_jax = np.asarray(spmv_lane_tiles(
+        build_device_lane_tiles(jscs), jnp.asarray(xp), interpret=True
+    ))
+    dev = build_device_scs(scs_from_reference(dataclasses.asdict(jscs)), CPU)
+    y = spmv_scs(dev, torch.from_numpy(xp))
+    assert y.dtype == torch.float32 and y.shape == (jscs.n_rows_padded,)
+    rows = jscs.old_to_new_idx
+    y_port, y_ref = y.numpy()[rows], y_jax[rows]
+    scale = max(np.abs(y_ref).max(), 1e-30)
+    assert np.abs(y_port - y_ref).max() / scale < 2e-5
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+@pytest.mark.parametrize("C,sigma", [(1, 1), (32, 8), (1024, 1)])
+def test_plain_f64_matches_spmv_reference(name, C, sigma):
+    scs = scs_from_reference(
+        dataclasses.asdict(jax_scs(MATRICES[name](), C, sigma, np.float64))
+    )
+    xp = permuted_x(scs, 1, np.float64)
+    y = spmv_scs_plain(build_device_scs(scs, CPU), torch.from_numpy(xp))
+    ref = scs.spmv_reference(xp)
+    assert np.abs(y.numpy() - ref).max() / np.abs(ref).max() < 1e-13
+
+
+@pytest.fixture
+def small_dev():
+    scs = scs_from_reference(
+        dataclasses.asdict(jax_scs(jgen.tridiag(100), 32, 1, np.float32))
+    )
+    return build_device_scs(scs, CPU)
+
+
+def test_wrapper_rejects_wrong_dtype(small_dev):
+    with pytest.raises(TypeError, match="dtype"):
+        spmv_scs(small_dev, torch.zeros(small_dev.n_rows_padded,
+                                        dtype=torch.float64))
+
+
+@pytest.mark.parametrize("shape", [(50,), (128, 1), ()])
+def test_wrapper_rejects_wrong_shape(small_dev, shape):
+    with pytest.raises(ValueError, match="1-D"):
+        spmv_scs(small_dev, torch.zeros(shape, dtype=torch.float32))
+
+
+def test_cpu_tensors_never_count_as_launches(small_dev):
+    n0 = scs_spmv.launch_count()
+    spmv_scs(small_dev, torch.ones(small_dev.n_rows_padded))
+    assert scs_spmv.launch_count() == n0
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_build, "_loaded", None)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.load_library()
+
+
+def test_cuda_source_exports_the_bound_entry_points():
+    src = (_build.CSRC_DIR / "scs_spmv.cu").read_text()
+    body = src.split('extern "C" {', 1)[1]
+    for name in list(scs_spmv._ENTRY_POINTS.values()) + [
+        "uspmv_cuda_error_string"
+    ]:
+        assert f"{name}(" in body
+    assert "arch=compute_90a,code=sm_90a" in " ".join(_build.NVCC_FLAGS)

@@ -1,0 +1,144 @@
+"""COO matrix container and host-side preprocessing.
+
+Port of ``uspmv_tpu/formats/coo.py`` (reference ``MtxData``,
+classes_structs.hpp:1169-1238, plus the permutation helpers of
+utilities.hpp). Host-side numpy, int32 indices; every function returns
+arrays bit-equal to the JAX package's for the same input. Scaling and
+heavy-row splitting are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class MtxData:
+    """A COO sparse matrix (reference MtxData, classes_structs.hpp:1169).
+
+    ``I``/``J`` are int32 row/col indices, ``values`` any float dtype.
+    """
+
+    n_rows: int
+    n_cols: int
+    nnz: int
+    is_sorted: bool
+    is_symmetric: bool
+    I: np.ndarray
+    J: np.ndarray
+    values: np.ndarray
+
+    @classmethod
+    def from_arrays(
+        cls,
+        I,
+        J,
+        values,
+        n_rows: Optional[int] = None,
+        n_cols: Optional[int] = None,
+        is_sorted: bool = False,
+        is_symmetric: bool = False,
+    ) -> "MtxData":
+        I = np.asarray(I, dtype=np.int32)
+        J = np.asarray(J, dtype=np.int32)
+        values = np.asarray(values)
+        if n_rows is None:
+            n_rows = int(I.max()) + 1 if I.size else 0
+        if n_cols is None:
+            n_cols = int(J.max()) + 1 if J.size else 0
+        return cls(
+            n_rows=int(n_rows),
+            n_cols=int(n_cols),
+            nnz=int(values.size),
+            is_sorted=is_sorted,
+            is_symmetric=is_symmetric,
+            I=I,
+            J=J,
+            values=values,
+        )
+
+    @classmethod
+    def from_scipy(cls, mat, is_symmetric: bool = False) -> "MtxData":
+        coo = mat.tocoo()
+        return cls.from_arrays(
+            coo.row,
+            coo.col,
+            coo.data,
+            n_rows=coo.shape[0],
+            n_cols=coo.shape[1],
+            is_symmetric=is_symmetric,
+        )
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.coo_matrix(
+            (np.asarray(self.values, dtype=np.float64), (self.I, self.J)),
+            shape=(self.n_rows, self.n_cols),
+        )
+
+    def astype(self, dtype) -> "MtxData":
+        return dataclasses.replace(self, values=self.values.astype(dtype))
+
+    def copy(self) -> "MtxData":
+        return dataclasses.replace(
+            self, I=self.I.copy(), J=self.J.copy(), values=self.values.copy()
+        )
+
+    def sort_by_row(self) -> "MtxData":
+        """Stable sort of triplets by row (reference sort_perm,
+        utilities.hpp:2139-2146,2269-2290)."""
+        perm = np.argsort(self.I, kind="stable")
+        return dataclasses.replace(
+            self,
+            I=self.I[perm],
+            J=self.J[perm],
+            values=self.values[perm],
+            is_sorted=True,
+        )
+
+    def row_counts(self) -> np.ndarray:
+        return np.bincount(self.I, minlength=self.n_rows).astype(np.int64)
+
+    def permute(self, perm: np.ndarray, inv_perm: np.ndarray) -> "MtxData":
+        """Symmetric row+col permutation, ``perm[old] = new`` for rows and
+        columns alike (mpi_funcs.hpp:494-598)."""
+        perm = np.asarray(perm, dtype=np.int32)
+        return dataclasses.replace(
+            self,
+            I=perm[self.I],
+            J=perm[self.J],
+            is_sorted=False,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Permutation helpers (reference utilities.hpp:1755-1831)
+# ---------------------------------------------------------------------------
+
+
+def generate_inv_perm(perm: np.ndarray) -> np.ndarray:
+    """inv_perm[perm[i]] = i (reference generate_inv_perm)."""
+    perm = np.asarray(perm)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=perm.dtype)
+    return inv
+
+
+def apply_permutation(vec: np.ndarray, perm: np.ndarray) -> np.ndarray:
+    """permuted[i] = vec[perm[i]] (reference apply_permutation,
+    utilities.hpp:1768-1781)."""
+    return np.asarray(vec)[np.asarray(perm)]
+
+
+def extract_matrix_min_mean_max(mtx: MtxData) -> Tuple[float, float, float]:
+    """(min|a|, midpoint, max|a|) — 'mean' is the min/max midpoint, not
+    the average (reference extract_matrix_min_mean_max,
+    utilities.hpp:2501-2540)."""
+    a = np.abs(mtx.values.astype(np.float64))
+    mn = float(a.min()) if a.size else 0.0
+    mx = float(a.max()) if a.size else 0.0
+    return mn, mn + (mx - mn) / 2.0, mx

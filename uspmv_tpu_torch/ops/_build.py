@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` of this package is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+ctypes. The build runs at first use, into ``build/uspmv_tpu_torch/`` at the
+root of the checkout, under a name that carries a hash of the sources and
+flags, so a changed source rebuilds and an unchanged one loads at once.
+No nvcc, or a failed build, raises: nothing falls back to the plain
+PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused the sources."""
+
+
+@dataclasses.dataclass
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    built: bool  # False when an earlier build of the same sources was loaded
+    build_seconds: float
+    log: str  # nvcc's output, ptxas register/shared-memory report included
+
+
+_loaded: Optional[KernelLibrary] = None
+
+
+def find_nvcc() -> str:
+    """nvcc on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file() and os.access(cand, os.X_OK):
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels of "
+        "uspmv_tpu_torch are built from source and need the CUDA toolkit"
+    )
+
+
+def _sources() -> list:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    if not sources:
+        raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
+    return sources
+
+
+def _digest(sources: list) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def load_library() -> KernelLibrary:
+    """The compiled kernel library, built on first use in this process."""
+    global _loaded
+    if _loaded is not None:
+        return _loaded
+    sources = _sources()
+    out = BUILD_DIR / f"libuspmv_tpu_torch_{_digest(sources)}.so"
+    built, seconds, log = False, 0.0, ""
+    if not out.exists():
+        nvcc = find_nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # build under a private name, then rename: concurrent builds
+        # never load a half-written library
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(
+                f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, out)
+        built = True
+    _loaded = KernelLibrary(
+        lib=ctypes.CDLL(str(out)), path=out, built=built,
+        build_seconds=seconds, log=log,
+    )
+    return _loaded

@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.coo import MtxData
 from uspmv_tpu_torch.io.generators import laplace2d, random_banded, tridiag
+from uspmv_tpu_torch.ops import scs_spmv
+from uspmv_tpu_torch.ops.device_format import build_device_scs
 from uspmv_tpu_torch.ops.scs_spmv import launch_count, spmv_scs, spmv_scs_plain
 from uspmv_tpu_torch.runtime.operator import SpmvOperator
 
@@ -22,6 +24,8 @@ pytestmark = pytest.mark.cuda
 # max|kernel - plain| / max|plain|: the plain index_add_ sums in another
 # order and the kernel contracts to FMAs
 TOL = {"sp": 1e-5, "dp": 1e-12}
+# the same, by accumulator (x) dtype
+ACC_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 @pytest.fixture
@@ -77,7 +81,7 @@ def test_operator_on_card_matches_cpu(cuda):
     cfg = dict(kernel_format="scs", chunk_size=32, sigma=64, value_type="sp")
     gpu = SpmvOperator.from_mtx(Config(backend="cuda", **cfg), mtx)
     cpu = SpmvOperator.from_mtx(Config(backend="cpu", **cfg), mtx)
-    assert gpu.impl_name() == "cuda-scs"
+    assert gpu.impl_name() == "cuda-scs-sp"
     x = np.random.default_rng(1).standard_normal(mtx.n_rows)
     _, y_gpu = gpu.solve(gpu.make_x(x), 3)
     _, y_cpu = cpu.solve(cpu.make_x(x), 3)
@@ -93,5 +97,60 @@ def test_wrapper_rejects_mismatched_tensors(cuda):
     with pytest.raises(ValueError, match="is on"):
         spmv_scs(dev, torch.zeros(dev.n_rows_padded))
     with pytest.raises(TypeError, match="dtype"):
-        spmv_scs(dev, torch.zeros(dev.n_rows_padded, dtype=torch.float64,
+        spmv_scs(dev, torch.zeros(dev.n_rows_padded, dtype=torch.float16,
                                   device=cuda))
+    dp = SpmvOperator.from_mtx(
+        Config(kernel_format="crs", value_type="dp", backend="cuda"),
+        tridiag(50))
+    (dev64,) = dp.devs.values()
+    with pytest.raises(TypeError, match="no SCS kernel"):
+        spmv_scs(dev64, torch.zeros(dev64.n_rows_padded, device=cuda))
+    with pytest.raises(ValueError, match="accumulate"):
+        spmv_scs(dev, torch.zeros(dev.n_rows_padded, device=cuda),
+                 y=torch.zeros(3, device=cuda))
+
+
+def banded_dev(value_dtype, device):
+    """random_banded(5000, 60, 11) at C=128, sigma=32 with values rounded
+    to ``value_dtype`` on the host, on ``device``."""
+    from uspmv_tpu_torch.formats.scs import convert_to_scs, permute_scs_cols
+
+    m = random_banded(5000, 60, 11)
+    scs = convert_to_scs(m, 128, 32)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    permute_scs_cols(scs, perm)
+    scs.values = torch.from_numpy(scs.values).to(value_dtype).double().numpy()
+    return build_device_scs(scs, device, value_dtype)
+
+
+PAIRS = list(scs_spmv._ENTRY_POINTS)
+
+
+# (layout, bs): bs=1 is one vector [n_pad]; rowwise bs=11 takes two passes
+SHAPES = [("rowwise", 1), ("rowwise", 4), ("rowwise", 8), ("rowwise", 11),
+          ("colwise", 4), ("colwise", 8)]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("layout,bs", SHAPES)
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_every_instantiation_matches_plain(cuda, pair, layout, bs, accumulate):
+    vdt, xdt = pair
+    dev = banded_dev(vdt, cuda)
+    n = dev.n_rows_padded
+    shape = (n,) if bs == 1 else (n, bs) if layout == "rowwise" else (bs, n)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64).to(xdt)
+    y0 = torch.randn(shape, generator=gen, dtype=torch.float64).to(xdt)
+    x, y0 = x.to(cuda), y0.to(cuda)
+    name = scs_spmv.entry_point(vdt, xdt)
+    before = scs_spmv.launch_counts()[name]
+    y = spmv_scs(dev, x, layout, y0.clone() if accumulate else None)
+    torch.cuda.synchronize()
+    passes = -(-bs // 8) if layout == "rowwise" else 1
+    assert scs_spmv.launch_counts()[name] == before + passes
+    ref = spmv_scs_plain(dev, x, layout, y0.clone() if accumulate else None)
+    assert y.dtype == xdt and y.shape == ref.shape == shape
+    err = (y - ref).abs().max().item()
+    assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30)

@@ -1,6 +1,7 @@
-"""Host structures of uspmv_tpu_torch against the JAX package: COO, the
-generators, MatrixMarket I/O, SELL-C-sigma conversion, the vector layouts
-and Config.validate must agree bit for bit on the same inputs."""
+"""Host structures of uspmv_tpu_torch against the JAX package: COO and its
+scalings, the generators, MatrixMarket I/O, SELL-C-sigma conversion, the
+vector layouts and Config.validate must agree bit for bit on the same
+inputs."""
 
 import dataclasses
 
@@ -46,6 +47,10 @@ GENERATED = {
     "random_banded(600,30,9)": lambda g: g.random_banded(600, 30, 9),
     "laplace2d(9,5)": lambda g: g.laplace2d(9, 5),
     "tridiag(50)": lambda g: g.tridiag(50),
+    "fem_tet3d(6)": lambda g: g.fem_tet3d(6),
+    "wide_spectrum(6)": lambda g: g.wide_spectrum(6),
+    "fem_tet3d(5,2,0.5,3)": lambda g: g.fem_tet3d(5, 2, 0.5, 3),
+    "wide_spectrum(4,3.0)": lambda g: g.wide_spectrum(4, 3.0),
 }
 
 
@@ -56,14 +61,15 @@ def test_generators_bit_equal(name):
 
 
 @pytest.mark.parametrize("spec", ["Laplace3D,5", "RandomBanded,300,20,7",
-                                  "Tridiag,40", "Laplace2D,6"])
+                                  "Tridiag,40", "Laplace2D,6", "FemTet3D,4",
+                                  "WideSpectrum,4"])
 def test_generate_matrix_spec_bit_equal(spec):
     assert_same(jgen.generate_matrix(spec), tgen.generate_matrix(spec))
 
 
 def test_generate_matrix_unported_name_raises():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        tgen.generate_matrix("FemTet3D,5")
+        tgen.generate_matrix("StokesSaddle,5")
 
 
 def test_mtx_io_bit_equal(tmp_path):
@@ -107,6 +113,49 @@ def test_mtxdata_methods_bit_equal():
     assert (abs(sp - jm.to_scipy())).max() == 0
 
 
+SCALED = {
+    "wide_spectrum(5)": lambda g: g.wide_spectrum(5),
+    "fem_tet3d(4)": lambda g: g.fem_tet3d(4),
+    "wide_spectrum(4)-f32":
+        lambda g: g.wide_spectrum(4).astype(np.float32),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCALED))
+def test_scaling_bit_equal(name):
+    jm, tm = SCALED[name](jgen), SCALED[name](tgen)
+    for f in ("extract_largest_row_elems", "extract_largest_col_elems"):
+        a, b = getattr(jcoo, f)(jm), getattr(tcoo, f)(tm)
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    jr, tr = jm.copy(), tm.copy()
+    lr = jcoo.extract_largest_row_elems(jm)
+    jcoo.scale_matrix_rows(jr, lr)
+    tcoo.scale_matrix_rows(tr, lr)
+    assert_same(jr, tr)
+    lc = jcoo.extract_largest_col_elems(jm)
+    jcoo.scale_matrix_cols(jr, lc)
+    tcoo.scale_matrix_cols(tr, lc)
+    assert_same(jr, tr)
+    je, te = jm.copy(), tm.copy()
+    for a, b in zip(jcoo.equilibrate_matrix(je), tcoo.equilibrate_matrix(te)):
+        assert np.array_equal(a, b)
+    assert_same(je, te)
+    jj, tj = jm.copy(), tm.copy()
+    assert np.array_equal(jcoo.jacobi_scale_matrix(jj),
+                          tcoo.jacobi_scale_matrix(tj))
+    assert_same(jj, tj)
+
+
+def test_jacobi_scale_zero_diagonal_raises_like_jax():
+    m = tgen.tridiag(10)
+    keep = ~((m.I == m.J) & (m.I == 3))
+    for mod in (jcoo, tcoo):
+        z = mod.MtxData.from_arrays(m.I[keep], m.J[keep], m.values[keep],
+                                    10, 10)
+        with pytest.raises(ValueError, match="zero diagonal"):
+            mod.jacobi_scale_matrix(z)
+
+
 @pytest.mark.parametrize("C", [1, 4, 32, 1024])
 @pytest.mark.parametrize("sigma", [1, 8, 512])
 def test_convert_and_permute_scs_bit_equal(C, sigma):
@@ -130,6 +179,32 @@ def test_convert_to_scs_fixed_permutation_bit_equal():
     js = j_convert(jm, 32, 1, fixed_permutation=fixed, native=False)
     ts = t_convert(tm, 32, 1, fixed_permutation=fixed)
     assert_same(js, ts)
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+@pytest.mark.parametrize("layout", ["rowwise", "colwise"])
+def test_block_vectors_bit_equal(bs, layout):
+    rng = np.random.default_rng(bs)
+    n, n_pad = 300, 320
+    perm = rng.permutation(n_pad)[:n].astype(np.int32)
+    stats = (0.25, 1.5, 2.75)
+    for kw in ({}, {"random_init_x": True}, {"mean_init_x": True}):
+        kw = dict(kw, block_vec_size=bs, vector_layout=layout)
+        jx = jvec.init_x_host(JConfig(**kw), n, stats)
+        tx = tvec.init_x_host(TConfig(**kw), n, stats)
+        assert tx.shape == (n, bs)
+        assert jx.dtype == tx.dtype and np.array_equal(jx, tx)
+    x_in = rng.standard_normal((n, bs))
+    cfg = dict(block_vec_size=bs, vector_layout=layout)
+    tx = tvec.init_x_host(TConfig(**cfg), n, x_in=x_in, dtype=np.float32)
+    jx = jvec.init_x_host(JConfig(**cfg), n, x_in=x_in, dtype=np.float32)
+    jd = jvec.to_device_layout(jx, layout, n_pad, perm)
+    td = tvec.to_device_layout(tx, layout, n_pad, perm)
+    assert td.shape == ((n_pad, bs) if layout == "rowwise" else (bs, n_pad))
+    assert td.flags.c_contiguous and np.array_equal(jd, td)
+    back = tvec.from_device_layout(td, layout, perm)
+    assert np.array_equal(jvec.from_device_layout(jd, layout, perm), back)
+    assert np.array_equal(back, tx)
 
 
 def test_vectors_bit_equal():
@@ -187,6 +262,10 @@ def test_config_backend_and_dtypes():
     with pytest.raises(ValueError, match="backend"):
         TConfig(backend="tpu").validate()
     assert TConfig(value_type="hp").working_dtype() == torch.float32
+    assert TConfig(value_type="ap[sp_hp]").working_dtype() == torch.float32
+    assert TConfig(value_type="ap[dp_hp]").working_dtype() == torch.float64
+    assert TConfig(value_type="dp", dp_emulation=True).working_dtype() \
+        == torch.float64
     assert TConfig(value_type="dp").working_dtype() == torch.float64
     assert TConfig(value_type="ap[sp_hp]").ap_precisions == ("sp", "hp")
     from uspmv_tpu_torch.config import dtype_for

@@ -7,6 +7,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -106,7 +107,7 @@ def test_beta_and_metrics_match_jax(operators, name):
     # values + int32 columns + chunk_ptrs/lengths + x + y, all f32/int32
     assert op.bytes_per_spmv() == 4 * (2 * scs.n_elements + 2 * scs.n_chunks
                                        + 1 + 2 * scs.n_rows_padded)
-    assert op.impl_name() == "torch-plain-scs"
+    assert op.impl_name() == "torch-plain-scs-sp"
 
 
 def test_from_scs_runs_jax_arrays(operators):
@@ -147,7 +148,7 @@ def test_bench_spmv_reports_finite_rate(operators):
                      timing_reps=2)
     assert np.isfinite(res.perf_gflops) and res.perf_gflops > 0
     assert np.isfinite(res.effective_gbps) and res.effective_gbps > 0
-    assert res.platform == "cpu" and res.impl == "torch-plain-scs"
+    assert res.platform == "cpu" and res.impl == "torch-plain-scs-sp"
     assert len(res.timing_samples_s) == 2
 
 
@@ -187,15 +188,12 @@ def test_cli_cuda_backend_without_a_card_exits_3(monkeypatch, capsys):
 
 
 UNPORTED = {
-    "ap": dict(value_type="ap[dp_sp]"),
-    "hp": dict(value_type="hp"),
-    "spmmv": dict(block_vec_size=4),
-    "dp_emu": dict(dp_emulation=True),
     "shards": dict(n_shards=2),
     "bcoo": dict(impl="bcoo"),
     "xla": dict(impl="xla"),
-    "equilibrate": dict(equilibrate=True),
     "split": dict(split_rows_threshold=16),
+    "mixed_tiles": dict(mixed_tiles=True),
+    "no_pallas": dict(use_pallas=False),
 }
 
 
@@ -204,6 +202,87 @@ def test_unported_configs_raise(name):
     cfg = Config(**{"value_type": "dp", "backend": "cpu", **UNPORTED[name]})
     with pytest.raises(NotImplementedError, match="not port"):
         SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
+
+
+# configurations of slice 2 that raised before it was ported
+PORTED = {
+    "ap": dict(value_type="ap[dp_sp]", ap_threshold_1=1.5),
+    "hp": dict(value_type="hp"),
+    "spmmv": dict(block_vec_size=4),
+    "dp_emu": dict(dp_emulation=True),
+    "equilibrate": dict(equilibrate=True),
+    "jacobi_scale": dict(jacobi_scale=True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED))
+def test_ported_configs_run(name):
+    cfg = Config(**{"value_type": "dp", "backend": "cpu", **PORTED[name]})
+    mtx = tgen.tridiag(10)
+    op = SpmvOperator.from_mtx(cfg, mtx)
+    x = np.arange(1.0, 11.0)
+    if cfg.block_vec_size > 1:
+        x = np.repeat(x[:, None], cfg.block_vec_size, axis=1)
+    y = op.to_host(op.spmv(op.make_x(x)))
+    A = mtx.to_scipy().tocsr()
+    if cfg.jacobi_scale:
+        A = A / 2.0  # the diagonal of tridiag(10)
+    if cfg.equilibrate:
+        from uspmv_tpu_torch.formats.coo import equilibrate_matrix
+
+        m = mtx.copy()
+        equilibrate_matrix(m)
+        A = m.to_scipy().tocsr()
+    ref = A @ x
+    assert y.shape == ref.shape
+    assert np.abs(y - ref).max() <= 1e-6 * np.abs(ref).max()
+
+
+def heavy_row_coo(heavy: bool):
+    """30,000 rows of 3 nnz; with ``heavy``, row 12,345 holds 20,000."""
+    rng = np.random.default_rng(11)
+    n = 30_000
+    rows = np.repeat(np.arange(n), 3)
+    cols = rng.integers(0, n, rows.size)
+    if heavy:
+        rows = np.concatenate([rows, np.full(20_000, 12_345)])
+        cols = np.concatenate([cols, rng.permutation(n)[:20_000]])
+    key, first = np.unique(rows.astype(np.int64) * n + cols,
+                           return_index=True)
+    return rows[first], cols[first], rng.standard_normal(first.size), n
+
+
+@pytest.mark.parametrize("heavy", [True, False])
+def test_scs_explosion_guard_matches_jax(heavy):
+    """One 20,000-nnz row at C=1024 would pad its chunk 20M elements: both
+    packages fall back to CRS with the same warning (the JAX operator with
+    its heavy-row split off); without it both keep the user's (C, sigma)."""
+    from uspmv_tpu.formats.coo import MtxData as JMtxData
+
+    from uspmv_tpu_torch.formats.coo import MtxData
+
+    I, J, V, n = heavy_row_coo(heavy)
+    kw = dict(kernel_format="scs", chunk_size=1024, sigma=1, value_type="dp",
+              backend="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        jop = JOperator.from_mtx(JConfig(split_rows_threshold=-1, **kw),
+                                 JMtxData.from_arrays(I, J, V, n, n))
+        op = SpmvOperator.from_mtx(Config(**kw),
+                                   MtxData.from_arrays(I, J, V, n, n))
+    guard = [str(w.message) for w in caught
+             if "falling back to CRS" in str(w.message)]
+    assert len(guard) == (2 if heavy else 0)
+    assert len(set(guard)) <= 1  # the same message
+    for p, js in jop.scs.items():
+        ts = op.scs[p]
+        assert (ts.C, ts.sigma) == (js.C, js.sigma)
+        assert (ts.C, ts.sigma) == ((1, 1) if heavy else (1024, 1))
+        assert ts.n_elements == js.n_elements
+    x = np.random.default_rng(2).standard_normal(n)
+    y = op.to_host(op.spmv(op.make_x(x)))
+    ref = np.asarray(jop.to_host(jop.spmv(jop.make_x(x))))
+    assert np.abs(y - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("flags", [["-matrix_stats"], ["-n_processes", "2"]])

@@ -1,7 +1,8 @@
 """The SELL-C-sigma SpMV of uspmv_tpu_torch against the JAX package.
 
 On the CPU ``spmv_scs`` runs its plain PyTorch version; it must agree with
-the TPU lane-tile kernel ``spmv_lane_tiles`` (Pallas interpret mode) on the
+the TPU lane-tile kernels ``spmv_lane_tiles`` (f32, bf16 values with bs
+right-hand sides, and the df64 pair kernel; Pallas interpret mode) on the
 very same SCS arrays, carried across with ``scs_from_reference``. The CUDA
 kernel itself is checked on the card (tests/test_torch_cuda.py and
 chip_smoke.py)."""
@@ -68,6 +69,53 @@ def test_plain_matches_lane_tile_kernel(name, sigma):
     assert np.abs(y_port - y_ref).max() / scale < 2e-5
 
 
+@pytest.mark.parametrize("bs", [1, 4])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_plain_bf16_matches_lane_tile_kernel(name, bs):
+    """hp: bf16 values, f32 x and sums; rowwise bs columns share one
+    matrix stream in the lane-tile kernel (its bs loop)."""
+    import ml_dtypes
+
+    jscs = jax_scs(MATRICES[name](), 1024, 1, ml_dtypes.bfloat16)
+    xs = np.random.default_rng(bs).standard_normal(
+        (jscs.n_rows_padded, bs)).astype(np.float32)
+    xs[np.setdiff1d(np.arange(jscs.n_rows_padded), jscs.old_to_new_idx)] = 0
+    x = xs[:, 0] if bs == 1 else xs
+    y_jax = np.asarray(spmv_lane_tiles(
+        build_device_lane_tiles(jscs, dtype=ml_dtypes.bfloat16,
+                                block_vec_size=bs),
+        jnp.asarray(x), interpret=True))
+    fields = dataclasses.asdict(jscs)
+    fields["values"] = jscs.values.astype(np.float32)
+    dev = build_device_scs(scs_from_reference(fields), CPU, torch.bfloat16)
+    assert dev.values.dtype == torch.bfloat16
+    y = spmv_scs(dev, torch.from_numpy(x))
+    assert y.dtype == torch.float32 and y.shape == x.shape
+    rows = jscs.old_to_new_idx
+    y_port, y_ref = y.numpy()[rows], y_jax[rows]
+    assert np.abs(y_port - y_ref).max() / np.abs(y_ref).max() < 2e-5
+
+
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_plain_f64_matches_df64_kernel(name):
+    """-dp_emu: the port's native f64 against the TPU's (hi, lo) pair
+    kernel in interpret mode, which is float-accurate there (its
+    error-free transforms degrade off the chip)."""
+    jscs = jax_scs(MATRICES[name](), 1024, 1, np.float64)
+    xp = permuted_x(jscs, 2, np.float64)
+    hi = xp.astype(np.float32)
+    lo = (xp - hi.astype(np.float64)).astype(np.float32)
+    jdev = build_device_lane_tiles(jscs, dtype=np.float64)
+    assert jdev.df64
+    pair = np.asarray(spmv_lane_tiles(jdev, jnp.asarray(np.stack([hi, lo], -1)),
+                                      interpret=True))
+    y_jax = pair[:, 0].astype(np.float64) + pair[:, 1].astype(np.float64)
+    dev = build_device_scs(scs_from_reference(dataclasses.asdict(jscs)), CPU)
+    y = spmv_scs(dev, torch.from_numpy(xp)).numpy()
+    rows = jscs.old_to_new_idx
+    assert np.abs(y[rows] - y_jax[rows]).max() / np.abs(y_jax).max() < 1e-6
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
 @pytest.mark.parametrize("C,sigma", [(1, 1), (32, 8), (1024, 1)])
 def test_plain_f64_matches_spmv_reference(name, C, sigma):
@@ -91,10 +139,10 @@ def small_dev():
 def test_wrapper_rejects_wrong_dtype(small_dev):
     with pytest.raises(TypeError, match="dtype"):
         spmv_scs(small_dev, torch.zeros(small_dev.n_rows_padded,
-                                        dtype=torch.float64))
+                                        dtype=torch.float16))
 
 
-@pytest.mark.parametrize("shape", [(50,), (128, 1), ()])
+@pytest.mark.parametrize("shape", [(50,), (50, 2), ()])
 def test_wrapper_rejects_wrong_shape(small_dev, shape):
     with pytest.raises(ValueError, match="1-D"):
         spmv_scs(small_dev, torch.zeros(shape, dtype=torch.float32))

@@ -1,0 +1,195 @@
+"""Block vectors (SpMMV) through uspmv_tpu_torch against the JAX package
+on the CPU, and the layouts and accumulate form of the plain version that
+the CUDA kernel is checked against on the card.
+
+Tolerances per column, x max|y| of that column: 1e-5 for f32 sums (the
+JAX lane-tile kernel in Pallas interpret mode sums in another order),
+1e-12 for f64 (its XLA path)."""
+
+import dataclasses
+import json
+import warnings
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from uspmv_tpu.config import Config as JConfig
+from uspmv_tpu.formats.scs import convert_to_scs as j_convert
+from uspmv_tpu.formats.scs import permute_scs_cols as j_permute
+from uspmv_tpu.io import generators as jgen
+from uspmv_tpu.runtime.operator import SpmvOperator as JOperator
+
+from uspmv_tpu_torch import cli
+from uspmv_tpu_torch.config import Config
+from uspmv_tpu_torch.formats.scs import scs_from_reference
+from uspmv_tpu_torch.io import generators as tgen
+from uspmv_tpu_torch.ops import scs_spmv
+from uspmv_tpu_torch.ops.device_format import build_device_scs
+from uspmv_tpu_torch.ops.scs_spmv import spmv_scs
+from uspmv_tpu_torch.ops.vectors import init_x_host
+from uspmv_tpu_torch.runtime.bench import bench_spmv
+from uspmv_tpu_torch.runtime.operator import SpmvOperator
+from uspmv_tpu_torch.runtime.validate import validate_solve
+
+TOL = {"sp": 1e-5, "dp": 1e-12, "ap[dp_sp]": 1e-12}
+CASES = {
+    f"{vt}-bs{bs}-{layout}": dict(value_type=vt, block_vec_size=bs,
+                                  vector_layout=layout)
+    for vt in ("sp", "dp") for bs in (4, 8)
+    for layout in ("rowwise", "colwise")
+}
+CASES["ap[dp_sp]-bs4-rowwise"] = dict(
+    value_type="ap[dp_sp]", ap_threshold_1=1.0, block_vec_size=4,
+    vector_layout="rowwise")
+
+
+def config(cls, **kw):
+    return cls(**{"kernel_format": "scs", "chunk_size": 1024, "sigma": 1,
+                  "backend": "cpu", **kw})
+
+
+def per_column_rel(y, ref):
+    return max(np.abs(y[:, v] - ref[:, v]).max() / np.abs(ref[:, v]).max()
+               for v in range(ref.shape[1]))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_spmmv_matches_jax_operator(name):
+    kw = CASES[name]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jop = JOperator.from_mtx(config(JConfig, **kw),
+                                 jgen.random_banded(3000, 40, 9))
+    op = SpmvOperator.from_mtx(config(Config, **kw),
+                               tgen.random_banded(3000, 40, 9))
+    bs, layout = kw["block_vec_size"], kw["vector_layout"]
+    x = np.random.default_rng(bs).standard_normal((op.n_rows, bs))
+    xd = op.make_x(x)
+    assert xd.shape == ((op.n_rows_padded, bs) if layout == "rowwise"
+                        else (bs, op.n_rows_padded))
+    y = op.to_host(op.spmv(xd))
+    ref = np.asarray(jop.to_host(jop.spmv(jop.make_x(x))))
+    assert y.shape == ref.shape == (op.n_rows, bs) and y.dtype == ref.dtype
+    assert per_column_rel(y, ref) <= TOL[kw["value_type"]]
+    assert op.flops_per_spmv() == jop.flops_per_spmv()
+    passes = bs if layout == "colwise" else 1
+    assert op.matrix_passes() == passes
+    xw = xd.element_size()
+    assert op.bytes_per_spmv() == passes * sum(
+        d.stream_bytes() for d in op.devs.values()
+    ) + 2 * op.n_rows_padded * bs * xw
+
+
+@pytest.mark.parametrize("layout", ["rowwise", "colwise"])
+@pytest.mark.parametrize("value_type", ["sp", "hp", "ap[dp_sp_hp]"])
+def test_spmmv_validate_solve_ok(value_type, layout):
+    mtx = tgen.laplace3d(10)
+    op = SpmvOperator.from_mtx(
+        config(Config, value_type=value_type, ap_threshold_1=2.44,
+               ap_threshold_2=0.5, block_vec_size=4, vector_layout=layout),
+        mtx)
+    # the CLI's solve-mode x (DefaultValues.x): the per-element flags
+    # would trip on near-cancelling rows of a random x in sp
+    x0 = init_x_host(op.config, op.n_rows, op.matrix_stats)
+    assert x0.shape == (op.n_rows, 4)
+    _, y = op.solve(op.make_x(x0), 5)
+    for v in range(4):
+        rep = validate_solve(mtx, x0[:, v], op.to_host(y)[:, v], 5,
+                             value_type=value_type,
+                             hp_nnz_fraction=op.hp_nnz_fraction())
+        assert rep.flag == "OK", rep.summary()
+
+
+def test_spmmv_bench_and_cli(tmp_path, capsys):
+    op = SpmvOperator.from_mtx(
+        config(Config, value_type="sp", block_vec_size=4,
+               vector_layout="rowwise"), tgen.laplace3d(10))
+    res = bench_spmv(op, bench_time=1e-3, warmup=1, start_iters=2,
+                     timing_reps=2)
+    assert res.block_vec_size == 4 and np.isfinite(res.perf_gflops)
+    assert res.perf_gflops > 0 and res.effective_gbps > 0
+    rc = cli.main(["Laplace3D,10", "scs", "-c", "1024", "-s", "1", "-sp",
+                   "-block_vec_size", "4", "-layout", "rowwise", "-mode", "b",
+                   "-bench_time", "0.001", "-backend", "cpu", "-json",
+                   "-mtx_out", str(tmp_path)])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["block_vec_size"] == 4 and np.isfinite(rec["perf_gflops"])
+    assert rec["perf_gflops"] > 0
+
+
+# ------------------------------------------------- the plain version's forms
+
+
+def port_dev(value_dtype):
+    """A C=32, sigma=8 SCS of random_banded(700, 25, 9) built by the JAX
+    package, on the CPU with ``value_dtype`` values; the host values are
+    rounded to that dtype too, so ``spmv_reference`` sees the same matrix."""
+    m = jgen.random_banded(700, 25, 9, seed=4)
+    scs = j_convert(m.astype(np.float64), 32, 8, native=False)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    j_permute(scs, perm)
+    scs = scs_from_reference(dataclasses.asdict(scs))
+    scs.values = torch.from_numpy(scs.values).to(value_dtype).double().numpy()
+    return build_device_scs(scs, torch.device("cpu"), value_dtype), scs
+
+
+PAIRS = [(v, x) for v, x in scs_spmv._ENTRY_POINTS]
+
+
+@pytest.mark.parametrize("bs", [1, 3, 8, 11])
+@pytest.mark.parametrize("layout", ["rowwise", "colwise"])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_plain_layouts_match_spmv_reference(pair, layout, bs):
+    vdt, xdt = pair
+    dev, scs = port_dev(vdt)
+    n = dev.n_rows_padded
+    xs = np.random.default_rng(bs).standard_normal((n, bs))
+    xs = torch.from_numpy(xs).to(xdt).numpy()  # rounded like x itself
+    x = torch.from_numpy(xs if layout == "rowwise"
+                         else np.ascontiguousarray(xs.T))
+    y = spmv_scs(dev, x, layout)
+    assert y.dtype == xdt and y.shape == x.shape
+    ref = scs.spmv_reference(xs)  # f64 [n, bs]
+    got = y.numpy() if layout == "rowwise" else y.numpy().T
+    tol = 1e-12 if xdt == torch.float64 else 1e-5
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+    # one block equals its columns one at a time
+    for v in range(bs):
+        col = x[:, v] if layout == "rowwise" else x[v]
+        yv = spmv_scs(dev, col.contiguous())
+        assert torch.equal(yv, y[:, v] if layout == "rowwise" else y[v])
+
+
+@pytest.mark.parametrize("layout", ["rowwise", "colwise"])
+def test_accumulate_form_adds_in_order(layout):
+    dev_hi, _ = port_dev(torch.float64)
+    dev_lo, _ = port_dev(torch.float32)
+    n = dev_hi.n_rows_padded
+    shape = (n, 4) if layout == "rowwise" else (4, n)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(shape))
+    y0 = spmv_scs(dev_hi, x, layout)
+    y1 = spmv_scs(dev_lo, x, layout)
+    y = spmv_scs(dev_hi, x, layout)
+    out = spmv_scs(dev_lo, x, layout, y)
+    assert out is y and torch.equal(y, y0 + y1)
+    with pytest.raises(ValueError, match="accumulate"):
+        spmv_scs(dev_lo, x, layout, y.float())
+    with pytest.raises(ValueError, match="accumulate"):
+        spmv_scs(dev_lo, x, layout, y[:1])
+
+
+def test_wrapper_rejects_unsupported_pairs_and_layouts():
+    dev64, _ = port_dev(torch.float64)
+    with pytest.raises(TypeError, match="no SCS kernel"):
+        spmv_scs(dev64, torch.zeros(dev64.n_rows_padded))  # f64 A, f32 x
+    dev, _ = port_dev(torch.float32)
+    with pytest.raises(TypeError, match="no SCS kernel"):
+        spmv_scs(dev, torch.zeros(dev.n_rows_padded, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="layout"):
+        spmv_scs(dev, torch.zeros(dev.n_rows_padded, 2), "diagonal")
+    with pytest.raises(ValueError, match="rows"):
+        spmv_scs(dev, torch.zeros(dev.n_rows_padded, 2), "colwise")

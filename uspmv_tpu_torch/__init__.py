@@ -1,15 +1,15 @@
 """uspmv_tpu_torch — Ultimate-SpMV on PyTorch and CUDA.
 
 The port of the ``uspmv_tpu`` JAX package to PyTorch with a hand-written
-CUDA kernel for NVIDIA Hopper (H100). It computes y = A x in the
-SELL-C-sigma format of RRZE-HPC/Ultimate-SpMV, in sp or dp, for one
-right-hand side on one device; the JAX package remains the reference it is
-tested against. Host structures (COO, SCS arrays, permutations) are numpy
-and bit-equal to the JAX package's; device data are torch tensors on an
-explicit device.
+CUDA kernel for NVIDIA Hopper (H100). It computes y = A x and Y = A X
+(block vectors) in the SELL-C-sigma format of RRZE-HPC/Ultimate-SpMV, in
+dp, sp, hp or an adaptive dp/sp/hp split of A's nonzeros, on one device;
+the JAX package remains the reference it is tested against. Host
+structures (COO, SCS arrays, permutations) are numpy and bit-equal to the
+JAX package's; device data are torch tensors on an explicit device.
 
 Precision naming follows the reference (classes_structs.hpp:47-153):
-  dp = float64, sp = float32, hp = bfloat16 (hp not ported yet).
+  dp = float64, sp = float32, hp = bfloat16 values with float32 vectors.
 
 This package never imports jax.
 """
@@ -26,6 +26,7 @@ from .formats.scs import (
 )
 from .io.mmio import read_mtx, write_mtx
 from .ops.scs_spmv import launch_count, spmv_scs, spmv_scs_plain
+from .precision.partition import partition_precisions
 from .runtime.operator import DeviceUnavailableError, SpmvOperator
 
 __all__ = [
@@ -44,6 +45,7 @@ __all__ = [
     "launch_count",
     "spmv_scs",
     "spmv_scs_plain",
+    "partition_precisions",
     "DeviceUnavailableError",
     "SpmvOperator",
 ]

@@ -7,8 +7,10 @@ Port of ``uspmv_tpu/cli.py``, which mirrors the reference binary's CLI
 
 The parser is the JAX package's, whole, so every reference spelling
 parses; ``-backend`` takes cuda (default) or cpu. Bench mode (-mode b) and
-solve mode (-mode s, validated against scipy) run; a flag of a later slice
-raises NotImplementedError. With -backend cuda on a host without a GPU the
+solve mode (-mode s, validated against scipy) run every precision (-dp,
+-sp, -hp, -ap[...], -dp_emu), block vectors (-block_vec_size, -layout),
+-equilibrate, -jacobi_scale and -dropout; a flag of a later slice raises
+NotImplementedError. With -backend cuda on a host without a GPU the
 CLI prints one line and exits with rc 3.
 """
 
@@ -263,9 +265,21 @@ def _main(argv=None) -> int:
     _, y = op.solve(op.make_x(x0), cfg.n_repetitions)
     y_host = op.to_host(y)
     if cfg.validate_result:
+        # the oracle sees the same preprocessed operator: the reference
+        # equilibrates total_mtx before the MKL compare (main.cpp:1753-1754)
+        mtx_oracle = mtx
+        if cfg.equilibrate or cfg.jacobi_scale:
+            from .formats.coo import equilibrate_matrix, jacobi_scale_matrix
+
+            mtx_oracle = mtx.copy()
+            if cfg.jacobi_scale:
+                jacobi_scale_matrix(mtx_oracle)
+            if cfg.equilibrate:
+                equilibrate_matrix(mtx_oracle)
         rep = validate_solve(
-            mtx, x0, np.asarray(y_host, dtype=np.float64),
+            mtx_oracle, x0, np.asarray(y_host, dtype=np.float64),
             cfg.n_repetitions, value_type=cfg.value_type,
+            hp_nnz_fraction=op.hp_nnz_fraction(),
         )
         write_result_to_file(cfg, rep, cfg.n_repetitions)
         if args.json:

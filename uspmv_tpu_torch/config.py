@@ -4,7 +4,12 @@ Port of ``uspmv_tpu/config.py``: one runtime dataclass holding every knob
 of the reference CLI (reference classes_structs.hpp:47-153,
 utilities.hpp:1047-1545). All fields are kept so that the CLI parser ports
 whole; the operator raises ``NotImplementedError`` for values outside the
-ported slice (runtime/operator.py). Device dtypes are torch dtypes.
+ported slices (runtime/operator.py). Device dtypes are torch dtypes.
+
+hp on the host: numpy has no bfloat16, so host hp values are float32
+arrays that carry bf16-rounded values (``host_values``), rounded by torch
+the way ``ml_dtypes`` rounds them in the JAX package; on the device they
+are ``torch.bfloat16`` tensors.
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ PRECISION_DTYPES = {
     "sp": torch.float32,
     "hp": torch.bfloat16,
 }
-# Host-side (numpy) value dtypes of the precisions this port runs; numpy
-# has no bfloat16, and hp is not ported yet.
+# Host-side (numpy) value dtypes; numpy has no bfloat16, so hp values are
+# held as float32 arrays of bf16-rounded values (host_values)
 HOST_DTYPES = {
     "dp": np.dtype(np.float64),
     "sp": np.dtype(np.float32),
+    "hp": np.dtype(np.float32),
 }
 
 AP_VALUE_TYPES = ("ap[dp_sp]", "ap[dp_hp]", "ap[sp_hp]", "ap[dp_sp_hp]")
@@ -43,6 +49,22 @@ BACKENDS = ("cuda", "cpu")
 def dtype_for(prec: str) -> torch.dtype:
     """Torch dtype for a precision name ('dp'|'sp'|'hp')."""
     return PRECISION_DTYPES[prec]
+
+
+def host_values(values: np.ndarray, prec: str) -> np.ndarray:
+    """``values`` in precision ``prec`` on the host: float64 (dp), float32
+    (sp), or float32 carrying bf16-rounded values (hp) — the same numbers
+    the JAX package holds as ``ml_dtypes.bfloat16``."""
+    if prec == "hp":
+        t = torch.from_numpy(np.ascontiguousarray(values))
+        return t.to(torch.bfloat16).to(torch.float32).numpy()
+    return values.astype(HOST_DTYPES[prec])
+
+
+def numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy dtype of a float32/float64 torch dtype."""
+    return {torch.float32: np.dtype(np.float32),
+            torch.float64: np.dtype(np.float64)}[dtype]
 
 
 @dataclasses.dataclass
@@ -101,6 +123,8 @@ class Config:
     n_shards: int = 1
 
     # --- device execution ---
+    # -dp_emu: on the TPU the df64 (hi, lo) float-pair kernel; the GPU has
+    # native f64, so here it runs the dp stream in plain double
     dp_emulation: bool = False
     # 'cuda' runs the hand-written kernel on the current CUDA device and
     # raises when there is none; 'cpu' runs the plain PyTorch version

@@ -3,8 +3,8 @@
 Port of ``uspmv_tpu/formats/coo.py`` (reference ``MtxData``,
 classes_structs.hpp:1169-1238, plus the permutation helpers of
 utilities.hpp). Host-side numpy, int32 indices; every function returns
-arrays bit-equal to the JAX package's for the same input. Scaling and
-heavy-row splitting are not ported yet.
+arrays bit-equal to the JAX package's for the same input. Heavy-row
+splitting is not ported yet.
 """
 
 from __future__ import annotations
@@ -132,6 +132,65 @@ def apply_permutation(vec: np.ndarray, perm: np.ndarray) -> np.ndarray:
     """permuted[i] = vec[perm[i]] (reference apply_permutation,
     utilities.hpp:1768-1781)."""
     return np.asarray(vec)[np.asarray(perm)]
+
+
+# ---------------------------------------------------------------------------
+# Equilibration and Jacobi scaling (reference utilities.hpp:2605-2684)
+# ---------------------------------------------------------------------------
+
+
+def extract_largest_row_elems(mtx: MtxData) -> np.ndarray:
+    """Per-row max |a_ij| (reference extract_largest_row_elems)."""
+    out = np.zeros(mtx.n_rows, dtype=np.float64)
+    np.maximum.at(out, mtx.I, np.abs(mtx.values.astype(np.float64)))
+    return out
+
+
+def extract_largest_col_elems(mtx: MtxData) -> np.ndarray:
+    """Per-column max |a_ij| (reference extract_largest_col_elems)."""
+    out = np.zeros(mtx.n_cols, dtype=np.float64)
+    np.maximum.at(out, mtx.J, np.abs(mtx.values.astype(np.float64)))
+    return out
+
+
+def scale_matrix_rows(mtx: MtxData, largest_row_elems: np.ndarray) -> None:
+    """a_ij /= largest_row_elems[i], in place, in the values' dtype."""
+    mtx.values = (
+        mtx.values / largest_row_elems[mtx.I].astype(mtx.values.dtype)
+    ).astype(mtx.values.dtype)
+
+
+def scale_matrix_cols(mtx: MtxData, largest_col_elems: np.ndarray) -> None:
+    """a_ij /= largest_col_elems[j], in place, in the values' dtype."""
+    mtx.values = (
+        mtx.values / largest_col_elems[mtx.J].astype(mtx.values.dtype)
+    ).astype(mtx.values.dtype)
+
+
+def equilibrate_matrix(mtx: MtxData) -> Tuple[np.ndarray, np.ndarray]:
+    """Row-scale by per-row max |a|, then col-scale the row-scaled matrix by
+    its per-col max |a| (reference order, utilities.hpp:2670-2684). Returns
+    (largest_row_elems, largest_col_elems) for the adaptive-precision
+    partitioner."""
+    lr = extract_largest_row_elems(mtx)
+    scale_matrix_rows(mtx, lr)
+    lc = extract_largest_col_elems(mtx)
+    scale_matrix_cols(mtx, lc)
+    return lr, lc
+
+
+def jacobi_scale_matrix(mtx: MtxData) -> np.ndarray:
+    """Scale each row by its diagonal element, in place (reference
+    jacobi_scale flag, classes_structs.hpp:57). Returns the diagonal."""
+    diag = np.zeros(mtx.n_rows, dtype=np.float64)
+    on_diag = mtx.I == mtx.J
+    diag[mtx.I[on_diag]] = mtx.values[on_diag].astype(np.float64)
+    if np.any(diag == 0.0):
+        raise ValueError("jacobi_scale: matrix has zero diagonal entries")
+    mtx.values = (mtx.values / diag[mtx.I].astype(mtx.values.dtype)).astype(
+        mtx.values.dtype
+    )
+    return diag
 
 
 def extract_matrix_min_mean_max(mtx: MtxData) -> Tuple[float, float, float]:

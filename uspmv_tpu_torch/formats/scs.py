@@ -10,6 +10,10 @@ The JAX package's ``CompactScs`` and ``convert_to_scs_retiled`` are TPU
 lane-tile packing artefacts and are not ported: the CUDA kernel reads this
 layout directly, at the user's (C, sigma).
 
+Values keep the dtype of the COO they come from; hp values are float32
+arrays of bf16-rounded values (config.host_values), which the device format
+casts to bfloat16 exactly.
+
 Degenerate cases (reference README): C=1, sigma=1 => CRS; C=n_rows => ELL;
 sigma=1, C>1 => SELL-P.
 """

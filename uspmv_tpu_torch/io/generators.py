@@ -84,6 +84,94 @@ def random_banded(n: int, bandwidth: int, nnz_per_row: int, seed: int = 7) -> Mt
     ).sort_by_row()
 
 
+def fem_tet3d(nx: int, dofs: int = 3, keep: float = 0.7,
+              seed: int = 7) -> MtxData:
+    """Unstructured-FEM stiffness-matrix structure (SuiteSparse Queen_4147 /
+    af_shell class): a 3-D node grid where each node couples to a random
+    ~``keep`` fraction of its 26 neighbours (symmetrically), then every node
+    expands to a ``dofs``-wide dense block. Row lengths land in the 20-80
+    nnz/row range; values are symmetric and diagonally dominant.
+
+    nx=55, dofs=3 -> ~500k rows, ~28M nnz.
+    """
+    n_nodes = nx ** 3
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n_nodes, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % nx
+    iz = idx // (nx * nx)
+
+    # symmetric node graph: lexicographically positive offsets, mirrored,
+    # so (i, j) present <=> (j, i) present
+    offsets = [
+        (dx, dy, dz)
+        for dz in (-1, 0, 1)
+        for dy in (-1, 0, 1)
+        for dx in (-1, 0, 1)
+        if (dz, dy, dx) > (0, 0, 0)
+    ]
+    I, J = [idx], [idx]
+    for dx, dy, dz in offsets:
+        m = np.ones(n_nodes, dtype=bool)
+        if dx:
+            m &= (ix + dx >= 0) & (ix + dx < nx)
+        if dy:
+            m &= (iy + dy >= 0) & (iy + dy < nx)
+        if dz:
+            m &= (iz + dz >= 0) & (iz + dz < nx)
+        m &= rng.random(n_nodes) < keep
+        src = idx[m]
+        dst = src + dx + dy * nx + dz * nx * nx
+        I += [src, dst]
+        J += [dst, src]
+    I = np.concatenate(I)
+    J = np.concatenate(J)
+
+    # dofs-wide dense blocks: node edge (a, b) -> all (a*d+p, b*d+q)
+    d = int(dofs)
+    p = np.arange(d, dtype=np.int64)
+    bI = (I[:, None] * d + np.repeat(p, d)[None, :]).reshape(-1)
+    bJ = (J[:, None] * d + np.tile(p, d)[None, :]).reshape(-1)
+    # symmetric values: hash the unordered dof-pair key
+    lo = np.minimum(bI, bJ)
+    hi = np.maximum(bI, bJ)
+    key = (lo * (n_nodes * d) + hi).astype(np.uint64)
+    key ^= key >> 33
+    key *= np.uint64(0xFF51AFD7ED558CCD)
+    key ^= key >> 33
+    vals = -(key.astype(np.float64) / 2.0**64) - 0.05  # in (-1.05, -0.05)
+    diag = bI == bJ
+    m = MtxData.from_arrays(
+        bI[~diag], bJ[~diag], vals[~diag],
+        n_rows=n_nodes * d, n_cols=n_nodes * d,
+    )
+    # diagonally dominant diagonal: sum of |off-diagonals| per row + 1
+    rowsum = np.bincount(m.I, weights=np.abs(m.values), minlength=n_nodes * d)
+    dI = np.arange(n_nodes * d, dtype=np.int64)
+    return MtxData.from_arrays(
+        np.concatenate([m.I, dI]), np.concatenate([m.J, dI]),
+        np.concatenate([m.values, rowsum + 1.0]),
+        n_rows=n_nodes * d, n_cols=n_nodes * d,
+    ).sort_by_row()
+
+
+def wide_spectrum(nx: int, decades: float = 8.0, dofs: int = 3,
+                  seed: int = 7) -> MtxData:
+    """``fem_tet3d``'s structure with values log-uniform over ``decades``
+    orders of magnitude: the matrix class the 3-way ap[dp_sp_hp] split
+    exists for (reference utilities.hpp:3042-3121). Diagonal entries are
+    pinned to the top decade."""
+    m = fem_tet3d(nx, dofs=dofs, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    mag = np.power(10.0, -rng.random(m.nnz) * decades)
+    sign = rng.choice([-1.0, 1.0], m.nnz)
+    values = mag * sign
+    diag = m.I == m.J
+    values[diag] = np.power(10.0, -rng.random(int(diag.sum()))) * 4.0
+    m.values[:] = values
+    return m
+
+
 def tridiag(n: int, diag: float = 2.0, off: float = -1.0) -> MtxData:
     idx = np.arange(n, dtype=np.int64)
     rows = np.concatenate([idx, idx[1:], idx[:-1]])
@@ -98,6 +186,8 @@ _GENERATORS = {
     "Laplace2D": laplace2d,
     "Laplace3D": laplace3d,
     "RandomBanded": random_banded,
+    "FemTet3D": fem_tet3d,
+    "WideSpectrum": wide_spectrum,
     "Tridiag": tridiag,
 }
 

@@ -11,11 +11,11 @@ the plain PyTorch version (ops/scs_spmv.spmv_scs_plain) reads.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..config import HOST_DTYPES
 from ..formats.scs import ScsData
 
 
@@ -26,7 +26,7 @@ class DeviceScs:
     chunk_ptrs: torch.Tensor  # int32 [n_chunks + 1]
     chunk_lengths: torch.Tensor  # int32 [n_chunks]
     col_idxs: torch.Tensor  # int32 [n_elements]
-    values: torch.Tensor  # [n_elements], the precision's dtype
+    values: torch.Tensor  # [n_elements]: float64, float32 or bfloat16
     row_idxs: torch.Tensor  # int32 [n_elements], permuted row of each element
 
     C: int
@@ -43,8 +43,8 @@ class DeviceScs:
         return self.values.device
 
     def stream_bytes(self) -> int:
-        """Matrix bytes the kernel streams per SpMV: values + col_idxs +
-        chunk metadata (x and y are counted by the caller)."""
+        """Matrix bytes the kernel streams per SpMV: values (8, 4 or 2 B)
+        + col_idxs + chunk metadata (x and y are counted by the caller)."""
         return sum(
             t.numel() * t.element_size()
             for t in (self.values, self.col_idxs, self.chunk_ptrs,
@@ -58,22 +58,33 @@ class DeviceScs:
         return self.nnz / self.n_elements if self.n_elements else 1.0
 
 
-def build_device_scs(scs: ScsData, device: torch.device) -> DeviceScs:
-    """Host ScsData -> DeviceScs on ``device``."""
-    if scs.values.dtype not in HOST_DTYPES.values():
-        raise NotImplementedError(
-            f"device values of dtype {scs.values.dtype} are not ported yet "
-            "(sp and dp only)"
-        )
+_VALUE_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
+
+
+def build_device_scs(
+    scs: ScsData, device: torch.device, dtype: Optional[torch.dtype] = None
+) -> DeviceScs:
+    """Host ScsData -> DeviceScs on ``device``, values in ``dtype``
+    (default: the host values' own dtype). hp passes ``torch.bfloat16``
+    for float32 host values that carry bf16-rounded numbers, so the cast
+    is exact."""
 
     def put(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    values = torch.from_numpy(np.ascontiguousarray(scs.values))
+    if dtype is not None:
+        values = values.to(dtype)
+    if values.dtype not in _VALUE_DTYPES:
+        raise TypeError(
+            f"device values must be one of {_VALUE_DTYPES}, not {values.dtype}"
+        )
 
     return DeviceScs(
         chunk_ptrs=put(scs.chunk_ptrs.astype(np.int32)),
         chunk_lengths=put(scs.chunk_lengths.astype(np.int32)),
         col_idxs=put(scs.col_idxs.astype(np.int32)),
-        values=put(scs.values),
+        values=values.to(device),
         row_idxs=put(scs.flat_row_idx()),
         C=scs.C,
         n_rows=scs.n_rows,

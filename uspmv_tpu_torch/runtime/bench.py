@@ -51,6 +51,7 @@ class BenchResult:
     beta: Dict[str, float]
     device_beta: Dict[str, float]
     nnz_per_precision: Dict[str, int]
+    n_dropped: int  # elements the AP -dropout removed
     memory_footprint_bytes: int
     n_rows: int
     platform: str  # 'cuda' | 'cpu'
@@ -129,6 +130,7 @@ def bench_spmv(
         beta=op.beta(),
         device_beta=op.device_beta(),
         nnz_per_precision=op.nnz_per_precision(),
+        n_dropped=op.n_dropped,
         memory_footprint_bytes=op.bytes_per_spmv(),
         n_rows=op.n_rows,
         platform=op.device.type,

@@ -51,6 +51,15 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
             f"  [{p}] nnz={res.nnz_per_precision[p]} ({pct:.1f}%) "
             f"beta={res.beta[p]:.4f} device_beta={res.device_beta[p]:.4f}"
         )
+    if cfg.is_ap or cfg.dropout:
+        # reference main.cpp:895-905 prints the per-precision split
+        lines.append(f"  n_dropped={res.n_dropped}")
+    if cfg.block_vec_size > 1 and cfg.vector_layout == "colwise":
+        lines.append(
+            f"note: colwise SpMMV streams the matrix once per vector "
+            f"({cfg.block_vec_size} passes); -layout rowwise streams it once "
+            "for up to 8 vectors"
+        )
     lines.append("")
     return "\n".join(lines)
 

@@ -51,6 +51,17 @@ GENERATED = {
     "wide_spectrum(6)": lambda g: g.wide_spectrum(6),
     "fem_tet3d(5,2,0.5,3)": lambda g: g.fem_tet3d(5, 2, 0.5, 3),
     "wide_spectrum(4,3.0)": lambda g: g.wide_spectrum(4, 3.0),
+    # the zero-locality / heavy-tail classes, with the arguments and seeds
+    # of the JAX package's bench.py at a small n, and others
+    "random_imbalanced(3000,8)": lambda g: g.random_imbalanced(3000, 8),
+    "banded_imbalanced(3000,64,8,seed=7)": lambda g: g.banded_imbalanced(
+        3000, bandwidth=64, avg_nnz_per_row=8, seed=7),
+    "powerlaw_cols(3000,8)": lambda g: g.powerlaw_cols(3000, 8),
+    "random_imbalanced(500,5,1.1,3)": lambda g: g.random_imbalanced(
+        500, 5, 1.1, 3),
+    "banded_imbalanced(40000,16,4,0.5,11)": lambda g: g.banded_imbalanced(
+        40000, 16, 4, 0.5, 11),
+    "powerlaw_cols(700,3,1.5,2)": lambda g: g.powerlaw_cols(700, 3, 1.5, 2),
 }
 
 
@@ -62,7 +73,9 @@ def test_generators_bit_equal(name):
 
 @pytest.mark.parametrize("spec", ["Laplace3D,5", "RandomBanded,300,20,7",
                                   "Tridiag,40", "Laplace2D,6", "FemTet3D,4",
-                                  "WideSpectrum,4"])
+                                  "WideSpectrum,4", "RandomImbalanced,400,6",
+                                  "BandedImbalanced,900,32,6",
+                                  "PowerLawCols,500,5"])
 def test_generate_matrix_spec_bit_equal(spec):
     assert_same(jgen.generate_matrix(spec), tgen.generate_matrix(spec))
 

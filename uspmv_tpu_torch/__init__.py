@@ -25,6 +25,7 @@ from .formats.scs import (
     scs_from_reference,
 )
 from .io.mmio import read_mtx, write_mtx
+from .ops.scs_solve import solve_scs, solve_scs_plain
 from .ops.scs_spmv import launch_count, spmv_scs, spmv_scs_plain
 from .precision.partition import partition_precisions
 from .runtime.operator import DeviceUnavailableError, SpmvOperator
@@ -45,6 +46,8 @@ __all__ = [
     "launch_count",
     "spmv_scs",
     "spmv_scs_plain",
+    "solve_scs",
+    "solve_scs_plain",
     "partition_precisions",
     "DeviceUnavailableError",
     "SpmvOperator",

@@ -9,7 +9,11 @@ The parser is the JAX package's, whole, so every reference spelling
 parses; ``-backend`` takes cuda (default) or cpu. Bench mode (-mode b) and
 solve mode (-mode s, validated against scipy) run every precision (-dp,
 -sp, -hp, -ap[...], -dp_emu), block vectors (-block_vec_size, -layout),
--equilibrate, -jacobi_scale and -dropout; a flag of a later slice raises
+-equilibrate, -jacobi_scale and -dropout; solve mode runs
+``SpmvOperator.solve`` (one CUDA graph of the -rev launches on a GPU, the
+fused solve kernel when ``USPMV_FUSED_SOLVE`` is set and the operator is
+eligible, a loop on the CPU) and prints which one ran; a flag of a later
+slice raises
 NotImplementedError. With -backend cuda on a host without a GPU the
 CLI prints one line and exits with rc 3.
 """
@@ -262,6 +266,8 @@ def _main(argv=None) -> int:
     from .ops.vectors import init_x_host
 
     x0 = init_x_host(cfg, op.n_rows, op.matrix_stats, dtype=np.float64)
+    solve_impl = (f"solve-{op.solve_impl_name(cfg.n_repetitions)}"
+                  f"[{op.impl_name()}]")
     _, y = op.solve(op.make_x(x0), cfg.n_repetitions)
     y_host = op.to_host(y)
     if cfg.validate_result:
@@ -281,13 +287,15 @@ def _main(argv=None) -> int:
             cfg.n_repetitions, value_type=cfg.value_type,
             hp_nnz_fraction=op.hp_nnz_fraction(),
         )
-        write_result_to_file(cfg, rep, cfg.n_repetitions)
+        write_result_to_file(cfg, rep, cfg.n_repetitions, impl=solve_impl)
         if args.json:
-            print(json.dumps({"validation": dataclasses.asdict(rep)}))
+            print(json.dumps({"validation": dataclasses.asdict(rep),
+                              "impl": solve_impl}))
         else:
-            print(format_result_block(cfg, rep, cfg.n_repetitions))
+            print(format_result_block(cfg, rep, cfg.n_repetitions,
+                                      solve_impl))
         return 0 if rep.ok else 1
-    print("solve completed (validation disabled)")
+    print(f"solve completed (validation disabled), impl: {solve_impl}")
     return 0
 
 

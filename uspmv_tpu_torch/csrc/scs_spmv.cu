@@ -5,6 +5,8 @@
 //   `_kernel_windowed`       (:1478, the same, x DMA'd in VMEM windows)
 //   `_kernel_df64`           (:761,  launched by `_spmv_lane_tiles_df64`)
 //   `_kernel_df64_windowed`  (:1579, the same, x DMA'd in VMEM windows)
+// (`_kernel_solve`, :1898, k iterations in one launch, is answered by
+// scs_solve.cu, which shares this kernel's row sum through scs_row.cuh.)
 // On the TPU those gather x through (8,128) register tiles from a VMEM
 // window; the windowed variants stream per-group x windows by DMA once x
 // exceeds the VMEM budget; and the df64 pair emulates f64 with (hi, lo)
@@ -68,20 +70,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "scs_row.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;
+using uspmv::kMaxCols;
+using uspmv::kThreads;
+using uspmv::ScsMatrix;
+
 constexpr int kMaxGridY = 65535;
 
 // One launch: a precision stream's SCS arrays, x and y with their strides.
 struct ScsArgs {
-  int64_t n_rows_padded;
-  int C;
-  const int32_t* chunk_ptrs;
-  const int32_t* chunk_lengths;
-  const int32_t* col_idxs;
-  const void* values;
+  ScsMatrix m;
   const void* x;
   int64_t x_ld;       // elements between the rows of x (bs rowwise, else 1)
   int64_t x_vstride;  // elements between colwise vectors (gridDim.y)
@@ -92,12 +93,6 @@ struct ScsArgs {
   int accumulate;
 };
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ double widen(double v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 // BS accumulators per thread; kFull: ncols == BS (no column guard);
 // kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV.
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit>
@@ -105,37 +100,18 @@ __global__ void __launch_bounds__(kThreads)
 scs_spmv_kernel(const ScsArgs a) {
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= a.n_rows_padded) {
+  if (r >= a.m.n_rows_padded) {
     return;
   }
-  const Tv* __restrict__ values = static_cast<const Tv*>(a.values);
   const Tx* __restrict__ x = static_cast<const Tx*>(a.x) +
                              static_cast<int64_t>(blockIdx.y) * a.x_vstride;
   Tx* __restrict__ y =
       static_cast<Tx*>(a.y) + static_cast<int64_t>(blockIdx.y) * a.y_vstride;
   const int64_t x_ld = kUnit ? 1 : a.x_ld;
   const int64_t y_ld = kUnit ? 1 : a.y_ld;
-  const int C = a.C;
-  const int64_t c = r / C;
-  const int64_t i = r - c * C;
-  const int32_t len = __ldg(a.chunk_lengths + c);
-  const int64_t base = static_cast<int64_t>(__ldg(a.chunk_ptrs + c)) + i;
   Tx acc[BS];
-#pragma unroll
-  for (int v = 0; v < BS; ++v) {
-    acc[v] = Tx(0);
-  }
-  for (int32_t j = 0; j < len; ++j) {
-    const int64_t e = base + static_cast<int64_t>(j) * C;
-    const Tx val = static_cast<Tx>(widen(__ldg(values + e)));
-    const Tx* xr = x + static_cast<int64_t>(__ldg(a.col_idxs + e)) * x_ld;
-#pragma unroll
-    for (int v = 0; v < BS; ++v) {
-      if (kFull || v < a.ncols) {
-        acc[v] += val * __ldg(xr + v);
-      }
-    }
-  }
+  uspmv::scs_row_product<Tv, Tx, BS, kFull, true>(a.m, x, x_ld, r, a.ncols,
+                                                  acc);
   Tx* yr = y + r * y_ld;
 #pragma unroll
   for (int v = 0; v < BS; ++v) {
@@ -167,12 +143,10 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   if (blocks > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const ScsArgs a{n_rows_padded,
-                  C,
-                  static_cast<const int32_t*>(chunk_ptrs),
-                  static_cast<const int32_t*>(chunk_lengths),
-                  static_cast<const int32_t*>(col_idxs),
-                  values,
+  const ScsArgs a{{n_rows_padded, C,
+                   static_cast<const int32_t*>(chunk_ptrs),
+                   static_cast<const int32_t*>(chunk_lengths),
+                   static_cast<const int32_t*>(col_idxs), values},
                   x,
                   x_ld,
                   x_vstride,

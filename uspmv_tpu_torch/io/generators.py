@@ -84,6 +84,77 @@ def random_banded(n: int, bandwidth: int, nnz_per_row: int, seed: int = 7) -> Mt
     ).sort_by_row()
 
 
+def random_imbalanced(n: int, avg_nnz_per_row: int, alpha: float = 1.3, seed: int = 7) -> MtxData:
+    """Power-law row lengths: stresses sigma-window sorting and seg-nnz
+    partitioning (the workloads the reference's chunk-occupancy machinery
+    exists for). Columns are uniform-random: no locality."""
+    rng = np.random.default_rng(seed)
+    raw = rng.pareto(alpha, size=n) + 1.0
+    lens = np.maximum(1, (raw / raw.mean() * avg_nnz_per_row)).astype(np.int64)
+    lens = np.minimum(lens, n)
+    rows = np.repeat(np.arange(n, dtype=np.int64), lens)
+    cols = rng.integers(0, n, size=rows.size)
+    vals = rng.standard_normal(rows.size)
+    key = rows * n + cols
+    _, first = np.unique(key, return_index=True)
+    first.sort()
+    return MtxData.from_arrays(
+        rows[first], cols[first], vals[first], n_rows=n, n_cols=n
+    ).sort_by_row()
+
+
+def banded_imbalanced(
+    n: int, bandwidth: int = 64, avg_nnz_per_row: int = 8,
+    alpha: float = 1.3, seed: int = 7,
+) -> MtxData:
+    """Banded matrix with power-law row lengths: columns stay within a
+    diagonal band but row lengths are heavy-tailed, the regime where
+    sigma-sorting and heavy-row handling pay."""
+    rng = np.random.default_rng(seed)
+    # mostly Poisson(avg) rows with a heavy tail: alpha controls the tail
+    # fraction (~0.1% at 1.3) whose rows fill the whole band
+    counts = rng.poisson(max(avg_nnz_per_row - 1, 1), n) + 1
+    tail = rng.random(n) < 10 ** (-alpha - 1.7)
+    counts = np.where(tail, 2 * bandwidth + 1, counts).astype(np.int64)
+    counts = np.minimum(counts, 2 * bandwidth + 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+    offs = rng.integers(-bandwidth, bandwidth + 1, rows.size)
+    cols = np.clip(rows + offs, 0, n - 1)
+    vals = rng.standard_normal(rows.size)
+    # deduplicate (i, j)
+    key = rows * n + cols
+    _, first = np.unique(key, return_index=True)
+    return MtxData.from_arrays(
+        rows[first], cols[first], vals[first], n_rows=n, n_cols=n
+    ).sort_by_row()
+
+
+def powerlaw_cols(n: int, avg_nnz_per_row: int = 8, alpha: float = 1.0,
+                  seed: int = 7) -> MtxData:
+    """Power-law COLUMN popularity (SuiteSparse dlr1-class radiosity/graph
+    workloads): column j is referenced with probability ~ 1/(j+1)^alpha, so
+    a few hub columns appear in a large fraction of rows while the tail is
+    near-uniform. Zero row locality, zero diagonal structure."""
+    rng = np.random.default_rng(seed)
+    lens = rng.poisson(max(avg_nnz_per_row - 1, 1), n) + 1
+    rows = np.repeat(np.arange(n, dtype=np.int64), lens)
+    # Zipf-ish columns via inverse-CDF on the normalized weight cumsum;
+    # a random permutation decouples popularity from column index
+    w = 1.0 / np.power(np.arange(1, n + 1, dtype=np.float64), alpha)
+    cdf = np.cumsum(w)
+    cdf /= cdf[-1]
+    ranks = np.searchsorted(cdf, rng.random(rows.size))
+    colmap = rng.permutation(n).astype(np.int64)
+    cols = colmap[np.minimum(ranks, n - 1)]
+    vals = rng.standard_normal(rows.size)
+    key = rows * n + cols
+    _, first = np.unique(key, return_index=True)
+    first.sort()
+    return MtxData.from_arrays(
+        rows[first], cols[first], vals[first], n_rows=n, n_cols=n
+    ).sort_by_row()
+
+
 def fem_tet3d(nx: int, dofs: int = 3, keep: float = 0.7,
               seed: int = 7) -> MtxData:
     """Unstructured-FEM stiffness-matrix structure (SuiteSparse Queen_4147 /
@@ -186,6 +257,9 @@ _GENERATORS = {
     "Laplace2D": laplace2d,
     "Laplace3D": laplace3d,
     "RandomBanded": random_banded,
+    "RandomImbalanced": random_imbalanced,
+    "BandedImbalanced": banded_imbalanced,
+    "PowerLawCols": powerlaw_cols,
     "FemTet3D": fem_tet3d,
     "WideSpectrum": wide_spectrum,
     "Tridiag": tridiag,

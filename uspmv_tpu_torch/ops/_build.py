@@ -2,9 +2,11 @@
 
 Every ``csrc/*.cu`` of this package is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes. The build runs at first use, into ``build/uspmv_tpu_torch/`` at the
-root of the checkout, under a name that carries a hash of the sources and
-flags, so a changed source rebuilds and an unchanged one loads at once.
+ctypes: one nvcc call, which compiles the sources in parallel (``--threads 0``).
+The build runs at first use, into ``build/uspmv_tpu_torch/`` at the
+root of the checkout, under a name that carries a hash of the flags, the
+sources and the headers they share (``csrc/*.cuh``), so a changed source or
+header rebuilds and an unchanged tree loads at once.
 No nvcc, or a failed build, raises: nothing falls back to the plain
 PyTorch versions.
 """
@@ -26,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "--threads", "0",
 )
 
 
@@ -69,8 +71,9 @@ def _sources() -> list:
 
 
 def _digest(sources: list) -> str:
+    """Hash of the flags, the sources and the headers they share."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

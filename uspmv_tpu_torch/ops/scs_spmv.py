@@ -3,7 +3,9 @@
 Port of ``spmv_lane_tiles`` and ``_spmv_lane_tiles_df64``
 (uspmv_tpu/ops/pallas_scs.py). ``spmv_scs(dev, x)`` returns y = A x in the
 permuted, padded row order; ``spmv_scs(dev, x, y=y)`` adds A x into y in
-place, the form the adaptive-precision sum uses. For CUDA tensors it
+place, the form the adaptive-precision sum uses; ``spmv_scs(dev, x, out=y)``
+writes A x into a buffer the caller owns, the form a CUDA graph of a solve
+needs (static ping-pong vectors). For CUDA tensors it
 launches the hand-written kernel of ``csrc/scs_spmv.cu``; for CPU tensors it
 runs ``spmv_scs_plain``. Any failure to build or launch the kernel raises,
 and so does a pair of dtypes the kernel does not take.
@@ -19,8 +21,9 @@ columns (bs > 8 in passes of <= 8 columns); colwise block vectors
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -45,6 +48,8 @@ MAX_VECTORS = 65535  # colwise vectors in one launch (gridDim.y)
 LAYOUTS = ("rowwise", "colwise")
 
 _launches: Dict[str, int] = {name: 0 for name in _ENTRY_POINTS.values()}
+# while a CUDA graph is captured: the kernel nodes enqueued, per entry point
+_captured: Optional[Dict[str, int]] = None
 _lib = None
 
 
@@ -61,6 +66,22 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_count() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+@contextlib.contextmanager
+def record_captured_launches() -> Iterator[Dict[str, int]]:
+    """Inside a CUDA-graph capture a call to ``spmv_scs`` adds a kernel node
+    to the graph and launches nothing. Within this context such calls are
+    counted into the yielded dict (entry point -> nodes) and not into the
+    launch count, which holds launches this wrapper made itself and nothing
+    else. Whoever owns the graph keeps the dict and its own count of
+    replays (runtime/operator.graph_nodes_replayed)."""
+    global _captured
+    _captured = {}
+    try:
+        yield _captured
+    finally:
+        _captured = None
 
 
 def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
@@ -99,6 +120,7 @@ def _out_shape(dev: DeviceScs, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
 
 def _check_args(dev: DeviceScs, x: torch.Tensor, layout: str,
                 y: Optional[torch.Tensor]) -> None:
+    """``y``: the vector the product is added into or written to, if any."""
     entry_point(dev.values.dtype, x.dtype)
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
@@ -120,7 +142,8 @@ def _check_args(dev: DeviceScs, x: torch.Tensor, layout: str,
         shape = _out_shape(dev, x, layout)
         if tuple(y.shape) != shape or y.dtype != x.dtype or y.device != x.device:
             raise ValueError(
-                f"y to accumulate into must be {x.dtype} of shape {shape} on "
+                f"y to accumulate or write into must be {x.dtype} of shape "
+                f"{shape} on "
                 f"{x.device}; got {y.dtype} {tuple(y.shape)} on {y.device}"
             )
 
@@ -162,21 +185,35 @@ def _launch(lib, name: str, dev: DeviceScs, x_ptr: int, x_ld: int,
         raise RuntimeError(
             f"scs_spmv kernel {name} launch failed: {msg} (cudaError {rc})"
         )
-    _launches[name] += 1
+    if _captured is not None:
+        _captured[name] = _captured.get(name, 0) + 1
+    else:
+        _launches[name] += 1
 
 
 def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
-             y: Optional[torch.Tensor] = None) -> torch.Tensor:
+             y: Optional[torch.Tensor] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = A x for x in the permuted, padded layout ([n_pad], rowwise
     [n_pad, bs] or colwise [bs, n_pad]); with ``y`` given, y += A x in
-    place. Returns y in x's dtype."""
-    _check_args(dev, x, layout, y)
+    place; with ``out`` given, out = A x written into the caller's buffer
+    (which must not be x). Returns y in x's dtype."""
+    if y is not None and out is not None:
+        raise ValueError("give y (accumulate into) or out (write to), not both")
+    _check_args(dev, x, layout, y if out is None else out)
+    if out is not None and out.data_ptr() == x.data_ptr():
+        raise ValueError("out must not be x: rows read x while others write")
     if x.device.type == "cpu":
+        if out is not None:
+            return out.copy_(spmv_scs_plain(dev, x, layout))
         return spmv_scs_plain(dev, x, layout, y)
     if x.device.type != "cuda":
         raise ValueError(f"spmv_scs runs on cuda or cpu tensors, not {x.device}")
     name = entry_point(dev.values.dtype, x.dtype)
     tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values, x)
+    accumulate = y is not None
+    if out is not None:
+        y = out
     if not all(t.is_contiguous() for t in tensors) or (
         y is not None and not y.is_contiguous()
     ):
@@ -184,7 +221,6 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     if not (dev.chunk_ptrs.dtype == dev.chunk_lengths.dtype
             == dev.col_idxs.dtype == torch.int32):
         raise TypeError("chunk_ptrs, chunk_lengths and col_idxs must be int32")
-    accumulate = y is not None
     if y is None:
         y = torch.empty(_out_shape(dev, x, layout), dtype=x.dtype,
                         device=x.device)

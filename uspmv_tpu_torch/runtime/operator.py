@@ -15,15 +15,20 @@ vector or a block of vectors (SpMMV, rowwise or colwise). Pipeline
 Unlike the JAX package, the port does not re-tile (C, sigma) into
 1024-row lane-tile chunks: the CUDA kernel runs the user's layout as it
 is. -dp_emu runs native f64 (the TPU's df64 pairs are not needed). Heavy
-rows are not split. Everything outside the ported slices raises
+rows are not split. Solve mode (k repetitions of y = A x with a swap) runs
+as a Python loop of launches, as one CUDA graph of those launches (the
+counterpart of the JAX operator's jitted ``lax.scan``) or as one launch of
+the fused solve kernel (ops/scs_solve.py, the counterpart of its opt-in
+``solve_lane_tiles``). Everything outside the ported slices raises
 ``NotImplementedError`` naming the later slice that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +42,8 @@ from ..formats.coo import (
 )
 from ..formats.scs import ScsData, convert_to_scs, permute_scs_cols
 from ..ops.device_format import DeviceScs, build_device_scs
-from ..ops.scs_spmv import spmv_scs
+from ..ops.scs_solve import solve_fits, solve_scs
+from ..ops.scs_spmv import record_captured_launches, spmv_scs
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
 from ..precision.partition import partition_precisions
 
@@ -110,6 +116,37 @@ def guard_scs_explosion(mtx: MtxData, C: int, sigma: int):
     return C, sigma
 
 
+SOLVE_IMPLS = ("fused", "graph", "loop")
+MAX_SOLVE_GRAPHS = 4  # captured graphs an operator keeps, least recent out
+
+# kernel nodes replayed by the graph solves of this process, per SpMV entry
+# point: bookkeeping from capture time times the replays, kept apart from
+# the wrappers' launch counts, which hold launches they made themselves
+_graph_nodes_replayed: Dict[str, int] = {}
+
+
+def graph_nodes_replayed() -> Dict[str, int]:
+    """Kernel nodes replayed by ``SpmvOperator.solve(impl="graph")``, per
+    SpMV entry point. A replay launches its nodes on the card without
+    passing through ``spmv_scs``, so they are no part of its launch
+    count."""
+    return dict(_graph_nodes_replayed)
+
+
+def reset_graph_nodes_replayed() -> None:
+    _graph_nodes_replayed.clear()
+
+
+@dataclasses.dataclass
+class _SolveGraph:
+    """k captured iterations of ``SpmvOperator.spmv`` over static vectors."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x_in: torch.Tensor  # iteration 0 reads it
+    bufs: Tuple[torch.Tensor, torch.Tensor]  # iteration i writes bufs[i & 1]
+    nodes: Dict[str, int]  # kernel nodes per replay, by entry point
+
+
 @dataclasses.dataclass
 class SpmvOperator:
     config: Config
@@ -124,6 +161,9 @@ class SpmvOperator:
     n_dropped: int = 0
     jacobi_diag: Optional[np.ndarray] = None
     equilib: Optional[tuple] = None
+    # captured solve graphs by (k, x shape, x dtype), most recent last,
+    # at most MAX_SOLVE_GRAPHS of them
+    _solve_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ----------------------------------------------------------------- build
 
@@ -237,25 +277,140 @@ class SpmvOperator:
     def working_dtype(self) -> torch.dtype:
         return self.config.working_dtype()
 
-    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+    def spmv(self, x: torch.Tensor,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One y = A x in device layout (permuted/padded). Adaptive
         precision sums the streams in order, highest precision first: the
         first writes y, each later one adds into it (the JAX closure's
-        y = y + y_k)."""
+        y = y + y_k). With ``out`` given, y is written into that buffer
+        (not x itself) instead of a new tensor."""
         layout = self.config.vector_layout
         y = None
         for dev in self.devs.values():
-            y = spmv_scs(dev, x, layout, y)
+            if y is None:
+                y = spmv_scs(dev, x, layout, out=out)
+            else:
+                spmv_scs(dev, x, layout, y)
         return y
 
-    def solve(self, x: torch.Tensor, n_repetitions: int) -> tuple:
+    def fused_solve_eligible(self) -> bool:
+        """Whether solve mode can run k iterations in ONE launch of the
+        fused solve kernel (ops/scs_solve.solve_scs): a single precision
+        stream (no adaptive-precision sum), one vector or rowwise block
+        vectors of at most 8 columns, a square operator. The counterpart of
+        the JAX operator's ``_fused_solve_eligible`` without its VMEM and
+        df64 limits; the opt-in (``USPMV_FUSED_SOLVE``) is read by
+        ``solve_impl_name``, not here."""
+        if len(self.devs) != 1:
+            return False
+        (dev,) = self.devs.values()
+        bs = self.config.block_vec_size
+        shape = ((self.n_rows_padded,) if bs == 1
+                 else (self.n_rows_padded, bs)
+                 if self.config.vector_layout == "rowwise"
+                 else (bs, self.n_rows_padded))
+        return solve_fits(dev, shape, self.working_dtype,
+                          self.config.vector_layout)
+
+    def solve_impl_name(self, n_repetitions: int = 2,
+                        impl: Optional[str] = None) -> str:
+        """Which implementation ``solve(x, n_repetitions, impl)`` runs:
+        "fused", "graph" or "loop". With impl=None, the JAX package's own
+        rule: the fused kernel only when ``USPMV_FUSED_SOLVE`` is set and
+        the operator is eligible, else one CUDA graph of the launches on a
+        CUDA device for more than one repetition, else the loop."""
+        if impl is not None:
+            if impl not in SOLVE_IMPLS:
+                raise ValueError(
+                    f"solve impl must be one of {SOLVE_IMPLS}, not {impl!r}")
+            return impl
+        if os.environ.get("USPMV_FUSED_SOLVE") and self.fused_solve_eligible():
+            return "fused"
+        if self.device.type == "cuda" and n_repetitions > 1:
+            return "graph"
+        return "loop"
+
+    def solve(self, x: torch.Tensor, n_repetitions: int,
+              impl: Optional[str] = None) -> tuple:
         """Solve mode: n_repetitions of y = A x with x<->y swap (reference
         main.cpp:528-607 + swap_local_vectors). Returns (x_last_input,
-        y_result) after the final iteration, device layout."""
+        y_result) after the final iteration, device layout; both are the
+        caller's to keep (the graph path copies them out of its static
+        buffers, which the next solve overwrites; it keeps the graphs of
+        the MAX_SOLVE_GRAPHS most recent (n_repetitions, x shape, dtype),
+        each with three vectors of x's size, so a caller who varies
+        n_repetitions widely pays a capture per new value).
+
+        ``impl``: "loop", a Python loop of launches; "graph", the same
+        launches captured once per (n_repetitions, x shape, dtype) into a
+        CUDA graph and replayed (CUDA devices only); "fused", one launch of
+        the fused solve kernel, which raises on an operator that
+        ``fused_solve_eligible`` refuses. None picks by ``solve_impl_name``.
+        All three give the same bits on a CUDA device."""
+        impl = self.solve_impl_name(n_repetitions, impl)
+        if impl == "fused":
+            if not self.fused_solve_eligible():
+                raise ValueError(
+                    "the fused solve kernel takes one precision stream with "
+                    "one vector or rowwise block vectors of <= 8 columns; "
+                    f"this operator is {self.config.value_type}, "
+                    f"block_vec_size={self.config.block_vec_size} "
+                    f"{self.config.vector_layout}. Use impl='graph' or "
+                    "'loop'."
+                )
+            if n_repetitions < 1:
+                return torch.zeros_like(x), x
+            (dev,) = self.devs.values()
+            return solve_scs(dev, x, n_repetitions, self.config.vector_layout)
+        if impl == "graph":
+            return self._solve_graph(x, n_repetitions)
         prev = torch.zeros_like(x)
         for _ in range(n_repetitions):
             prev, x = x, self.spmv(x)
         return prev, x
+
+    def _solve_graph(self, x: torch.Tensor, k: int) -> tuple:
+        if x.device.type != "cuda":
+            raise ValueError(
+                f"solve impl 'graph' needs a CUDA device, x is on {x.device}; "
+                "use impl='loop'"
+            )
+        if k < 1:
+            return torch.zeros_like(x), x
+        key = (k, tuple(x.shape), x.dtype)
+        g = self._solve_graphs.pop(key, None)
+        if g is None:
+            while len(self._solve_graphs) >= MAX_SOLVE_GRAPHS:
+                del self._solve_graphs[next(iter(self._solve_graphs))]
+            g = self._capture_solve(x, k)
+        self._solve_graphs[key] = g
+        g.x_in.copy_(x)
+        g.graph.replay()
+        for name, n in g.nodes.items():
+            _graph_nodes_replayed[name] = _graph_nodes_replayed.get(name, 0) + n
+        prev = x if k == 1 else g.bufs[k & 1].clone()
+        return prev, g.bufs[(k - 1) & 1].clone()
+
+    def _capture_solve(self, x: torch.Tensor, k: int) -> _SolveGraph:
+        """Capture k iterations of ``spmv`` over static vectors. The
+        kernels are built, loaded and launched once on a side stream
+        first: none of that is legal inside a capture."""
+        x_in = torch.empty_like(x)
+        bufs = (torch.empty_like(x), torch.empty_like(x))
+        x_in.copy_(x)
+        side = torch.cuda.Stream(device=x.device)
+        side.wait_stream(torch.cuda.current_stream(x.device))
+        with torch.cuda.stream(side):
+            self.spmv(x_in, out=bufs[0])
+        torch.cuda.current_stream(x.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with record_captured_launches() as nodes:
+            with torch.cuda.graph(graph):
+                src = x_in
+                for it in range(k):
+                    src = self.spmv(src, out=bufs[it & 1])
+        return _SolveGraph(graph=graph, x_in=x_in, bufs=bufs,
+                           nodes=dict(nodes))
 
     # ------------------------------------------------------------- vectors
 

@@ -75,7 +75,10 @@ def write_bench_to_file(cfg: Config, res: BenchResult, path: Optional[str] = Non
     return path
 
 
-def format_result_block(cfg: Config, rep: ValidationReport, n_repetitions: int) -> str:
+def format_result_block(cfg: Config, rep: ValidationReport,
+                        n_repetitions: int, impl: str = "") -> str:
+    """``impl``: which solve implementation ran (solve-loop[...],
+    solve-graph[...] or solve-fused[...])."""
     return "\n".join(
         [
             "=" * 64,
@@ -83,6 +86,7 @@ def format_result_block(cfg: Config, rep: ValidationReport, n_repetitions: int) 
             f"matrix: {cfg.matrix_file_name or '<generated>'}",
             f"format: {cfg.kernel_format} C={cfg.chunk_size} sigma={cfg.sigma} "
             f"value_type={cfg.value_type} revs={n_repetitions}",
+            f"impl: {impl or '?'}",
             "oracle: scipy.sparse CSR (float64)",
             rep.summary(),
             "",
@@ -91,11 +95,12 @@ def format_result_block(cfg: Config, rep: ValidationReport, n_repetitions: int) 
 
 
 def write_result_to_file(
-    cfg: Config, rep: ValidationReport, n_repetitions: int, path: Optional[str] = None
+    cfg: Config, rep: ValidationReport, n_repetitions: int,
+    path: Optional[str] = None, impl: str = "",
 ) -> str:
     if path is None:
         tag = "ap" if cfg.is_ap else cfg.value_type
         path = os.path.join(cfg.output_dir, f"spmv_scipy_compare_{tag}.txt")
     with open(path, "a") as f:
-        f.write(format_result_block(cfg, rep, n_repetitions))
+        f.write(format_result_block(cfg, rep, n_repetitions, impl))
     return path

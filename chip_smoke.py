@@ -14,13 +14,22 @@ nvidia-smi. Phases, each printing JSON lines:
      b. every instantiated (values, x) dtype pair of the kernel, one vector
         and bs in {4, 8} rowwise and colwise, each plain and in the
         accumulate form y += A x, on Laplace3D-32 and RandomBanded-200k;
+     c. the heavy-row pieces and packed-row kernels (slice 5) through
+        operators on a 4,600-row imbalanced matrix at C=32, sigma=64 (one
+        row of 3,000+ elements, 600 empty rows at the end: whole row groups
+        without elements): sp, dp, hp and ap[dp_sp_hp] (all five dtype
+        pairs of the pieces, all three of the packed rows), split
+        thresholds 2 (a row with more pieces than a warp has lanes), 32
+        and 1024, one vector, rowwise and colwise bs=4, the write and the
+        accumulate form; each kernel against its plain version, and twice
+        in a row bit-equal;
      with the launch count checked per call;
   4. headline: Laplace3D-128, SELL-C-sigma C=1024 sigma=1 sp, through
      SpmvOperator.from_mtx, solve (5 repetitions, validated against the
      scipy f64 oracle) and bench_spmv; then the kernel and the plain
      version are compared and timed on the same tensors;
-  5. large x: Laplace3D-160 (x = 16.4 MB), kernel vs plain and one
-     validated solve;
+  5. large x: Laplace3D-160 (x = 16.4 MB), kernel vs plain, one validated
+     solve, and the kernel's time beside its bound and cuSPARSE's;
   6. the paths of slice 2, each driven as a user would (from_mtx, a solve
      of 5 repetitions validated OK, bench_spmv for 1 s) with the launch
      counts set to 0 before and read after, then the whole SpMV and each
@@ -46,7 +55,7 @@ nvidia-smi. Phases, each printing JSON lines:
         launch through the wrapper and is counted apart, as k kernel nodes
         per stream, in runtime/operator.graph_nodes_replayed);
      b. path F, solve at full size through SpmvOperator and bench_solve,
-        C=1024 sigma=1 sp, k=512, 2 s per impl: Laplace3D-128, FemTet3D-55
+        C=1024 sigma=1 sp, k=512, 1 s per impl: Laplace3D-128, FemTet3D-55
         and the launch-bound FemTet3D-9; impl loop, graph and fused, each
         with a solve of 5 repetitions validated OK and the three results
         bit-equal at k=512 and k=64; ap[dp_sp] -dp_emu through loop and
@@ -61,18 +70,30 @@ nvidia-smi. Phases, each printing JSON lines:
      c. the library surface: interface.prepare / execute_uspmv on
         Laplace3D-128 against scipy, the device-resident loop, and the CG
         example (examples/cg_solver_torch.py) on Laplace3D-128 sp;
-  8. sizing of the zero-locality / heavy-row slice: the SpMV kernel, sp,
-     bench_spmv 1 s, on FemTet3D-55, BandedImbalanced-500k,
-     PowerLawCols-500k and RandomImbalanced-500k at (C, sigma) = (1024, 1)
-     and (32, 512): beta, whether the SCS-explosion guard fell back to
-     CRS, GFLOP/s, GB/s, kernel ms (by events around a Python loop, as
-     everywhere above, and by replaying a CUDA graph of the launches, which
-     leaves the host out), and a validated solve of 1 repetition (per
-     element for FemTet3D-55; the three random-valued matrices, named in
-     L2_JUDGED, on the relative L2 norm; both flags are printed). Kernel
-     vs plain tolerance there: max(1e-5, 4 eps_f32 sqrt(longest row)), since
-     a row of 10^5 products summed in f32 in two orders differs by more
-     than 1e-5.
+  8. path G (slice 5), imbalanced rows at full size: FemTet3D-55,
+     BandedImbalanced-500k, PowerLawCols-500k and RandomImbalanced-500k at
+     (C, sigma) = (1024, 1) and (32, 512), sp, through
+     SpmvOperator.from_mtx three times each: with the defaults ("auto":
+     rows split at the automatic threshold, the tier chosen by beta), with
+     the other tier forced ("other": mixed_tiles the opposite of what auto
+     chose, which locates the cross-over of the two tiers), and with
+     split_rows_threshold=-1, mixed_tiles=False ("before": the SELL-C-sigma
+     kernel alone, as this path stood before the slice). Each is compared
+     with its plain version, with scipy in f64, and run twice bit-equal;
+     op.spmv and each of its kernels are timed by replaying a CUDA graph
+     (an op.spmv is up to three launches of ~2-30 us each, so events around
+     a Python loop would time the host); beside them the bound of the bytes
+     each kernel moves, the bound of an ideal CSR, and cuSPARSE's time. The
+     auto operator is driven as a user would first (a validated solve of 1
+     repetition: per element for FemTet3D-55, on the relative L2 norm for
+     the three random-valued matrices named in L2_JUDGED; bench_spmv 0.3 s)
+     with the launch counts of all three wrappers set to 0 before and read
+     after. FemTet3D-55 is the control: it must stay on cuda-scs. Then
+     RandomImbalanced-500k at (1024, 1) as hp, dp, ap[dp_sp], ap[dp_hp]
+     and sp with rowwise bs=4, and a CUDA-graph solve of k=64 bit-equal to
+     the loop. Kernel vs plain tolerance there:
+     max(1e-5, 4 eps_f32 sqrt(longest row)), since a row of 10^5 products
+     summed in f32 in two orders differs by more than 1e-5.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
 GB/s, or flops over the peak of its type if larger; for the fused solve the
@@ -101,6 +122,8 @@ import time
 TOL = {"sp": 1e-5, "dp": 1e-12}
 KERNEL_SOURCE = "uspmv_tpu_torch/csrc/scs_spmv.cu"
 SOLVE_SOURCE = "uspmv_tpu_torch/csrc/scs_solve.cu"
+PIECES_SOURCE = "uspmv_tpu_torch/csrc/scs_pieces.cu"
+PACKED_SOURCE = "uspmv_tpu_torch/csrc/scs_packed.cu"
 PALLAS = "uspmv_tpu/ops/pallas_scs.py"
 # H100 SXM data sheet: HBM3 bytes/s; FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -110,7 +133,7 @@ SOLVE_K = 512
 # other validated solve of this script must be OK per element (hp and the
 # ap[*_hp] mixes by validate's own bf16 bound). Keys: (phase, matrix,
 # value type); path F's FemTet3D solves run 5 repetitions from a random x on
-# the value-scaled matrix, phase 8's one repetition from the default x.
+# the value-scaled matrix, path G's one repetition from the default x.
 _FEM = ("an f32 result of rows whose diagonal nearly cancels the sum of "
         "their off-diagonals: per element WARNING/ERROR at rel_l2 <= 2.3e-7")
 _RANDOM = ("random-signed values: rows that cancel trip the per-element "
@@ -119,9 +142,26 @@ L2_JUDGED = {
     ("F", "FemTet3D,55", "sp"): _FEM,
     ("F", "FemTet3D,55", "ap[dp_sp]"): _FEM + " (the sp stream's values)",
     ("F", "FemTet3D,9", "sp"): _FEM,
-    ("8", "BandedImbalanced,500000,64,8", "sp"): _RANDOM,
-    ("8", "PowerLawCols,500000,8", "sp"): _RANDOM,
-    ("8", "RandomImbalanced,500000,8", "sp"): _RANDOM,
+    ("G", "BandedImbalanced,500000,64,8", "sp"): _RANDOM,
+    ("G", "PowerLawCols,500000,8", "sp"): _RANDOM,
+    ("G", "RandomImbalanced,500000,8", "sp"): _RANDOM,
+    ("G", "RandomImbalanced,500000,8", "hp"): _RANDOM,
+    ("G", "RandomImbalanced,500000,8", "ap[dp_sp]"):
+        _RANDOM + " (the sp stream's values)",
+    ("G", "RandomImbalanced,500000,8", "ap[dp_hp]"):
+        _RANDOM + " (the hp stream's values)",
+}
+# the slice-5 kernels: entry point -> (what it replaces, the run of path G on
+# RandomImbalanced-500k at C=1024, sigma=1 that times it, the stream)
+TIER_INSTANTIATIONS = {
+    "uspmv_scs_packed_f32_f32": (":1347", "sp", "sp"),
+    "uspmv_scs_packed_f64_f64": (":1347", "dp", "dp"),
+    "uspmv_scs_packed_bf16_f32": (":1347", "hp", "hp"),
+    "uspmv_scs_pieces_f32_f32": (":960", "sp", "sp"),
+    "uspmv_scs_pieces_f64_f64": (":960", "dp", "dp"),
+    "uspmv_scs_pieces_bf16_f32": (":960", "hp", "hp"),
+    "uspmv_scs_pieces_f32_f64": (":960", "ap[dp_sp]", "sp"),
+    "uspmv_scs_pieces_bf16_f64": (":960", "ap[dp_hp]", "hp"),
 }
 # instantiation -> (the TPU kernels it replaces, its timing: path, stream).
 # `_kernel` :820 and `_kernel_windowed` :1478 read f32 or bf16 values;
@@ -207,11 +247,9 @@ def unit_row_sums(mtx):
 
 def csr_library(dev, old_to_new, n_rows, x, y, reps=100, tol=None):
     """Time ``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) on the matrix of
-    ``dev`` in the original row order, values widened to x's dtype unless
-    they are bf16. Returns (ms, None), or (None, error text) where PyTorch
-    has no CSR product for the dtypes. ``y`` is the kernel's result for
-    the same x: the library's must agree with it within ``tol`` (default:
-    the tolerance of x's dtype)."""
+    ``dev`` in the original row order (``library_csr_ms``). ``y`` is the
+    kernel's result for the same x: the library's must agree with it within
+    ``tol`` (default: the tolerance of x's dtype)."""
     import torch
 
     keep = dev.values != 0  # drops the padding (and explicit zeros)
@@ -223,24 +261,35 @@ def csr_library(dev, old_to_new, n_rows, x, y, reps=100, tol=None):
     cols = new_to_old[dev.col_idxs[keep].long()]
     require(rows.min().item() >= 0 and cols.min().item() >= 0,
             "csr_library: a nonzero outside the original rows")
-    order = torch.argsort(rows * n_rows + cols)
-    vals = dev.values[keep][order]
+    return library_csr_ms(rows, cols, dev.values[keep], n_rows,
+                          x.index_select(0, o2n).contiguous(),
+                          y.index_select(0, o2n), tol or acc_tol(x), reps)
+
+
+def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
+    """Time ``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) for the n x n
+    matrix of the given triples (device tensors, in the index space of x,
+    int32 indices in the CSR), values widened to x's dtype unless they are
+    bf16; its result must agree with ``want``. Returns (ms, None), or
+    (None, error text) where PyTorch has no CSR product for the dtypes."""
+    import torch
+
     if vals.dtype != torch.bfloat16:
         vals = vals.to(x.dtype)
-    crow = torch.zeros(n_rows + 1, dtype=torch.int64, device=x.device)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=n_rows), 0)
-    x_orig = x.index_select(0, o2n).contiguous()
     try:
-        A = torch.sparse_csr_tensor(crow.int(), cols[order].int(), vals,
-                                    size=(n_rows, n_rows),
-                                    check_invariants=False)
-        y_lib = A @ x_orig
+        A = torch.sparse_coo_tensor(
+            torch.stack([rows.long(), cols.long()]), vals,
+            size=(n, n)).coalesce().to_sparse_csr()
+        A = torch.sparse_csr_tensor(
+            A.crow_indices().int(), A.col_indices().int(), A.values(),
+            size=(n, n), check_invariants=False)
+        y_lib = A @ x
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError) as e:
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-    compare(y_lib.to(y.dtype), y.index_select(0, o2n), tol or acc_tol(x),
-            "library CSR product vs the kernel")
-    return time_ms(lambda: A @ x_orig, reps), None
+    compare(y_lib.to(want.dtype), want, tol, "library CSR product vs the "
+            "kernel")
+    return time_ms(lambda: A @ x, reps), None
 
 
 def time_ms(fn, reps):
@@ -258,21 +307,23 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(dev, x, reps):
-    """Milliseconds per launch of the SpMV kernel on the device's own
-    clock: reps launches captured into one CUDA graph and replayed, so no
-    host enqueue sits between them. A kernel shorter than the host's
-    enqueue (~30 us) reads too long in ``time_ms``."""
+def graph_ms(fn, reps):
+    """Milliseconds per call of ``fn`` on the device's own clock: reps calls
+    captured into one CUDA graph and replayed, so no host enqueue sits
+    between the kernels. ``fn`` launches kernels of this package into
+    buffers it was given and allocates nothing. A kernel shorter than the
+    host's enqueue (~30 us) reads too long in ``time_ms``."""
     import torch
 
-    from uspmv_tpu_torch.ops.scs_spmv import record_captured_launches, spmv_scs
+    from uspmv_tpu_torch.ops.scs_spmv import record_captured_launches
 
-    out = torch.empty_like(x)
+    fn()  # built, loaded and launched once before the capture
+    torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with record_captured_launches():
         with torch.cuda.graph(graph):
             for _ in range(reps):
-                spmv_scs(dev, x, out=out)
+                fn()
     return time_ms(graph.replay, 3) / reps
 
 
@@ -357,12 +408,21 @@ def validated_solve(op, mtx, n_rev, what, impl=None, l2_judged=False):
 
 def plain_spmv(op, x):
     """op.spmv with every stream through the plain version, in op.spmv's
-    order: the first writes y, the rest add into it."""
+    order: the first writes y, the rest add into it, each followed by its
+    heavy-row pieces."""
+    from uspmv_tpu_torch.ops.device_format import DevicePacked
+    from uspmv_tpu_torch.ops.scs_packed import spmv_packed_plain
+    from uspmv_tpu_torch.ops.scs_pieces import spmv_pieces_plain
     from uspmv_tpu_torch.ops.scs_spmv import spmv_scs_plain
 
+    layout = op.config.vector_layout
     y = None
-    for dev in op.devs.values():
-        y = spmv_scs_plain(dev, x, op.config.vector_layout, y)
+    for p, dev in op.devs.items():
+        plain = (spmv_packed_plain if isinstance(dev, DevicePacked)
+                 else spmv_scs_plain)
+        y = plain(dev, x, layout, y)
+        if p in op.pieces:
+            spmv_pieces_plain(op.pieces[p], x, layout, y)
     return y
 
 
@@ -677,7 +737,11 @@ def solve_path(spec, mtx, scale, ap_threshold, card, unscaled=None):
                                          dp_emulation=True,
                                          ap_threshold_1=ap_threshold * s),
              ("loop", "graph"))]
-    base = dict(kernel_format="scs", chunk_size=1024, sigma=1, backend="cuda")
+    # mixed_tiles=False: path F is the fused solve kernel's path, which runs
+    # SELL-C-sigma only; FemTet3D-9 (beta 0.4865 at C=1024) would otherwise
+    # take the packed tier
+    base = dict(kernel_format="scs", chunk_size=1024, sigma=1, backend="cuda",
+                mixed_tiles=False)
     for label, fields, impls in runs:
         op = SpmvOperator.from_mtx(
             Config(random_init_x=True, **base, **fields(scale)), mtx)
@@ -717,7 +781,7 @@ def solve_path(spec, mtx, scale, ap_threshold, card, unscaled=None):
                     "fused launches")
             n0, f0 = scs_spmv.launch_count(), scs_solve.launch_count()
             g0 = nodes_replayed()
-            res = bench_solve(op, k, x=x, bench_time=2.0, impl=impl)
+            res = bench_solve(op, k, x=x, bench_time=1.0, impl=impl)
             bench_spmv_l = scs_spmv.launch_count() - n0
             bench_fused_l = scs_solve.launch_count() - f0
             bench_nodes = nodes_replayed() - g0
@@ -904,6 +968,144 @@ def interface_and_cg(mtx, mtx_scaled, rng, card):
          us_per_iteration=seconds / it * 1e6, card=card)
 
 
+def imbalanced_small():
+    """random_imbalanced(4000, 8) with row 7 filled to 3,000+ elements, and
+    600 empty rows behind it: 4,600 rows."""
+    import numpy as np
+
+    from uspmv_tpu_torch.formats.coo import MtxData
+    from uspmv_tpu_torch.io.generators import random_imbalanced
+
+    m = random_imbalanced(4000, 8)
+    rng = np.random.default_rng(5)
+    cols = rng.permutation(4000)[:3000]
+    I = np.concatenate([m.I, np.full(cols.size, 7)])
+    J = np.concatenate([m.J, cols])
+    V = np.concatenate([m.values, rng.standard_normal(cols.size)])
+    _, first = np.unique(I.astype(np.int64) * 4600 + J, return_index=True)
+    return MtxData.from_arrays(I[first], J[first], V[first], 4600,
+                               4600).sort_by_row()
+
+
+TIER_SMALL = {
+    "sp": dict(value_type="sp"),
+    "dp": dict(value_type="dp"),
+    "hp": dict(value_type="hp"),
+    "ap[dp_sp_hp]": dict(value_type="ap[dp_sp_hp]", ap_threshold_1=1.0,
+                         ap_threshold_2=0.3),
+}
+
+
+def long_row_tol(x, longest):
+    """Kernel vs plain where a row of ``longest`` products is summed in two
+    orders: the tolerance of x's dtype, or 4 eps sqrt(longest) if larger."""
+    import torch
+
+    return max(acc_tol(x), 4 * torch.finfo(x.dtype).eps / 2 * longest ** 0.5)
+
+
+def small_tiers(rng_seed=2):
+    """Phase 3c: the pieces and packed-row kernels against their plain
+    versions, every instantiation, layout and form; twice bit-equal."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces
+
+    mtx = imbalanced_small()
+    longest = int(np.bincount(mtx.I).max())
+    gen = torch.Generator().manual_seed(rng_seed)
+    seen = set()
+    for name, fields in TIER_SMALL.items():
+        is_ap = name.startswith("ap")
+        worst = {}
+        for th in (2, 32, 1024):
+            for layout, bs in (("rowwise", 1), ("rowwise", 4), ("colwise", 4)):
+                for packed in ((False,) if is_ap else (False, True)):
+                    op = SpmvOperator.from_mtx(Config(
+                        kernel_format="scs", chunk_size=32, sigma=64,
+                        backend="cuda", split_rows_threshold=th,
+                        mixed_tiles=packed, block_vec_size=bs,
+                        vector_layout=layout, **fields), mtx)
+                    what = f"{name} th={th} {layout} bs={bs} packed={packed}"
+                    tier = ("packed" if packed else "scs") + "+pieces"
+                    require(op.impl_name() == f"cuda-{tier}-{name}",
+                            f"{what}: impl {op.impl_name()}")
+                    require(list(op.pieces) == list(op.devs),
+                            f"{what}: a stream without pieces")
+                    n = op.n_rows_padded
+                    shape = ((n,) if bs == 1 else
+                             (n, bs) if layout == "rowwise" else (bs, n))
+                    x, y0 = (torch.randn(shape, generator=gen,
+                                         dtype=torch.float64)
+                             .to(op.working_dtype).to(op.device)
+                             for _ in range(2))
+                    tol = long_row_tol(x, longest)
+                    for prec, dev in op.devs.items():
+                        pc = op.pieces[prec]
+                        if th == 2:
+                            runs = pc.parent_ptr[1:] - pc.parent_ptr[:-1]
+                            require(runs.max().item() > 32,
+                                    f"{what}: no parent with > 32 pieces")
+                        entry = scs_pieces.entry_point(pc.values.dtype, x.dtype)
+                        n0 = scs_pieces.launch_counts()[entry]
+                        got = [scs_pieces.spmv_pieces(pc, x, layout, y0.clone())
+                               for _ in range(2)]
+                        torch.cuda.synchronize()
+                        require(scs_pieces.launch_counts()[entry] == n0 + 2,
+                                f"{what}: {entry} launches not counted")
+                        require(torch.equal(*got), f"{what}: {entry} differs "
+                                "from run to run")
+                        _, rel = compare(got[0], scs_pieces.spmv_pieces_plain(
+                            pc, x, layout, y0.clone()), tol, f"{what} {entry}")
+                        worst[entry] = max(worst.get(entry, 0.0), rel)
+                        seen.add(entry)
+                        if not packed:
+                            continue
+                        entry = scs_packed.entry_point(dev.values.dtype,
+                                                       x.dtype)
+                        counts = dev.row_ptr[1:] - dev.row_ptr[:-1]
+                        ends = dev.row_ptr[dev.group_ptr.long()]
+                        require(((ends[1:] - ends[:-1]) == 0).any().item(),
+                                f"{what}: no row group without elements")
+                        for acc in (False, True):
+                            n0 = scs_packed.launch_counts()[entry]
+                            got = [scs_packed.spmv_packed(
+                                dev, x, layout, y0.clone() if acc else None)
+                                for _ in range(2)]
+                            torch.cuda.synchronize()
+                            require(scs_packed.launch_counts()[entry]
+                                    == n0 + 2,
+                                    f"{what}: {entry} launches not counted")
+                            require(torch.equal(*got), f"{what}: {entry} "
+                                    "differs from run to run")
+                            _, rel = compare(
+                                got[0], scs_packed.spmv_packed_plain(
+                                    dev, x, layout,
+                                    y0.clone() if acc else None),
+                                acc_tol(x), f"{what} {entry} acc={acc}")
+                            worst[entry] = max(worst.get(entry, 0.0), rel)
+                            seen.add(entry)
+                            if not acc:
+                                rows = got[0] if layout == "rowwise" or bs == 1 \
+                                    else got[0].T
+                                require(not rows[counts == 0].any().item(),
+                                        f"{what}: a row without elements "
+                                        "is not 0")
+                    y = [op.spmv(x) for _ in range(2)]
+                    require(torch.equal(*y), f"{what}: op.spmv differs from "
+                            "run to run")
+                    compare(y[0], plain_spmv(op, x), tol, what)
+        emit("tier_kernels_vs_plain", matrix="imbalanced_small (4,600 rows)",
+             C=32, sigma=64, config=name, thresholds=[2, 32, 1024],
+             shapes=["rowwise-1", "rowwise-4", "colwise-4"],
+             longest_row=longest, rel_err=worst, bit_equal_run_to_run=True,
+             tol=tol)
+    require(seen == set(TIER_INSTANTIATIONS),
+            f"small shapes reached {sorted(seen)}")
+
+
 SIZING = [
     ("FemTet3D,55", lambda g: g.fem_tet3d(55)),
     ("BandedImbalanced,500000,64,8", lambda g: g.banded_imbalanced(
@@ -911,75 +1113,341 @@ SIZING = [
     ("PowerLawCols,500000,8", lambda g: g.powerlaw_cols(500_000, 8)),
     ("RandomImbalanced,500000,8", lambda g: g.random_imbalanced(500_000, 8)),
 ]
+# RandomImbalanced-500k at C=1024, sigma=1 once more, per value type and
+# with block vectors; thresholds split its standard-normal values
+G_EXTRAS = {
+    "hp": dict(value_type="hp"),
+    "dp": dict(value_type="dp"),
+    "ap[dp_sp]": dict(value_type="ap[dp_sp]", dp_emulation=True,
+                      ap_threshold_1=0.5),
+    "ap[dp_hp]": dict(value_type="ap[dp_hp]", dp_emulation=True,
+                      ap_threshold_1=0.5),
+    "sp-rowwise-4": dict(value_type="sp", block_vec_size=4,
+                         vector_layout="rowwise"),
+}
 
 
-def sizing(matrices, card):
-    """Phase 8: the SpMV kernel on the zero-locality and heavy-row classes,
-    the numbers that size the next slice. Nothing here is a new kernel."""
+def tier_stream_records(op, x, reps, tol, with_library):
+    """Each kernel of ``op.spmv`` on its own, on x (one vector or block
+    vectors): ms by a replayed CUDA graph, its plain version's ms, the
+    bound of the bytes it moves and, for one vector, cuSPARSE's ms on the
+    same sub-matrix. Returns {entry point: record}."""
+    import torch
+
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+    from uspmv_tpu_torch.ops.device_format import DevicePacked
+
+    layout = op.config.vector_layout
+    bs = op.config.block_vec_size
+    n = op.n_rows_padded
+    xy_bytes = 2 * n * bs * x.element_size()
+    out = torch.empty_like(x)
+    recs = {}
+    for p, dev in op.devs.items():
+        packed = isinstance(dev, DevicePacked)
+        mod, run, plain = ((scs_packed, scs_packed.spmv_packed,
+                            scs_packed.spmv_packed_plain) if packed else
+                           (scs_spmv, scs_spmv.spmv_scs,
+                            scs_spmv.spmv_scs_plain))
+        entry = mod.entry_point(dev.values.dtype, x.dtype)
+        y = run(dev, x, layout, out=out).clone()
+        max_abs, rel = compare(y, plain(dev, x, layout), tol,
+                               f"{entry} vs plain")
+        ms = graph_ms(lambda: run(dev, x, layout, out=out), reps)
+        plain_ms = time_ms(lambda: plain(dev, x, layout), reps)
+        nbytes = op.matrix_passes() * dev.stream_bytes() + xy_bytes
+        b_ms, b_by = bound(nbytes, 2 * dev.nnz * bs, x.dtype)
+        lib_ms, lib_err = None, "block vectors: not timed"
+        if with_library and x.dim() == 1:
+            keep = slice(None) if packed else dev.values != 0
+            lib_ms, lib_err = library_csr_ms(
+                dev.row_idxs[keep], dev.col_idxs[keep], dev.values[keep], n,
+                x, y, tol, reps)
+        recs[entry] = dict(
+            stream=p, kind="packed" if packed else "scs", nnz=dev.nnz,
+            n_elements=dev.nnz if packed else dev.n_elements, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            bound_bytes=nbytes, max_abs_err=max_abs, rel_err=rel,
+            library_ms=lib_ms, library_error=lib_err)
+        if p not in op.pieces:
+            continue
+        pc = op.pieces[p]
+        entry = scs_pieces.entry_point(pc.values.dtype, x.dtype)
+        y0 = torch.zeros_like(x)
+        y = scs_pieces.spmv_pieces(pc, x, layout, y0.clone())
+        max_abs, rel = compare(
+            y, scs_pieces.spmv_pieces_plain(pc, x, layout, y0.clone()), tol,
+            f"{entry} vs plain")
+        ms = graph_ms(lambda: scs_pieces.spmv_pieces(pc, x, layout, out),
+                      reps)
+        plain_ms = time_ms(
+            lambda: scs_pieces.spmv_pieces_plain(pc, x, layout, out), reps)
+        # per vector: the stream and its partial sums, the x entries the
+        # pieces can touch, the parents' rows of y read and written
+        nbytes = bs * (pc.stream_bytes() + x.element_size()
+                       * (min(n, pc.nnz) + 2 * pc.n_parents))
+        b_ms, b_by = bound(nbytes, 2 * pc.nnz * bs, x.dtype)
+        lib_ms, lib_err = None, "block vectors: not timed"
+        if with_library and x.dim() == 1:
+            lib_ms, lib_err = library_csr_ms(
+                pc.piece_rows[pc.piece_idxs.long()], pc.col_idxs, pc.values,
+                n, x, y, tol, reps)
+        recs[entry] = dict(
+            stream=p, kind="pieces", nnz=pc.nnz, n_pieces=pc.n_pieces,
+            n_parents=pc.n_parents, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bound_bytes=nbytes, max_abs_err=max_abs,
+            rel_err=rel, library_ms=lib_ms, library_error=lib_err)
+    return recs
+
+
+def tier_launch_counts():
+    """Launches per entry point of the three SpMV wrappers."""
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+
+    return {**scs_spmv.launch_counts(), **scs_packed.launch_counts(),
+            **scs_pieces.launch_counts()}
+
+
+def reset_tier_launch_counts():
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+
+    for mod in (scs_spmv, scs_packed, scs_pieces):
+        mod.reset_launch_count()
+
+
+def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
+                    with_library, x_host=None):
+    """One operator of path G: built, (``drive``: driven as a user would,
+    with the launch counts read), checked against its plain version and
+    scipy and for bit-equal repeats, then timed. Returns its record, which
+    holds the per-kernel records under ``kernels`` and the main path's
+    launches under ``main_path_launches``."""
     import warnings
 
     import numpy as np
     import torch
 
     from uspmv_tpu_torch import Config, SpmvOperator
-    from uspmv_tpu_torch.io import generators
-    from uspmv_tpu_torch.ops.scs_spmv import spmv_scs, spmv_scs_plain
     from uspmv_tpu_torch.runtime.bench import bench_spmv
+
+    what = f"path G {spec} C={C} s={sigma} {label}"
+    cfg = Config(kernel_format="scs", chunk_size=C, sigma=sigma,
+                 backend="cuda", **{"value_type": "sp", **fields})
+    counts = np.bincount(mtx.I, minlength=mtx.n_rows)
+    rec = dict(matrix=spec, C=C, sigma=sigma, run=label,
+               config={k: str(v) for k, v in fields.items()})
+    reset_tier_launch_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the SCS-explosion guard's warning
+        op = SpmvOperator.from_mtx(cfg, mtx)
+    torch.cuda.synchronize()
+    rec.update(operator_build_s=time.perf_counter() - t0,
+               impl=op.impl_name(), split_rows_threshold=op.split_threshold,
+               n_pieces=op.n_pieces(), nnz_in_pieces=op.nnz_in_pieces(),
+               beta=op.beta(), device_beta=op.device_beta(),
+               ran_C=next(iter(op.scs.values())).C,
+               nnz_per_precision=op.nnz_per_precision(),
+               bytes_per_spmv=op.bytes_per_spmv())
+    if drive:
+        judged = ("G", spec, cfg.value_type) in L2_JUDGED
+        rep, rep_l2 = validated_solve(op, mtx, 1, what, l2_judged=judged)
+        res = bench_spmv(op, bench_time=0.3)
+        main = {k: v for k, v in tier_launch_counts().items() if v}
+        per_spmv = (len(op.devs) * (-(-cfg.block_vec_size // 8)
+                                    if cfg.vector_layout == "rowwise" else 1)
+                    + len(op.pieces))
+        require(sum(main.values()) >= res.n_iterations * per_spmv,
+                f"{what}: {main} launches for {res.n_iterations} iterations "
+                f"of {per_spmv} launches")
+        rec.update(validation=rep.summary(), validation_l2=rep_l2.summary(),
+                   judged="L2 norm" if judged else "per element",
+                   gflops=res.perf_gflops, gbps=res.effective_gbps,
+                   n_iterations=res.n_iterations,
+                   launches_per_spmv=per_spmv, main_path_launches=main)
+    bs = cfg.block_vec_size
+    if x_host is None:
+        x_host = np.random.default_rng(0).standard_normal(
+            (op.n_rows, bs) if bs > 1 else op.n_rows)
+    x = op.make_x(x_host)
+    tol = long_row_tol(x, float(counts.max()))
+    y = op.spmv(x)
+    require(torch.equal(y, op.spmv(x)), f"{what}: op.spmv differs from run "
+            "to run")
+    max_abs, rel = compare(y, plain_spmv(op, x), tol, what)
+    # x and the values rounded as the operator holds them; hp and the
+    # adaptive mixes round values to bf16, which scipy's f64 matrix does not
+    x_round = x_host.astype(np.float32 if x.dtype == torch.float32
+                            else np.float64).astype(np.float64)
+    ref = mtx.to_scipy().tocsr() @ x_round
+    rel_scipy = float(np.abs(op.to_host(y).astype(np.float64) - ref).max()
+                      / np.abs(ref).max())
+    scipy_tol = 1e-2 if "hp" in cfg.value_type else max(
+        tol, 1e-6 if cfg.is_ap else 0.0)
+    require(rel_scipy <= scipy_tol,
+            f"{what}: vs scipy {rel_scipy:.3e} > {scipy_tol:g}")
+    probe = time_ms(lambda: op.spmv(x), 3)
+    reps = 100 if probe < 1.0 else 5
+    out = torch.empty_like(x)
+    ms = graph_ms(lambda: op.spmv(x, out=out), reps)
+    loop_ms = time_ms(lambda: op.spmv(x), reps)
+    flops, nbytes = op.flops_per_spmv(), op.bytes_per_spmv()
+    b_ms, b_by = bound(nbytes, flops, x.dtype)
+    esize = x.element_size()
+    # the floor of an ideal CSR: value + int32 column per nonzero, row
+    # pointers, x and y once, no padding
+    vsize = {"dp": 8, "sp": 4, "hp": 2}.get(cfg.value_type, 8)
+    csr_ms, _ = bound((vsize + 4) * op.nnz + 4 * (op.n_rows + 1)
+                      + 2 * esize * op.n_rows * bs, flops, x.dtype)
+    rec.update(max_row_nnz=int(counts.max()),
+               mean_row_nnz=float(counts.mean()), n_rows=op.n_rows,
+               nnz=op.nnz, spmv_graph_ms=ms, spmv_loop_ms=loop_ms,
+               spmv_graph_gflops=flops / ms / 1e6, bound_ms=b_ms,
+               bound_by=b_by, ideal_csr_bound_ms=csr_ms, tol=tol,
+               max_abs_err=max_abs, rel_err=rel, rel_err_vs_scipy=rel_scipy,
+               bit_equal_run_to_run=True,
+               kernels=tier_stream_records(op, x, reps, tol, with_library),
+               card=card)
+    return rec, op, x, y
+
+
+def path_g(matrices, card):
+    """Phase 8: imbalanced rows at full size through the entry points.
+    Returns (main path launches per entry point, {(run, entry): kernel
+    record} of the RandomImbalanced runs at C=1024, sigma=1)."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch.io import generators
+    from uspmv_tpu_torch.ops import scs_solve
+    from uspmv_tpu_torch.runtime import operator
+
+    launches, tier_records = {}, {}
+
+    def add_launches(rec):
+        for entry, k in rec.get("main_path_launches", {}).items():
+            launches[entry] = launches.get(entry, 0) + k
 
     for spec, make in SIZING:
         t0 = time.perf_counter()
         mtx = matrices[spec] if spec in matrices else make(generators)
         gen_s = time.perf_counter() - t0
-        counts = np.bincount(mtx.I, minlength=mtx.n_rows)
+        n = mtx.n_rows
         for C, sigma in ((1024, 1), (32, 512)):
-            what = f"sizing {spec} C={C} s={sigma}"
-            t0 = time.perf_counter()
-            with warnings.catch_warnings():
-                warnings.simplefilter("ignore")  # the guard's own warning
-                op = SpmvOperator.from_mtx(
-                    Config(kernel_format="scs", chunk_size=C, sigma=sigma,
-                           value_type="sp", backend="cuda"), mtx)
-            torch.cuda.synchronize()
-            build_s = time.perf_counter() - t0
-            (dev,) = op.devs.values()
-            rep, rep_l2 = validated_solve(
-                op, mtx, 1, what, l2_judged=("8", spec, "sp") in L2_JUDGED)
-            res = bench_spmv(op, bench_time=1.0)
-            x = op.make_x(np.random.default_rng(0).standard_normal(op.n_rows))
-            y = spmv_scs(dev, x)
-            tol = max(TOL["sp"], 4 * 2.0 ** -24 * float(counts.max()) ** 0.5)
-            max_abs, rel = compare(y, spmv_scs_plain(dev, x), tol, what)
-            reps = 100 if res.duration_kernel_s / res.n_iterations < 1e-3 else 5
-            ms, plain_ms, _ = time_pair(lambda: spmv_scs(dev, x),
-                                        lambda: spmv_scs_plain(dev, x), reps)
-            device_ms = graph_ms(dev, x, reps)
-            lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x, y,
-                                          reps, tol)
-            nbytes, flops = op.bytes_per_spmv(), op.flops_per_spmv()
-            b_ms, b_by = bound(nbytes, flops, x.dtype)
-            # the floor of an ideal CSR: 8 B per nonzero + x + y, no padding
-            csr_ms, _ = bound(8 * op.nnz + 4 * (op.n_rows + 1)
-                              + 8 * op.n_rows, flops, x.dtype)
-            emit("sizing", matrix=spec, C=C, sigma=sigma, n_rows=op.n_rows,
-                 nnz=op.nnz, max_row_nnz=int(counts.max()),
-                 mean_row_nnz=float(counts.mean()), ran_C=dev.C,
-                 crs_fallback=dev.C != C, beta=op.beta()["sp"],
-                 n_elements=dev.n_elements, generate_s=gen_s,
-                 operator_build_s=build_s, validation=rep.summary(),
-                 validation_l2=rep_l2.summary(),
-                 judged="L2 norm" if ("8", spec, "sp") in L2_JUDGED
-                 else "per element", gflops=res.perf_gflops,
-                 gbps=res.effective_gbps, n_iterations=res.n_iterations,
-                 kernel_ms=ms, kernel_gflops=flops / ms / 1e6,
-                 kernel_graph_ms=device_ms,
-                 kernel_graph_gflops=flops / device_ms / 1e6, tol=tol,
-                 plain_ms=plain_ms, library_ms=lib_ms, library_error=lib_err,
-                 library_gflops=flops / lib_ms / 1e6 if lib_ms else None,
-                 bound_ms=b_ms, bound_by=b_by, ideal_csr_bound_ms=csr_ms,
-                 bytes_per_spmv=nbytes, max_abs_err=max_abs, rel_err=rel,
-                 card=card)
-            del op, dev, x, y
+            # cuSPARSE on the whole matrix, original row order, once
+            I, J = (torch.as_tensor(a, device="cuda") for a in (mtx.I, mtx.J))
+            V = torch.as_tensor(mtx.values, dtype=torch.float32,
+                                device="cuda")
+            recs = {}
+            auto, op, x, y = path_g_operator(
+                spec, mtx, C, sigma, "auto", {}, card, drive=True,
+                with_library=True)
+            add_launches(auto)
+            o2n = torch.as_tensor(op.old_to_new, dtype=torch.int64,
+                                  device="cuda")
+            tol = auto["tol"]
+            lib_ms, lib_err = library_csr_ms(
+                I, J, V, n, x.index_select(0, o2n).contiguous(),
+                y.index_select(0, o2n), tol, 100)
+            packed = op.is_packed()
+            if spec == "FemTet3D,55":
+                require(auto["impl"] == "cuda-scs-sp" and not op.pieces,
+                        f"the control left its tier: {auto['impl']}")
+            recs["auto"] = auto
+            del op, x, y
             torch.cuda.empty_cache()
+            for label, fields in (
+                    ("other", dict(mixed_tiles=not packed)),
+                    ("before", dict(split_rows_threshold=-1,
+                                    mixed_tiles=False))):
+                recs[label], op, x, y = path_g_operator(
+                    spec, mtx, C, sigma, label, fields, card, drive=False,
+                    with_library=False)
+                del op, x, y
+                torch.cuda.empty_cache()
+            for label, rec in recs.items():
+                emit("path_g", generate_s=gen_s, library_ms=lib_ms,
+                     library_error=lib_err,
+                     library_gflops=(2 * mtx.nnz / lib_ms / 1e6
+                                     if lib_ms else None), **rec)
+            if spec == "RandomImbalanced,500000,8" and (C, sigma) == (1024, 1):
+                for entry, k in auto["kernels"].items():
+                    tier_records[("sp", entry)] = k
+                rand = mtx
+    # RandomImbalanced at (1024, 1) per value type and with block vectors
+    for label, fields in G_EXTRAS.items():
+        rec, op, x, y = path_g_operator(
+            "RandomImbalanced,500000,8", rand, 1024, 1, label, fields, card,
+            drive=True, with_library=True)
+        add_launches(rec)
+        require("+pieces" in rec["impl"], f"path G {label}: {rec['impl']}")
+        for entry, k in rec["kernels"].items():
+            tier_records[(label, entry)] = k
+        emit("path_g", **rec)
+        del op, x, y
+        torch.cuda.empty_cache()
+    # solve mode with pieces and packed rows: the CUDA graph against the
+    # loop, bit for bit; the fused kernel refuses. Every row is scaled to a
+    # unit sum of |a|: scaling the whole matrix by its heaviest row's sum
+    # would send the iterates to 0 within a few repetitions
+    from uspmv_tpu_torch import Config, SpmvOperator
+
+    scaled = rand.copy()
+    scaled.values[:] = scaled.values / np.bincount(
+        scaled.I, weights=np.abs(scaled.values),
+        minlength=scaled.n_rows)[scaled.I]
+
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=1024, sigma=1,
+               value_type="sp", backend="cuda", random_init_x=True), scaled)
+    x = op.make_x()
+    k = 64
+    reset_tier_launch_counts()
+    operator.reset_graph_nodes_replayed()
+    f0 = scs_solve.launch_count()
+    l_prev, l_fin = op.solve(x, k, impl="loop")
+    loop_launches = {e: c for e, c in tier_launch_counts().items() if c}
+    for entry, c in loop_launches.items():
+        launches[entry] = launches.get(entry, 0) + c
+    require(op.solve_impl_name(k) == "graph", "path G solve: default impl")
+    for _ in range(2):  # the capture, then a replay from the cache
+        g_prev, g_fin = op.solve(x, k)
+        torch.cuda.synchronize()
+        require(torch.equal(g_fin, l_fin) and torch.equal(g_prev, l_prev),
+                "path G solve: the graph differs from the loop")
+    nodes = operator.graph_nodes_replayed()
+    after = {e: c for e, c in tier_launch_counts().items() if c}
+    # the loop launched each wrapper k times; the capture launched each once
+    # to warm up, and the two graph solves launched nothing more: they
+    # replayed k iterations of kernel nodes each (two per pieces launch)
+    require(sum(loop_launches.values()) == k * (len(op.devs) + len(op.pieces))
+            and after == {e: c + 1 for e, c in loop_launches.items()}
+            and sum(nodes.values()) == 2 * k * (len(op.devs)
+                                                + 2 * len(op.pieces))
+            and scs_solve.launch_count() == f0,
+            f"path G solve: loop launches {loop_launches}, after the graph "
+            f"solves {after}, graph nodes {nodes}")
+    require(not op.fused_solve_eligible(), "path G solve: fused eligible")
+    try:
+        op.solve(x, k, impl="fused")
+    except ValueError:
+        refused = True
+    else:
+        refused = False
+    require(refused, "path G solve: the fused kernel took pieces")
+    require(torch.isfinite(l_fin).all().item()
+            and l_fin.abs().max().item() > 0,
+            "path G solve: A^k x is not finite or vanished, so bit-equality "
+            "shows nothing")
+    graph_us = time_ms(lambda: op.solve(x, k), 20) / k * 1e3
+    loop_us = time_ms(lambda: op.solve(x, k, impl="loop"), 5) / k * 1e3
+    emit("path_g_solve", matrix="RandomImbalanced,500000,8", C=1024, sigma=1,
+         impl=op.impl_name(), k=k, graph_equals_loop=True,
+         fused_refused=True, loop_launches=loop_launches,
+         graph_nodes_replayed=nodes, graph_us_per_iteration=graph_us,
+         loop_us_per_iteration=loop_us,
+         max_abs_y=l_fin.abs().max().item(), card=card)
+    return launches, tier_records
 
 
 def main():
@@ -1057,6 +1525,9 @@ def main():
     # ---- 3b. every instantiation, layout and the accumulate form
     small_shapes(cuda)
 
+    # ---- 3c. the heavy-row pieces and packed-row kernels, small shapes
+    small_tiers()
+
     # ---- 4. headline: the main path, as a user drives it
     mtx = laplace3d(128)
     cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
@@ -1114,14 +1585,20 @@ def main():
     op = SpmvOperator.from_mtx(cfg, big)
     (dev,) = op.devs.values()
     x_host = rng.standard_normal(big.n_rows)
-    y, max_abs, rel = kernel_vs_plain(dev, op.make_x(x_host), TOL["sp"],
-                                      "large x")
+    x = op.make_x(x_host)
+    y, max_abs, rel = kernel_vs_plain(dev, x, TOL["sp"], "large x")
     rel_scipy = vs_scipy(op, big, x_host, y, TOL["sp"], "large x")
     rep, _ = validated_solve(op, big, 1, "large-x solve")
+    ms, plain_ms, samples = time_pair(lambda: spmv_scs(dev, x),
+                                      lambda: spmv_scs_plain(dev, x), 100)
+    b_ms, b_by = bound(op.bytes_per_spmv(), op.flops_per_spmv(), x.dtype)
+    lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x, y, 100)
     emit("large_x", matrix="Laplace3D,160", n_rows=op.n_rows, nnz=op.nnz,
          x_bytes=op.n_rows_padded * 4, max_abs_err=max_abs, rel_err=rel,
-         rel_err_vs_scipy=rel_scipy, validation=rep.summary())
-    del op, dev, y, big
+         rel_err_vs_scipy=rel_scipy, validation=rep.summary(),
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+         library_ms=lib_ms, library_error=lib_err, **samples, card=card)
+    del op, dev, x, y, big
     torch.cuda.empty_cache()
 
     # ---- 6. the paths of slice 2
@@ -1184,8 +1661,8 @@ def main():
     interface_and_cg(mtx, lap_scaled, rng, card)
     del lap_scaled
 
-    # ---- 8. sizing of the zero-locality / heavy-row slice
-    sizing({"FemTet3D,55": fem55}, card)
+    # ---- 8. path G: imbalanced rows at full size
+    tier_launches, tier_records = path_g({"FemTet3D,55": fem55}, card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():
@@ -1219,6 +1696,26 @@ def main():
             "us_per_iteration": rec["us_per_iteration"],
             "bound_us_per_iteration": rec["bound_us_per_iteration"],
             "bound_bytes": rec["bound_bytes"],
+        })
+    for entry, (replaces, run, stream) in TIER_INSTANTIATIONS.items():
+        rec = tier_records[(run, entry)]
+        require(rec["stream"] == stream, f"{entry}: timed on {rec['stream']}")
+        require(tier_launches.get(entry, 0) > 0, f"{entry} never launched")
+        pieces = "pieces" in entry
+        kernels.append({
+            "name": entry.replace("uspmv_", ""), "route": "cuda",
+            "source": PIECES_SOURCE if pieces else PACKED_SOURCE,
+            "replaces": PALLAS + replaces,
+            "also_replaces": [PALLAS + ":1201"] if pieces else [],
+            "launches": tier_launches[entry],
+            "kernels_per_launch": 2 if pieces else 1,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_error": rec["library_error"],
+            "timed_on": f"path G, RandomImbalanced-500k C=1024 sigma=1 "
+                        f"{run}, {stream} stream, by a replayed CUDA graph",
+            "bound_bytes": rec["bound_bytes"], "nnz": rec["nnz"],
         })
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -51,8 +51,11 @@ TOL = {"jax-xla": 1e-12, "jax-df64": 1e-6, "scipy": 1e-12}
 
 
 def config(cls, **kw):
+    # mixed_tiles=False: these cases are about the SELL-C-sigma streams,
+    # which a matrix of a few hundred rows at C=1024 (beta < 0.5) would
+    # otherwise leave for the packed tier
     return cls(**{"kernel_format": "scs", "chunk_size": 1024, "sigma": 1,
-                  "backend": "cpu", **kw})
+                  "backend": "cpu", "mixed_tiles": False, **kw})
 
 
 def jax_operator(gen, args, **kw):

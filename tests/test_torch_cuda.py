@@ -61,9 +61,11 @@ CASES = {
 def test_kernel_matches_plain(cuda, case, value_type):
     make, C, sigma = CASES[case]
     mtx = make()
+    # the SELL-C-sigma kernel on the whole rows, whatever their fill
     op = SpmvOperator.from_mtx(
         Config(kernel_format="scs", chunk_size=C, sigma=sigma,
-               value_type=value_type, backend="cuda"), mtx)
+               value_type=value_type, backend="cuda",
+               split_rows_threshold=-1, mixed_tiles=False), mtx)
     (dev,) = op.devs.values()
     x = op.make_x(np.random.default_rng(0).standard_normal(mtx.n_rows))
     n0 = launch_count()
@@ -302,3 +304,206 @@ def test_bench_solve_on_the_card(cuda):
             assert nodes >= res.n_iterations
         else:
             assert launch_count() - n0 >= res.n_iterations and nodes == 0
+
+
+# ------------------------------------------- heavy-row pieces, packed rows
+
+def imbalanced():
+    """random_imbalanced(4000, 8) plus row 7 filled to 3,000 elements: with
+    threshold 2 that row has more pieces than a warp has lanes, with 1024
+    its pieces are longer than a warp."""
+    from uspmv_tpu_torch.io.generators import random_imbalanced
+
+    m = random_imbalanced(4000, 8)
+    rng = np.random.default_rng(5)
+    cols = rng.permutation(4000)[:3000]
+    I = np.concatenate([m.I, np.full(cols.size, 7)])
+    J = np.concatenate([m.J, cols])
+    V = np.concatenate([m.values, rng.standard_normal(cols.size)])
+    _, first = np.unique(I.astype(np.int64) * 4000 + J, return_index=True)
+    return MtxData.from_arrays(I[first], J[first], V[first], 4000,
+                               4000).sort_by_row()
+
+
+def split_streams(mtx, th, C, sigma, value_dtype, acc_dtype, n_vec, device,
+                  packed=False):
+    """The real rows (SELL-C-sigma or packed) and the pieces of ``mtx``
+    split at ``th``, built by hand the way SpmvOperator.from_mtx does."""
+    from uspmv_tpu_torch.formats.coo import split_heavy_rows
+    from uspmv_tpu_torch.formats.scs import convert_to_scs, permute_scs_cols
+    from uspmv_tpu_torch.ops.device_format import (
+        build_device_packed,
+        build_device_pieces,
+    )
+
+    n = mtx.n_rows
+    m = mtx.copy()
+    m.values = torch.from_numpy(m.values).to(value_dtype).double().numpy()
+    split, parent = split_heavy_rows(m, th)
+    assert parent is not None
+    cut = int(np.searchsorted(split.I, n))
+    real = MtxData.from_arrays(split.I[:cut], split.J[:cut],
+                               split.values[:cut], n, n, is_sorted=True)
+    scs = convert_to_scs(real, C, sigma)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[:n] = scs.old_to_new_idx
+    permute_scs_cols(scs, perm)
+    build = build_device_packed if packed else build_device_scs
+    pieces = build_device_pieces(
+        split.I[cut:].astype(np.int64) - n, perm[split.J[cut:]],
+        split.values[cut:], scs.old_to_new_idx[parent], scs.n_rows_padded,
+        device, value_dtype, acc_dtype, n_vec)
+    return build(scs, device, value_dtype), pieces
+
+
+def block_shape(n, layout, bs):
+    return (n,) if bs == 1 else (n, bs) if layout == "rowwise" else (bs, n)
+
+
+def randn_pair(shape, xdt, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64).to(xdt)
+    y0 = torch.randn(shape, generator=gen, dtype=torch.float64).to(xdt)
+    return x.to(device), y0.to(device)
+
+
+# the pieces' sums run in another order than index_add_: a few ulp times the
+# square root of the longest row (3,000 here) on top of the SpMV tolerance
+PIECES_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("th", [2, 32, 1024])
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
+                                       ("colwise", 4)])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_pieces_match_plain_and_repeat_bit_for_bit(cuda, pair, layout, bs, th):
+    from uspmv_tpu_torch.ops import scs_pieces
+
+    vdt, xdt = pair
+    _, pieces = split_streams(imbalanced(), th, 32, 64, vdt, xdt, bs, cuda)
+    assert pieces.n_pieces >= (1500 if th == 2 else 2)
+    shape = block_shape(pieces.n_rows_padded, layout, bs)
+    x, y0 = randn_pair(shape, xdt, cuda, th)
+    name = scs_pieces.entry_point(vdt, xdt)
+    before = scs_pieces.launch_counts()[name]
+    y = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
+    again = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
+    torch.cuda.synchronize()
+    assert scs_pieces.launch_counts()[name] == before + 2
+    assert torch.equal(y, again)  # no atomics: the same bits every run
+    ref = scs_pieces.spmv_pieces_plain(pieces, x, layout, y0.clone())
+    err = (y - ref).abs().max().item()
+    assert err <= PIECES_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
+    untouched = torch.ones(pieces.n_rows_padded, dtype=torch.bool, device=cuda)
+    untouched[pieces.parent_row.long()] = False
+    rows = y if layout == "rowwise" or bs == 1 else y.T
+    assert torch.equal(rows[untouched], (y0 if rows is y else y0.T)[untouched])
+
+
+PACKED_PAIRS = [(torch.float64, torch.float64), (torch.float32, torch.float32),
+                (torch.bfloat16, torch.float32)]
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("layout,bs", SHAPES)
+@pytest.mark.parametrize("pair", PACKED_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_packed_matches_plain_and_repeats_bit_for_bit(cuda, pair, layout, bs,
+                                                      accumulate):
+    from uspmv_tpu_torch.ops import scs_packed
+
+    vdt, xdt = pair
+    dev, _ = split_streams(imbalanced(), 32, 32, 64, vdt, xdt, 1, cuda,
+                           packed=True)
+    shape = block_shape(dev.n_rows_padded, layout, bs)
+    x, y0 = randn_pair(shape, xdt, cuda, bs)
+    name = scs_packed.entry_point(vdt, xdt)
+    before = scs_packed.launch_counts()[name]
+    y = scs_packed.spmv_packed(dev, x, layout,
+                               y0.clone() if accumulate else None)
+    again = scs_packed.spmv_packed(dev, x, layout,
+                                   y0.clone() if accumulate else None)
+    torch.cuda.synchronize()
+    assert scs_packed.launch_counts()[name] == before + 2
+    assert torch.equal(y, again)
+    ref = scs_packed.spmv_packed_plain(dev, x, layout,
+                                       y0.clone() if accumulate else None)
+    assert y.dtype == xdt and y.shape == ref.shape == shape
+    err = (y - ref).abs().max().item()
+    assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
+
+
+def test_packed_rows_without_elements_write_zero(cuda):
+    """with_empty_rows at C=32: whole row groups' worth of empty rows, and
+    the padded rows behind the last real one."""
+    from uspmv_tpu_torch.ops.scs_packed import spmv_packed
+
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=32, sigma=8, value_type="sp",
+               backend="cuda", mixed_tiles=True, split_rows_threshold=-1),
+        with_empty_rows())
+    assert op.impl_name() == "cuda-packed-sp"
+    (dev,) = op.devs.values()
+    x = op.make_x(np.random.default_rng(0).standard_normal(100))
+    out = torch.full((dev.n_rows_padded,), 7.0, device=cuda)
+    spmv_packed(dev, x, out=out)
+    counts = (dev.row_ptr[1:] - dev.row_ptr[:-1]).cpu()
+    assert (counts == 0).sum() >= 30
+    assert torch.equal(out.cpu()[counts == 0],
+                       torch.zeros(int((counts == 0).sum())))
+
+
+TIERS = {
+    "scs+pieces": dict(mixed_tiles=False),
+    "packed+pieces": dict(mixed_tiles=True),
+    "packed": dict(mixed_tiles=True, split_rows_threshold=-1),
+    "auto": dict(),
+}
+TIER_VALUES = {
+    "sp": dict(value_type="sp"),
+    "dp": dict(value_type="dp"),
+    "hp": dict(value_type="hp"),
+    "ap[dp_sp]": dict(value_type="ap[dp_sp]", ap_threshold_1=0.5),
+    "sp-rowwise-4": dict(value_type="sp", block_vec_size=4,
+                         vector_layout="rowwise"),
+    "sp-colwise-4": dict(value_type="sp", block_vec_size=4,
+                         vector_layout="colwise"),
+}
+
+
+@pytest.mark.parametrize("values", sorted(TIER_VALUES))
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_tiers_on_card_match_cpu_and_graph_equals_loop(cuda, tier, values):
+    """Every tier through SpmvOperator: the card against the plain versions
+    on the CPU, the CUDA-graph solve against the loop bit for bit (no
+    atomics anywhere), and the fused solve refused."""
+    mtx = imbalanced()
+    mtx.values[:] = mtx.values / np.bincount(
+        mtx.I, weights=np.abs(mtx.values)).max()
+    cfg = dict(kernel_format="scs", chunk_size=32, sigma=64,
+               **TIERS[tier], **TIER_VALUES[values])
+    gpu = SpmvOperator.from_mtx(Config(backend="cuda", **cfg), mtx)
+    cpu = SpmvOperator.from_mtx(Config(backend="cpu", **cfg), mtx)
+    is_ap = values.startswith("ap")
+    want = {"auto": "packed+pieces"}.get(tier, tier)
+    if is_ap:  # adaptive precision keeps SELL-C-sigma
+        want = want.replace("packed", "scs")
+    assert gpu.impl_name() == f"cuda-{want}-{gpu.config.value_type}"
+    assert cpu.impl_name() == f"torch-plain-{want}-{gpu.config.value_type}"
+    bs = gpu.config.block_vec_size
+    x = np.random.default_rng(1).standard_normal(
+        (mtx.n_rows, bs) if bs > 1 else mtx.n_rows)
+    a = gpu.to_host(gpu.spmv(gpu.make_x(x)))
+    b = cpu.to_host(cpu.spmv(cpu.make_x(x)))
+    tol = 1e-12 if gpu.working_dtype == torch.float64 else 2e-5
+    assert np.abs(a - b).max() <= tol * np.abs(b).max()
+    assert not gpu.fused_solve_eligible()
+    xd = gpu.make_x(x)
+    l_prev, l_fin = gpu.solve(xd, 5, impl="loop")
+    for _ in range(2):
+        g0 = sum(graph_nodes_replayed().values())
+        g_prev, g_fin = gpu.solve(xd, 5, impl="graph")
+        assert torch.equal(g_fin, l_fin) and torch.equal(g_prev, l_prev)
+    per_spmv = len(gpu.devs) + 2 * len(gpu.pieces)
+    assert sum(graph_nodes_replayed().values()) - g0 == 5 * per_spmv
+    with pytest.raises(ValueError, match="fused solve kernel takes"):
+        gpu.solve(xd, 5, impl="fused")

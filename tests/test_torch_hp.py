@@ -36,7 +36,8 @@ TOL = 1e-5
 
 def config(cls, value_type, th, C, sigma):
     return cls(kernel_format="scs", chunk_size=C, sigma=sigma,
-               value_type=value_type, ap_threshold_1=th, backend="cpu")
+               value_type=value_type, ap_threshold_1=th, backend="cpu",
+               mixed_tiles=False)  # the SELL-C-sigma stream at any beta
 
 
 @pytest.mark.parametrize("fmt", sorted(FORMATS))

@@ -147,7 +147,7 @@ def test_cg_example_matches_jax_example():
 
 def test_cg_example_main_on_the_cpu(monkeypatch, capsys):
     mod = load_example("cg_solver_torch")
-    monkeypatch.setattr("sys.argv", ["cg_solver_torch.py", "Laplace3D,8",
+    monkeypatch.setattr("sys.argv", ["cg_solver_torch.py", "Laplace3D,12",
                                      "--backend", "cpu"])
     assert mod.main() == 0
     out = capsys.readouterr().out

@@ -191,8 +191,6 @@ UNPORTED = {
     "shards": dict(n_shards=2),
     "bcoo": dict(impl="bcoo"),
     "xla": dict(impl="xla"),
-    "split": dict(split_rows_threshold=16),
-    "mixed_tiles": dict(mixed_tiles=True),
     "no_pallas": dict(use_pallas=False),
 }
 
@@ -204,8 +202,10 @@ def test_unported_configs_raise(name):
         SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
 
 
-# configurations of slice 2 that raised before it was ported
+# configurations of slices 2 and 5 that raised before they were ported
 PORTED = {
+    "split": dict(split_rows_threshold=16),
+    "mixed_tiles": dict(mixed_tiles=True),
     "ap": dict(value_type="ap[dp_sp]", ap_threshold_1=1.5),
     "hp": dict(value_type="hp"),
     "spmmv": dict(block_vec_size=4),
@@ -255,18 +255,19 @@ def heavy_row_coo(heavy: bool):
 @pytest.mark.parametrize("heavy", [True, False])
 def test_scs_explosion_guard_matches_jax(heavy):
     """One 20,000-nnz row at C=1024 would pad its chunk 20M elements: both
-    packages fall back to CRS with the same warning (the JAX operator with
-    its heavy-row split off); without it both keep the user's (C, sigma)."""
+    packages fall back to CRS with the same warning (both with the
+    heavy-row split off, which would bound that row); without it both keep
+    the user's (C, sigma)."""
     from uspmv_tpu.formats.coo import MtxData as JMtxData
 
     from uspmv_tpu_torch.formats.coo import MtxData
 
     I, J, V, n = heavy_row_coo(heavy)
     kw = dict(kernel_format="scs", chunk_size=1024, sigma=1, value_type="dp",
-              backend="cpu")
+              backend="cpu", split_rows_threshold=-1, mixed_tiles=False)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        jop = JOperator.from_mtx(JConfig(split_rows_threshold=-1, **kw),
+        jop = JOperator.from_mtx(JConfig(**kw),
                                  JMtxData.from_arrays(I, J, V, n, n))
         op = SpmvOperator.from_mtx(Config(**kw),
                                    MtxData.from_arrays(I, J, V, n, n))

@@ -110,8 +110,9 @@ def test_ap_threshold_from_norm_equal(tol):
 
 
 def jax_and_port(gen, args, **kw):
+    # mixed_tiles=False: the SCS arrays are compared, whatever their beta
     cfg = dict(kernel_format="scs", chunk_size=1024, sigma=1, backend="cpu",
-               **kw)
+               mixed_tiles=False, **kw)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         jop = JOperator.from_mtx(JConfig(**cfg), getattr(jgen, gen)(*args))

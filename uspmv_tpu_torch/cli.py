@@ -9,7 +9,8 @@ The parser is the JAX package's, whole, so every reference spelling
 parses; ``-backend`` takes cuda (default) or cpu. Bench mode (-mode b) and
 solve mode (-mode s, validated against scipy) run every precision (-dp,
 -sp, -hp, -ap[...], -dp_emu), block vectors (-block_vec_size, -layout),
--equilibrate, -jacobi_scale and -dropout; solve mode runs
+-equilibrate, -jacobi_scale, -dropout, -split_rows_threshold and
+-mixed_tiles; solve mode runs
 ``SpmvOperator.solve`` (one CUDA graph of the -rev launches on a GPU, the
 fused solve kernel when ``USPMV_FUSED_SOLVE`` is set and the operator is
 eligible, a loop on the CPU) and prints which one ran; a flag of a later
@@ -84,9 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-overlap", type=int, choices=[0, 1], default=1,
                    help="overlap halo exchange with interior SpMV")
     p.add_argument("-split_rows_threshold", type=int, default=0,
-                   help="heavy-row split threshold: 0 = auto (no split in "
-                        "this port), -1 = disabled, N = split rows longer "
-                        "than N (not ported yet)")
+                   help="heavy-row split threshold: N = cut rows longer "
+                        "than N into pieces of N, 0 = auto (min(max(4 * "
+                        "mean row length, 32), 1024)), -1 = disabled")
     p.add_argument("-validate", type=int, choices=[0, 1], default=1)
     p.add_argument("-verbose", type=int, choices=[0, 1], default=0)
     p.add_argument("-matrix_stats", action="store_true")
@@ -94,7 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-backend", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("-dp_emu", type=int, choices=[0, 1], default=0)
     p.add_argument("-impl", choices=["auto", "xla", "bcoo"], default="auto")
-    p.add_argument("-mixed_tiles", choices=["auto", "0", "1"], default="auto")
+    p.add_argument("-mixed_tiles", choices=["auto", "0", "1"], default="auto",
+                   help="the padding-free packed-row tier: 1 forces it, 0 "
+                        "forbids it, auto takes it when the SELL-C-sigma "
+                        "fill beta is under 0.5")
     p.add_argument(
         "-no_retile", action="store_true",
         help="accepted for parity; this port always runs the literal "

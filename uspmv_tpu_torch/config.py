@@ -107,8 +107,8 @@ class Config:
     jacobi_scale: bool = False
 
     # --- heavy-row splitting (extension beyond the reference) ---
-    # 0 = auto, which in this port means "no split"; -1 = disabled; a
-    # positive threshold is not ported yet.
+    # N = rows longer than N are cut into pieces of N; 0 = auto
+    # (min(max(4 * mean row length, 32), 1024)); -1 = disabled
     split_rows_threshold: int = 0
 
     # --- distribution (reference: -seg_method, MPI_MODE) ---
@@ -132,10 +132,13 @@ class Config:
     use_pallas: bool = True
     impl: str = "auto"
     # TPU lane-tile packing knobs of the JAX package; the port runs the
-    # user's (C, sigma) as given and reads none of them
+    # user's (C, sigma) as given and reads neither
     tile_elems: int = 1024
-    mixed_tiles: Optional[bool] = None
     retile: bool = True
+    # the padding-free tier (the JAX package's mixed tiles; here packed row
+    # groups): True forces it, False forbids it, None takes it when the
+    # SELL-C-sigma fill beta is low (runtime/operator.PACKED_BETA_CUTOFF)
+    mixed_tiles: Optional[bool] = None
 
     # --- reporting (reference: output_filename_*) ---
     output_dir: str = "."

@@ -3,8 +3,7 @@
 Port of ``uspmv_tpu/formats/coo.py`` (reference ``MtxData``,
 classes_structs.hpp:1169-1238, plus the permutation helpers of
 utilities.hpp). Host-side numpy, int32 indices; every function returns
-arrays bit-equal to the JAX package's for the same input. Heavy-row
-splitting is not ported yet.
+arrays bit-equal to the JAX package's for the same input.
 """
 
 from __future__ import annotations
@@ -113,6 +112,62 @@ class MtxData:
             J=perm[self.J],
             is_sorted=False,
         )
+
+
+def split_heavy_rows(
+    mtx: MtxData, threshold: int
+) -> Tuple[MtxData, Optional[np.ndarray]]:
+    """Split rows with more than ``threshold`` nonzeros into virtual rows of
+    at most ``threshold`` elements appended after the real rows.
+
+    Extension beyond the reference: SELL-C-sigma pads every chunk to its
+    longest row, so one power-law row inflates its whole C-row chunk, and
+    one thread walks it alone; after splitting, row lengths are bounded.
+    The caller adds the virtual rows' partial results back into their
+    parent rows after each SpMV (ops/scs_pieces.py).
+
+    Elements are ordered by (row, col) and cut into pieces of ``threshold``
+    consecutive elements; piece 0 stays in the parent row, the rest become
+    virtual rows, parent-ascending. Returns ``(mtx', parent)`` where
+    ``mtx'`` has ``n_rows + n_virtual`` rows (columns untouched) and
+    ``parent[v]`` is the real row of virtual row ``n_rows + v`` -- or
+    ``(mtx, None)`` when nothing splits. Requires row-sorted input.
+    """
+    if not mtx.is_sorted:
+        raise ValueError("split_heavy_rows requires row-sorted input")
+    counts = np.bincount(mtx.I, minlength=mtx.n_rows).astype(np.int64)
+    if not (counts > threshold).any():
+        return mtx, None
+    order = np.lexsort((mtx.J, mtx.I))
+    mtx = dataclasses.replace(
+        mtx, I=mtx.I[order], J=mtx.J[order], values=mtx.values[order]
+    )
+    # occurrence index k of each element within its row
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    k = np.arange(mtx.nnz, dtype=np.int64) - starts[mtx.I]
+    piece = k // threshold
+    n_pieces = (counts + threshold - 1) // threshold
+    n_virt_per_row = np.maximum(n_pieces - 1, 0)
+    virt_base = mtx.n_rows + np.concatenate(
+        ([0], np.cumsum(n_virt_per_row[:-1]))
+    )
+    new_I = np.where(
+        piece == 0, mtx.I.astype(np.int64), virt_base[mtx.I] + piece - 1
+    )
+    parent = np.repeat(
+        np.arange(mtx.n_rows, dtype=np.int32), n_virt_per_row
+    )
+    out = MtxData(
+        n_rows=mtx.n_rows + int(n_virt_per_row.sum()),
+        n_cols=mtx.n_cols,
+        nnz=mtx.nnz,
+        is_sorted=False,
+        is_symmetric=False,
+        I=new_I.astype(np.int32),
+        J=mtx.J.copy(),
+        values=mtx.values.copy(),
+    ).sort_by_row()
+    return out, parent
 
 
 # ---------------------------------------------------------------------------

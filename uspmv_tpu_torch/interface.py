@@ -28,7 +28,10 @@ Example:
     y = ui.download_y(h, xd)
 
 ``backend`` is "cuda" (default; raises without a GPU) or "cpu" (the plain
-PyTorch version).
+PyTorch version). ``prepare`` builds the operator with the defaults of
+``Config``: rows far longer than the mean are split at the automatic
+threshold, and the tier (SELL-C-sigma or packed row groups) follows the fill
+of the layout; ``handle.impl_name()`` says which ran.
 """
 
 from __future__ import annotations

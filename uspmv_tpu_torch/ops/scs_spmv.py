@@ -70,8 +70,9 @@ def reset_launch_count() -> None:
 
 @contextlib.contextmanager
 def record_captured_launches() -> Iterator[Dict[str, int]]:
-    """Inside a CUDA-graph capture a call to ``spmv_scs`` adds a kernel node
-    to the graph and launches nothing. Within this context such calls are
+    """Inside a CUDA-graph capture a call to ``spmv_scs`` (or to
+    ``spmv_packed`` / ``spmv_pieces``) adds kernel nodes to the graph and
+    launches nothing. Within this context such calls are
     counted into the yielded dict (entry point -> nodes) and not into the
     launch count, which holds launches this wrapper made itself and nothing
     else. Whoever owns the graph keeps the dict and its own count of
@@ -82,6 +83,24 @@ def record_captured_launches() -> Iterator[Dict[str, int]]:
         yield _captured
     finally:
         _captured = None
+
+
+def book_launch(lib, rc: int, name: str, launches: Dict[str, int],
+                nodes: int = 1) -> None:
+    """After a call of kernel entry point ``name`` that returned ``rc`` and
+    enqueued ``nodes`` kernels: raise when the launch was refused, else add
+    one to the wrapper's count ``launches`` -- or, while a CUDA graph is
+    captured, the kernel nodes to the capture's count. Shared by the
+    wrappers of every csrc/*.cu, which load one library."""
+    if rc != 0:
+        msg = lib.uspmv_cuda_error_string(rc).decode(errors="replace")
+        raise RuntimeError(
+            f"kernel {name} launch failed: {msg} (cudaError {rc})"
+        )
+    if _captured is not None:
+        _captured[name] = _captured.get(name, 0) + nodes
+    else:
+        launches[name] += 1
 
 
 def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
@@ -110,7 +129,7 @@ def _kernel_lib() -> ctypes.CDLL:
     return _lib
 
 
-def _out_shape(dev: DeviceScs, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
+def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
     if x.dim() == 1:
         return (dev.n_rows_padded,)
     if layout == "rowwise":
@@ -118,10 +137,11 @@ def _out_shape(dev: DeviceScs, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (x.shape[0], dev.n_rows_padded)
 
 
-def _check_args(dev: DeviceScs, x: torch.Tensor, layout: str,
-                y: Optional[torch.Tensor]) -> None:
-    """``y``: the vector the product is added into or written to, if any."""
-    entry_point(dev.values.dtype, x.dtype)
+def check_args(dev, x: torch.Tensor, layout: str,
+               y: Optional[torch.Tensor]) -> None:
+    """Shapes, dtypes and devices of one product with any device stream
+    (``DeviceScs``, ``DevicePacked``, ``DevicePieces``). ``y``: the vector
+    the product is added into or written to, if any."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
     if x.dim() == 1:
@@ -139,7 +159,7 @@ def _check_args(dev: DeviceScs, x: torch.Tensor, layout: str,
     if x.device != dev.device:
         raise ValueError(f"x is on {x.device}, the matrix on {dev.device}")
     if y is not None:
-        shape = _out_shape(dev, x, layout)
+        shape = out_shape(dev, x, layout)
         if tuple(y.shape) != shape or y.dtype != x.dtype or y.device != x.device:
             raise ValueError(
                 f"y to accumulate or write into must be {x.dtype} of shape "
@@ -159,11 +179,11 @@ def spmv_scs_plain(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     if x.dim() == 1 or layout == "rowwise":
         xg = x.index_select(0, dev.col_idxs)
         prod = (vals if x.dim() == 1 else vals[:, None]) * xg
-        part = torch.zeros(_out_shape(dev, x, layout), dtype=x.dtype,
+        part = torch.zeros(out_shape(dev, x, layout), dtype=x.dtype,
                            device=x.device).index_add_(0, dev.row_idxs, prod)
     else:  # colwise [bs, n_pad]
         prod = vals[None, :] * x.index_select(1, dev.col_idxs)
-        part = torch.zeros(_out_shape(dev, x, layout), dtype=x.dtype,
+        part = torch.zeros(out_shape(dev, x, layout), dtype=x.dtype,
                            device=x.device).index_add_(1, dev.row_idxs, prod)
     if y is None:
         return part
@@ -180,15 +200,7 @@ def _launch(lib, name: str, dev: DeviceScs, x_ptr: int, x_ld: int,
         x_ptr, x_ld, x_vstride, y_ptr, y_ld, y_vstride,
         ncols, n_vec, int(accumulate), stream,
     )
-    if rc != 0:
-        msg = lib.uspmv_cuda_error_string(rc).decode(errors="replace")
-        raise RuntimeError(
-            f"scs_spmv kernel {name} launch failed: {msg} (cudaError {rc})"
-        )
-    if _captured is not None:
-        _captured[name] = _captured.get(name, 0) + 1
-    else:
-        _launches[name] += 1
+    book_launch(lib, rc, name, _launches)
 
 
 def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
@@ -200,7 +212,8 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     (which must not be x). Returns y in x's dtype."""
     if y is not None and out is not None:
         raise ValueError("give y (accumulate into) or out (write to), not both")
-    _check_args(dev, x, layout, y if out is None else out)
+    entry_point(dev.values.dtype, x.dtype)
+    check_args(dev, x, layout, y if out is None else out)
     if out is not None and out.data_ptr() == x.data_ptr():
         raise ValueError("out must not be x: rows read x while others write")
     if x.device.type == "cpu":
@@ -222,7 +235,7 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
             == dev.col_idxs.dtype == torch.int32):
         raise TypeError("chunk_ptrs, chunk_lengths and col_idxs must be int32")
     if y is None:
-        y = torch.empty(_out_shape(dev, x, layout), dtype=x.dtype,
+        y = torch.empty(out_shape(dev, x, layout), dtype=x.dtype,
                         device=x.device)
     lib = _kernel_lib()
     esize = x.element_size()

@@ -56,7 +56,12 @@ class BenchResult:
     n_rows: int
     platform: str  # 'cuda' | 'cpu'
     device_name: str  # torch.cuda.get_device_name, or 'cpu'
-    impl: str = ""  # kernel implementation actually selected
+    impl: str = ""  # kernel implementation (tier) actually selected
+    # heavy-row split: the threshold in effect (0: none), the virtual rows
+    # ("pieces") it cut off and the nonzeros they hold
+    split_rows_threshold: int = 0
+    n_pieces: int = 0
+    nnz_in_pieces: int = 0
     # final-batch timing samples (median is duration_kernel_s)
     timing_samples_s: Optional[list] = None
 
@@ -188,5 +193,8 @@ def _result(op: SpmvOperator, n_iter: int, samples: list, t_total: float,
         platform=op.device.type,
         device_name=device_name,
         impl=impl,
+        split_rows_threshold=op.split_threshold,
+        n_pieces=op.n_pieces(),
+        nnz_in_pieces=op.nnz_in_pieces(),
         timing_samples_s=[float(s) for s in samples],
     )

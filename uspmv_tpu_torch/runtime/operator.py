@@ -6,16 +6,27 @@ classes_structs.hpp:280-1166) for one device: SCS or CRS at the user's
 vector or a block of vectors (SpMMV, rowwise or colwise). Pipeline
 (reference init_local_structs, main.cpp:1074-1334):
 
-  ingest COO -> [jacobi | equilibrate] -> SCS-explosion guard ->
-  [AP partition] -> convert_to_scs (the highest precision defines the row
-  permutation, the rest reuse it) -> symmetric column permutation ->
-  device tensors -> spmv (the CUDA kernel per precision stream, or its
-  plain version on the CPU)
+  ingest COO -> [jacobi | equilibrate] -> [split heavy rows] ->
+  SCS-explosion guard on the real part -> [AP partition] -> convert_to_scs
+  (the highest precision defines the row permutation, the rest reuse it)
+  -> symmetric column permutation -> device tensors, by tier -> spmv (the
+  CUDA kernels per precision stream, or their plain versions on the CPU)
+
+Tiers, per precision stream. The real rows (each clamped to the split
+threshold) run as SELL-C-sigma at the user's (C, sigma) (ops/scs_spmv.py)
+or, when that layout would stream mostly padding, as packed row groups in
+the same row order (ops/scs_packed.py; ``Config.mixed_tiles`` forces or
+forbids it, None chooses by the fill beta). The virtual rows cut off heavy
+rows (``Config.split_rows_threshold``: N, 0 = auto, -1 = off) are a CSR
+stream of pieces whose sums are folded into their parents' rows
+(ops/scs_pieces.py). Unlike the JAX operator, which sorts its virtual rows
+into the SCS and folds them afterwards, the pieces never enter the SCS, so
+``old_to_new`` and the SCS arrays cover the real rows only.
 
 Unlike the JAX package, the port does not re-tile (C, sigma) into
 1024-row lane-tile chunks: the CUDA kernel runs the user's layout as it
-is. -dp_emu runs native f64 (the TPU's df64 pairs are not needed). Heavy
-rows are not split. Solve mode (k repetitions of y = A x with a swap) runs
+is. -dp_emu runs native f64 (the TPU's df64 pairs are not needed), and
+rows are split under it too. Solve mode (k repetitions of y = A x with a swap) runs
 as a Python loop of launches, as one CUDA graph of those launches (the
 counterpart of the JAX operator's jitted ``lax.scan``) or as one launch of
 the fused solve kernel (ops/scs_solve.py, the counterpart of its opt-in
@@ -28,7 +39,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import warnings
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -39,9 +50,20 @@ from ..formats.coo import (
     equilibrate_matrix,
     extract_matrix_min_mean_max,
     jacobi_scale_matrix,
+    split_heavy_rows,
 )
 from ..formats.scs import ScsData, convert_to_scs, permute_scs_cols
-from ..ops.device_format import DeviceScs, build_device_scs
+from ..ops.device_format import (
+    GROUP_MAX_ELEMS,
+    DevicePacked,
+    DevicePieces,
+    DeviceScs,
+    build_device_packed,
+    build_device_pieces,
+    build_device_scs,
+)
+from ..ops.scs_packed import spmv_packed
+from ..ops.scs_pieces import spmv_pieces
 from ..ops.scs_solve import solve_fits, solve_scs
 from ..ops.scs_spmv import record_captured_launches, spmv_scs
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
@@ -75,8 +97,6 @@ def check_slice(config: Config) -> None:
         (config.impl == "bcoo", "the vendor comparison impl='bcoo' (slice 7)"),
         (config.impl == "xla" or not config.use_pallas,
          "impl='xla' (the port has one kernel path; impl='auto')"),
-        (config.split_rows_threshold > 0, "heavy-row splitting (slice 5)"),
-        (config.mixed_tiles is True, "zero-locality tiers (slice 5)"),
     ]
     for hit, what in unported:
         if hit:
@@ -86,6 +106,26 @@ def check_slice(config: Config) -> None:
 
 
 MAX_SCS_EXPANSION = 16.0  # n_elements / nnz beyond which SCS is refused
+
+
+# the packed tier is chosen (Config.mixed_tiles None) when the SELL-C-sigma
+# fill beta of the real part at the user's (C, sigma) is below this
+PACKED_BETA_CUTOFF = 0.5
+
+
+def split_threshold(config: Config, mtx: MtxData, C: int) -> int:
+    """The heavy-row split threshold in effect, 0 for none:
+    ``config.split_rows_threshold`` as given when positive; for 0 the JAX
+    operator's rule min(max(4 * mean row length, 32), 1024) (its packer
+    probes measure TPU tiles and have no counterpart); none when negative
+    or without chunks (C <= 1) whose padding a split would bound."""
+    th = config.split_rows_threshold
+    if th < 0 or C <= 1:
+        return 0
+    if th == 0:
+        mean = max(mtx.nnz // max(mtx.n_rows, 1), 1)
+        th = int(min(max(4 * mean, 32), 1024))
+    return th
 
 
 def guard_scs_explosion(mtx: MtxData, C: int, sigma: int):
@@ -152,12 +192,19 @@ class SpmvOperator:
     config: Config
     n_rows: int
     n_rows_padded: int
-    scs: Dict[str, ScsData]  # host struct per precision, highest first
-    devs: Dict[str, DeviceScs]  # device struct per precision, same order
+    # host struct per precision, highest first: the real rows, each
+    # clamped to the split threshold
+    scs: Dict[str, ScsData]
+    # device stream of those rows per precision, same order: SELL-C-sigma
+    # or packed row groups
+    devs: Dict[str, Union[DeviceScs, DevicePacked]]
     old_to_new: np.ndarray
     matrix_stats: tuple
     nnz: int  # the whole matrix's nnz (dropped elements included)
     device: torch.device
+    # the virtual rows of split heavy rows, per precision that has any
+    pieces: Dict[str, DevicePieces] = dataclasses.field(default_factory=dict)
+    split_threshold: int = 0  # the threshold in effect, 0: rows not split
     n_dropped: int = 0
     jacobi_diag: Optional[np.ndarray] = None
     equilib: Optional[tuple] = None
@@ -186,7 +233,28 @@ class SpmvOperator:
 
         C = config.chunk_size if config.kernel_format == "scs" else 1
         sigma = config.sigma if config.kernel_format == "scs" else 1
-        C, sigma = guard_scs_explosion(mtx, C, sigma)
+
+        # heavy-row splitting: after scaling, which is per original row;
+        # before conversion, whose padding it is there to bound. Virtual
+        # row n_real + v of the split matrix is piece v.
+        n_real, nnz = mtx.n_rows, mtx.nnz
+        parent = None
+        th = split_threshold(config, mtx, C)
+        if th:
+            mtx, parent = split_heavy_rows(mtx, th)
+            if lr is not None and parent is not None:
+                lr = np.concatenate([lr, lr[parent]])
+
+        def real_rows(m: MtxData) -> MtxData:
+            """The real rows of a split matrix, which is row-sorted."""
+            if parent is None:
+                return m
+            cut = int(np.searchsorted(m.I, n_real))
+            return dataclasses.replace(
+                m, n_rows=n_real, nnz=cut, I=m.I[:cut], J=m.J[:cut],
+                values=m.values[:cut])
+
+        C, sigma = guard_scs_explosion(real_rows(mtx), C, sigma)
 
         n_dropped = 0
         if config.is_ap:
@@ -208,19 +276,33 @@ class SpmvOperator:
         # the highest precision defines the permutation; the rest reuse it
         # (reference main.cpp:1170-1221)
         precs = list(subs)
-        primary = convert_to_scs(subs[precs[0]], C, sigma)
+        primary = convert_to_scs(real_rows(subs[precs[0]]), C, sigma)
         scs = {precs[0]: primary}
         for p in precs[1:]:
             scs[p] = convert_to_scs(
-                subs[p], C, sigma, fixed_permutation=primary.old_to_new_idx
+                real_rows(subs[p]), C, sigma,
+                fixed_permutation=primary.old_to_new_idx,
             )
         # symmetric column permutation so x can live in permuted order
-        # (reference main.cpp:1308 -> permute_scs_cols)
+        # (reference main.cpp:1308 -> permute_scs_cols); the pieces' columns
+        # go through the same one
         full_perm = np.arange(primary.n_rows_padded, dtype=np.int32)
         full_perm[: primary.n_rows] = primary.old_to_new_idx
         for s in scs.values():
             permute_scs_cols(s, full_perm)
-        op = cls.from_scs(config, scs, stats, mtx.nnz, device)
+        pieces = None
+        if parent is not None:
+            pieces = {}
+            for p, sub in subs.items():
+                cut = int(np.searchsorted(sub.I, n_real))
+                if cut < sub.nnz:
+                    pieces[p] = (sub.I[cut:].astype(np.int64) - n_real,
+                                 full_perm[sub.J[cut:]], sub.values[cut:])
+        op = cls.from_scs(
+            config, scs, stats, nnz, device, pieces=pieces,
+            piece_parent_row=(None if parent is None
+                              else primary.old_to_new_idx[parent]))
+        op.split_threshold = th
         op.n_dropped = n_dropped
         op.jacobi_diag = jac
         op.equilib = equilib
@@ -234,12 +316,21 @@ class SpmvOperator:
         matrix_stats: tuple,
         nnz: int,
         device: Optional[torch.device] = None,
+        pieces: Optional[Dict[str, tuple]] = None,
+        piece_parent_row: Optional[np.ndarray] = None,
     ) -> "SpmvOperator":
         """Operator over given host ``ScsData`` (one, or a dict per
         precision in ``config.ap_precisions`` order sharing one row
         permutation) whose columns are already symmetrically permuted
         (``permute_scs_cols``). ``device`` defaults to the one
-        ``config.backend`` names."""
+        ``config.backend`` names. ``pieces``: per precision, the (piece id,
+        permuted column, value) arrays of the virtual rows split off heavy
+        rows, with ``piece_parent_row[v]`` the permuted row of piece v's
+        parent. The tier of the SCS rows follows ``config.mixed_tiles``:
+        True packs them (raising for a row no row group can stage), False
+        keeps SELL-C-sigma, None packs when the fill beta is under
+        PACKED_BETA_CUTOFF and every row fits a group; adaptive-precision
+        streams stay SELL-C-sigma, as in the JAX operator."""
         config.validate()
         check_slice(config)
         if device is None:
@@ -258,17 +349,32 @@ class SpmvOperator:
                     f"{p} needs {expect} host values, got {s.values.dtype}"
                 )
         primary = next(iter(scs.values()))
+        packed = False
+        if not config.is_ap:
+            packed = config.mixed_tiles
+            if packed is None:
+                packed = (primary.beta < PACKED_BETA_CUTOFF
+                          and primary.row_counts_new is not None
+                          and int(primary.row_counts_new.max())
+                          <= GROUP_MAX_ELEMS)
+        build = build_device_packed if packed else build_device_scs
+        bs = config.block_vec_size
         return cls(
             config=config,
             n_rows=primary.n_rows,
             n_rows_padded=primary.n_rows_padded,
             scs=scs,
-            devs={p: build_device_scs(s, device, dtype_for(p))
-                  for p, s in scs.items()},
+            devs={p: build(s, device, dtype_for(p)) for p, s in scs.items()},
             old_to_new=primary.old_to_new_idx[: primary.n_rows],
             matrix_stats=matrix_stats,
             nnz=nnz,
             device=device,
+            pieces={
+                p: build_device_pieces(
+                    ids, cols, vals, piece_parent_row, primary.n_rows_padded,
+                    device, dtype_for(p), config.working_dtype(), bs)
+                for p, (ids, cols, vals) in (pieces or {}).items()
+            },
         )
 
     # ------------------------------------------------------------- execution
@@ -282,26 +388,35 @@ class SpmvOperator:
         """One y = A x in device layout (permuted/padded). Adaptive
         precision sums the streams in order, highest precision first: the
         first writes y, each later one adds into it (the JAX closure's
-        y = y + y_k). With ``out`` given, y is written into that buffer
-        (not x itself) instead of a new tensor."""
+        y = y + y_k); after each stream its heavy-row pieces, if any, add
+        into their parents' rows. With ``out`` given, y is written into
+        that buffer (not x itself) instead of a new tensor."""
         layout = self.config.vector_layout
         y = None
-        for dev in self.devs.values():
+        for p, dev in self.devs.items():
+            run = spmv_packed if isinstance(dev, DevicePacked) else spmv_scs
             if y is None:
-                y = spmv_scs(dev, x, layout, out=out)
+                y = run(dev, x, layout, out=out)
             else:
-                spmv_scs(dev, x, layout, y)
+                run(dev, x, layout, y)
+            if p in self.pieces:
+                spmv_pieces(self.pieces[p], x, layout, y)
         return y
+
+    def is_packed(self) -> bool:
+        """Whether the real rows run as packed row groups."""
+        return any(isinstance(d, DevicePacked) for d in self.devs.values())
 
     def fused_solve_eligible(self) -> bool:
         """Whether solve mode can run k iterations in ONE launch of the
-        fused solve kernel (ops/scs_solve.solve_scs): a single precision
-        stream (no adaptive-precision sum), one vector or rowwise block
+        fused solve kernel (ops/scs_solve.solve_scs): a single
+        SELL-C-sigma stream (no adaptive-precision sum, no heavy-row pieces,
+        not the packed tier), one vector or rowwise block
         vectors of at most 8 columns, a square operator. The counterpart of
         the JAX operator's ``_fused_solve_eligible`` without its VMEM and
         df64 limits; the opt-in (``USPMV_FUSED_SOLVE``) is read by
         ``solve_impl_name``, not here."""
-        if len(self.devs) != 1:
+        if len(self.devs) != 1 or self.pieces or self.is_packed():
             return False
         (dev,) = self.devs.values()
         bs = self.config.block_vec_size
@@ -351,9 +466,10 @@ class SpmvOperator:
         if impl == "fused":
             if not self.fused_solve_eligible():
                 raise ValueError(
-                    "the fused solve kernel takes one precision stream with "
-                    "one vector or rowwise block vectors of <= 8 columns; "
-                    f"this operator is {self.config.value_type}, "
+                    "the fused solve kernel takes one SELL-C-sigma stream "
+                    "without heavy-row pieces, with one vector or rowwise "
+                    "block vectors of <= 8 columns; this operator is "
+                    f"{self.impl_name()}, "
                     f"block_vec_size={self.config.block_vec_size} "
                     f"{self.config.vector_layout}. Use impl='graph' or "
                     "'loop'."
@@ -449,11 +565,14 @@ class SpmvOperator:
 
     def bytes_per_spmv(self) -> int:
         """Minimum traffic: each precision's matrix stream (values +
-        int32 columns + chunk metadata), once per matrix pass, + x + y in
-        the working dtype. Not comparable with the JAX package's count,
-        whose lane tiles stream int16 gather tables."""
+        int32 columns + chunk or row-group metadata), once per matrix pass,
+        its pieces (CSR stream, parents' runs, partial sums) once per
+        vector, + x + y in the working dtype. Not comparable with the JAX
+        package's count, whose lane tiles stream int16 gather tables."""
         total = self.matrix_passes() * sum(
             dev.stream_bytes() for dev in self.devs.values()
+        ) + self.config.block_vec_size * sum(
+            pc.stream_bytes() for pc in self.pieces.values()
         )
         xw = torch.empty((), dtype=self.working_dtype).element_size()
         total += self.n_rows_padded * self.config.block_vec_size * xw * 2
@@ -461,14 +580,31 @@ class SpmvOperator:
 
     def beta(self) -> Dict[str, float]:
         """Fill efficiency of the user's (C, sigma) format per precision
-        (reference main.cpp:693)."""
+        (reference main.cpp:693), over the real rows as they are stored:
+        clamped to the split threshold, the pieces left out."""
         return {p: s.beta for p, s in self.scs.items()}
 
     def device_beta(self) -> Dict[str, float]:
-        return {p: d.device_beta for p, d in self.devs.items()}
+        """Nonzeros over the elements the kernels stream, pieces included
+        (they and the packed tier stream no padding)."""
+        out = {}
+        for p, d in self.devs.items():
+            extra = self.pieces[p].nnz if p in self.pieces else 0
+            streamed = (d.nnz if isinstance(d, DevicePacked)
+                        else d.n_elements) + extra
+            out[p] = (d.nnz + extra) / streamed if streamed else 1.0
+        return out
 
     def nnz_per_precision(self) -> Dict[str, int]:
-        return {p: s.nnz for p, s in self.scs.items()}
+        return {p: s.nnz + (self.pieces[p].nnz if p in self.pieces else 0)
+                for p, s in self.scs.items()}
+
+    def n_pieces(self) -> int:
+        """Virtual rows split off heavy rows, over all precisions."""
+        return sum(pc.n_pieces for pc in self.pieces.values())
+
+    def nnz_in_pieces(self) -> int:
+        return sum(pc.nnz for pc in self.pieces.values())
 
     def hp_nnz_fraction(self) -> float:
         """Share of the stored nonzeros in bf16, which sets the validation
@@ -479,7 +615,11 @@ class SpmvOperator:
         return npp.get("hp", 0) / max(sum(npp.values()), 1)
 
     def impl_name(self) -> str:
-        """Which implementation executes, and on which value types: the
-        CUDA kernel or, on the CPU, its plain PyTorch version."""
-        base = "cuda-scs" if self.device.type == "cuda" else "torch-plain-scs"
-        return f"{base}-{self.config.value_type}"
+        """Which implementation executes, by tier and value type:
+        cuda-scs, cuda-scs+pieces, cuda-packed or cuda-packed+pieces (the
+        CUDA kernels) or, on the CPU, torch-plain-... (their plain PyTorch
+        versions)."""
+        where = "cuda" if self.device.type == "cuda" else "torch-plain"
+        tier = ("packed" if self.is_packed() else "scs") + (
+            "+pieces" if self.pieces else "")
+        return f"{where}-{tier}-{self.config.value_type}"

@@ -51,6 +51,10 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
             f"  [{p}] nnz={res.nnz_per_precision[p]} ({pct:.1f}%) "
             f"beta={res.beta[p]:.4f} device_beta={res.device_beta[p]:.4f}"
         )
+    lines.append(
+        f"  split_rows_threshold={res.split_rows_threshold} "
+        f"pieces={res.n_pieces} nnz_in_pieces={res.nnz_in_pieces}"
+    )
     if cfg.is_ap or cfg.dropout:
         # reference main.cpp:895-905 prints the per-precision split
         lines.append(f"  n_dropped={res.n_dropped}")

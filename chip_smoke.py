@@ -93,7 +93,28 @@ nvidia-smi. Phases, each printing JSON lines:
      and sp with rowwise bs=4, and a CUDA-graph solve of k=64 bit-equal to
      the loop. Kernel vs plain tolerance there:
      max(1e-5, 4 eps_f32 sqrt(longest row)), since a row of 10^5 products
-     summed in f32 in two orders differs by more than 1e-5.
+     summed in f32 in two orders differs by more than 1e-5;
+  9. the last TPU kernels (slice 6), through the port's probe and sweep
+     entry points (uspmv_tpu_torch/scripts/), each driven with the launch
+     counts set to 0 before and read after:
+     a. gather_probe: the x-access kernels (csrc/x_access.cu) on the shape
+        table of the TPU gather probes, their throughput runs and the sweep
+        of gather_store and gather_fma over 2^24 elements with random,
+        banded and strided indices into x of 2.1, 8.4, 16.4 and 67 MB, each
+        point against its plain version, its byte bound and microbench's
+        take_1d / take_mul (index_select) on the same indices;
+     b. tile_cost on the headline Laplace3D-128 (C=1024, sigma=1, sp): the
+        cost variants of the SELL row loop (csrc/scs_probe.cu), each held
+        against its plain version at that size with every row stored
+        (no_store and bare at the threshold -inf, then timed at +inf),
+        ``full`` (spmv_scs's own kernel) bit-equal to spmv_scs, and the
+        unit-value stream on the matrix's all-ones pattern against its
+        plain version and against spmv_scs on the pattern with explicit
+        ones; cuSPARSE beside full and the unit stream, on tile_cost's own
+        operator and unit stream;
+     c. perf_sweep --bs_only on Laplace3D-128 (bs 1, 4, 8, 16, 32), the
+        script's default sweep on Laplace3D-64, and ap_bench on
+        Laplace3D-128, with short bench times, every row emitted.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
 GB/s, or flops over the peak of its type if larger; for the fused solve the
@@ -125,6 +146,19 @@ SOLVE_SOURCE = "uspmv_tpu_torch/csrc/scs_solve.cu"
 PIECES_SOURCE = "uspmv_tpu_torch/csrc/scs_pieces.cu"
 PACKED_SOURCE = "uspmv_tpu_torch/csrc/scs_packed.cu"
 PALLAS = "uspmv_tpu/ops/pallas_scs.py"
+X_ACCESS_SOURCE = "uspmv_tpu_torch/csrc/x_access.cu"
+PROBE_SOURCE = "uspmv_tpu_torch/csrc/scs_probe.cu"
+# x-access entry point -> (the TPU probe kernels it replaces, the sweep point
+# that times it in the kernels line: mode, pattern, x elements)
+X_ACCESS = {
+    "uspmv_x_gather_store": (
+        ["scripts/test_gather1d.py:46", "scripts/test_gather1d.py:85",
+         "scripts/test_gather2d.py:55"], ("gather_store", "banded", 2**21)),
+    "uspmv_x_gather_fma": (["scripts/test_gather_tput.py:66"],
+                           ("gather_fma", "banded", 2**21)),
+    "uspmv_x_copy_fma": (["scripts/test_gather_tput.py:66"],
+                         ("copy_fma", "in_place", 2**24)),
+}
 # H100 SXM data sheet: HBM3 bytes/s; FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
@@ -1450,6 +1484,134 @@ def path_g(matrices, card):
     return launches, tier_records
 
 
+def phase9(mtx, headline_ms, card):
+    """Phase 9: the last TPU kernels through the port's probe and sweep
+    entry points, each driven with its launch counts set to 0 before and
+    read after. ``mtx`` is the headline's Laplace3D-128. Returns (launches
+    per entry point, {entry point: its record for the kernels line})."""
+    import torch
+
+    from uspmv_tpu_torch.ops import scs_probe, scs_spmv, x_access
+    from uspmv_tpu_torch.scripts import (
+        ap_bench,
+        gather_probe,
+        perf_sweep,
+        tile_cost,
+    )
+
+    launches, records = {}, {}
+    t0 = time.perf_counter()
+
+    # ---- 9a. the x-access kernels through gather_probe
+    x_access.reset_launch_count()
+    rows = gather_probe.run(gather_probe.build_parser().parse_args(
+        ["--reps", "10"]))
+    launches.update(x_access.launch_counts())
+    require(all(r.get("correct", True) for r in rows),
+            "gather_probe: a gather of the shape table is wrong")
+    for r in rows:
+        emit("gather_probe", card=card, **r)
+    sweep = {(r["mode"], r["pattern"], r["x_elems"]): r for r in rows
+             if r["probe"] == "sweep"}
+    for entry, (replaces, key) in X_ACCESS.items():
+        r = sweep[key]
+        records[entry] = dict(
+            source=X_ACCESS_SOURCE, replaces=replaces[0],
+            also_replaces=replaces[1:], max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library_error=r["library_error"], library_call=r["library_call"],
+            timed_on=f"gather_probe sweep, {key[0]} {key[1]}, x "
+                     f"{4 * key[2] / 1e6:.1f} MB, {r['elements']} elements, "
+                     "by a replayed CUDA graph")
+    # the kernels at a small, ragged size against their plain versions
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    n = 1000
+    x = torch.randn(4096, generator=gen, device="cuda")
+    v = torch.randn(n, generator=gen, device="cuda")
+    idx = torch.randint(0, 4096, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    require(torch.equal(x_access.gather_store(x, idx),
+                        x_access.gather_store_plain(x, idx)),
+            "gather_store vs plain, 1,000 elements")
+    tol = x_access.fma_tol(n)
+    compare(x_access.gather_fma(x, idx, v), x_access.gather_fma_plain(
+        x, idx, v), tol, "gather_fma vs plain, 1,000 elements")
+    compare(x_access.copy_fma(x, v), x_access.copy_fma_plain(x, v), tol,
+            "copy_fma vs plain, 1,000 elements")
+    t_9a = time.perf_counter() - t0
+
+    # ---- 9b. the cost split and the unit stream through tile_cost
+    scs_probe.reset_launch_count()
+    scs_spmv.reset_launch_count()
+    split = tile_cost.measure(mtx, "Laplace3D,128", torch.device("cuda", 0),
+                              100)
+    launches.update(scs_probe.launch_counts())
+    launches[scs_spmv.UNIT_ENTRY] = scs_spmv.launch_counts()[
+        scs_spmv.UNIT_ENTRY]
+    by = {r["variant"]: r for r in split.rows}
+    require(by["full"]["bit_equal_to_spmv"], "tile_cost: full != spmv_scs")
+    for r in split.rows:
+        emit("tile_cost", card=card, **r)
+    # cuSPARSE on the same x: the matrix (beside full) and its all-ones
+    # pattern (beside the unit stream)
+    op, x, unit = split.op, split.x, split.unit
+    full_lib = csr_library(op.devs["sp"], op.old_to_new, op.n_rows, x,
+                           split.y, 100)
+    keep = unit.col_idxs >= 0
+    unit_lib = library_csr_ms(
+        unit.row_idxs[keep], unit.col_idxs[keep],
+        torch.ones(int(keep.sum().item()), device=x.device),
+        unit.n_rows_padded, x, split.y_unit, TOL["sp"], 100)
+    emit("tile_cost_library", matrix="Laplace3D,128", card=card,
+         full_library_ms=full_lib[0], unit_library_ms=unit_lib[0],
+         spmv_graph_us=by["spmv"]["us"], headline_kernel_ms=headline_ms,
+         full_over_spmv=by["full"]["us"] / by["spmv"]["us"],
+         unit_over_ones=by["unit"]["us"] / by["ones"]["us"])
+    timed = "tile_cost on Laplace3D-128 (C=1024, sigma=1, sp), by a " \
+            "replayed CUDA graph"
+    for variant in scs_probe.VARIANTS:
+        r = by[variant]
+        lib = full_lib if variant == "full" else (
+            None, "no one PyTorch call computes this variant")
+        records[f"uspmv_scs_probe_{variant}"] = dict(
+            source=PROBE_SOURCE, replaces="scripts/pallas_tile_cost.py:65",
+            also_replaces=[], max_abs_err=r["max_abs_err"], ms=r["us"] / 1e3,
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=lib[0], library_error=lib[1],
+            timed_on=timed + (", storing no row (threshold +inf); the error "
+                              "with every row stored (-inf)"
+                              if variant in scs_probe.THRESHOLDED else ""))
+    r = by["unit"]
+    records[scs_spmv.UNIT_ENTRY] = dict(
+        source=KERNEL_SOURCE, replaces=PALLAS + ":858",
+        also_replaces=[PALLAS + ":1558"], max_abs_err=r["max_abs_err"],
+        ms=r["us"] / 1e3, plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=unit_lib[0],
+        library_error=unit_lib[1],
+        timed_on=timed + ", the all-ones pattern of the matrix")
+    del split, op, x, unit
+    torch.cuda.empty_cache()
+    t_9b = time.perf_counter() - t0 - t_9a
+
+    # ---- 9c. the C x sigma x bs sweep and the adaptive-precision table
+    for mod, argv, m in (
+            (perf_sweep, ["Laplace3D,128", "--bs_only", "--bench_time",
+                          "0.05"], mtx),
+            (perf_sweep, ["--bench_time", "0.02"], None),
+            (ap_bench, ["Laplace3D,128", "--bench_time", "0.05"], mtx)):
+        for r in mod.run(mod.build_parser().parse_args(argv), mtx=m):
+            require(r["platform"] == "cuda" and r["gflops"] > 0,
+                    f"{mod.__name__} {argv}: {r}")
+            emit(mod.__name__.rsplit(".", 1)[1], card=card, **r)
+    t_9c = time.perf_counter() - t0 - t_9a - t_9b
+    emit("phase9", seconds_9a=t_9a, seconds_9b=t_9b, seconds_9c=t_9c,
+         launches=launches)
+    for entry, k in launches.items():
+        require(k > 0, f"{entry} never launched in phase 9")
+    return launches, records
+
+
 def main():
     import torch
 
@@ -1574,6 +1736,7 @@ def main():
          bytes_per_spmv=nbytes, max_abs_err=max_abs, rel_err=rel,
          rel_err_vs_scipy=rel_scipy, bound_ms=b_ms, bound_by=b_by,
          library_ms=lib_ms, library_error=lib_err, card=card)
+    headline_ms = ms
     stream_records = {("headline", "sp"): dict(
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms, library_error=lib_err)}
@@ -1663,6 +1826,11 @@ def main():
 
     # ---- 8. path G: imbalanced rows at full size
     tier_launches, tier_records = path_g({"FemTet3D,55": fem55}, card)
+    del fem55
+    torch.cuda.empty_cache()
+
+    # ---- 9. the last TPU kernels: x access, cost split, unit stream, sweeps
+    probe_launches, probe_records = phase9(mtx, headline_ms, card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():
@@ -1716,6 +1884,18 @@ def main():
             "timed_on": f"path G, RandomImbalanced-500k C=1024 sigma=1 "
                         f"{run}, {stream} stream, by a replayed CUDA graph",
             "bound_bytes": rec["bound_bytes"], "nnz": rec["nnz"],
+        })
+    for entry, rec in probe_records.items():
+        kernels.append({
+            "name": entry.replace("uspmv_", ""), "route": "cuda",
+            "source": rec["source"], "replaces": rec["replaces"],
+            "also_replaces": rec["also_replaces"],
+            "launches": probe_launches[entry],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_error": rec["library_error"],
+            "timed_on": rec["timed_on"],
         })
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

@@ -6,6 +6,7 @@ on its own:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+
 import numpy as np
 import pytest
 
@@ -507,3 +508,127 @@ def test_tiers_on_card_match_cpu_and_graph_equals_loop(cuda, tier, values):
     assert sum(graph_nodes_replayed().values()) - g0 == 5 * per_spmv
     with pytest.raises(ValueError, match="fused solve kernel takes"):
         gpu.solve(xd, 5, impl="fused")
+
+
+# ----------------------------------------- unit stream, x access, cost split
+
+
+def ones_devs(device):
+    """random_banded(5000, 60, 11) at C=128, sigma=32 as an all-ones matrix:
+    the unit stream (no values) and the same pattern with explicit ones."""
+    from uspmv_tpu_torch.formats.scs import convert_to_scs, permute_scs_cols
+
+    m = random_banded(5000, 60, 11)
+    m.values[:] = 1.0
+    scs = convert_to_scs(m.astype(np.float32), 128, 32)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    permute_scs_cols(scs, perm)
+    return (build_device_scs(scs, device, unit_values=True),
+            build_device_scs(scs, device))
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("layout,bs", SHAPES)
+def test_unit_stream_matches_plain_and_repeats_bit_for_bit(cuda, layout, bs,
+                                                           accumulate):
+    unit, ones = ones_devs(cuda)
+    n = unit.n_rows_padded
+    shape = (n,) if bs == 1 else (n, bs) if layout == "rowwise" else (bs, n)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(shape, generator=gen).to(cuda)
+    y0 = torch.randn(shape, generator=gen).to(cuda)
+    before = scs_spmv.launch_counts()[scs_spmv.UNIT_ENTRY]
+    got = [spmv_scs(unit, x, layout, y0.clone() if accumulate else None)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    passes = -(-bs // 8) if layout == "rowwise" else 1
+    assert scs_spmv.launch_counts()[scs_spmv.UNIT_ENTRY] == before + 2 * passes
+    assert torch.equal(got[0], got[1])
+    ref = spmv_scs_plain(unit, x, layout, y0.clone() if accumulate else None)
+    err = (got[0] - ref).abs().max().item()
+    assert err <= ACC_TOL[torch.float32] * max(ref.abs().max().item(), 1e-30)
+    # the same pattern with explicit ones: 1 * x is exact and a padding slot
+    # adds 0, so the sums agree to the last bit
+    want = spmv_scs(ones, x, layout, y0.clone() if accumulate else None)
+    assert torch.equal(got[0], want)
+
+
+def test_unit_stream_refusals_on_the_card(cuda):
+    from uspmv_tpu_torch.ops.scs_solve import solve_scs
+
+    unit, _ = ones_devs(cuda)
+    with pytest.raises(TypeError, match="float32 x"):
+        spmv_scs(unit, torch.zeros(unit.n_rows_padded, dtype=torch.float64,
+                                   device=cuda))
+    with pytest.raises(ValueError, match="unit-value"):
+        solve_scs(unit, torch.zeros(unit.n_rows_padded, device=cuda), 2)
+
+
+@pytest.mark.parametrize("n,n_x", [(1000, 37), (2**20 + 5, 2**21)])
+def test_x_access_modes_match_plain(cuda, n, n_x):
+    from uspmv_tpu_torch.ops import x_access
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(max(n_x, n), generator=gen, device=cuda)
+    v = torch.randn(n, generator=gen, device=cuda)
+    idx = torch.randint(0, n_x, (n,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    T = x_access.fma_threads(n)
+    before = x_access.launch_counts()
+    got = x_access.gather_store(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, x_access.gather_store_plain(x, idx))
+    tol = x_access.fma_tol(n)
+    for name, got, want in (
+            ("gather_fma", x_access.gather_fma(x, idx, v),
+             x_access.gather_fma_plain(x, idx, v)),
+            ("copy_fma", x_access.copy_fma(x, v),
+             x_access.copy_fma_plain(x, v))):
+        assert got.shape == want.shape == (T,), name
+        err = (got - want).abs().max().item()
+        assert err <= tol * max(want.abs().max().item(), 1e-30), name
+    after = x_access.launch_counts()
+    assert all(after[e] == before[e] + 1 for e in x_access.ENTRIES.values())
+
+
+@pytest.mark.parametrize("variant", ["full", "x_window", "no_store", "no_x",
+                                     "bare", "x_row"])
+def test_probe_variants_match_plain(cuda, variant):
+    from uspmv_tpu_torch.ops import scs_probe
+
+    dev = banded_dev(torch.float32, cuda)
+    x = torch.randn(dev.n_rows_padded,
+                    generator=torch.Generator().manual_seed(5)).to(cuda)
+    name = f"uspmv_scs_probe_{variant}"
+    before = scs_probe.launch_counts()[name]
+    y, stored = scs_probe.probe_scs(dev, x, variant)  # every row stored
+    torch.cuda.synchronize()
+    assert scs_probe.launch_counts()[name] == before + 1
+    want, want_stored = scs_probe.probe_plain(dev, x, variant)
+    assert stored.item() == want_stored.item()
+    err = (y - want).abs().max().item()
+    assert err <= 1e-5 * max(want.abs().max().item(), 1e-30)
+    if variant == "full":
+        assert torch.equal(y, spmv_scs(dev, x))
+    if variant in scs_probe.THRESHOLDED:
+        assert stored.item() == dev.n_rows_padded
+        # a threshold in the widest gap between the middle half's sums (so
+        # no sum lies near it): the rows above it, and only those
+        mid = want.sort().values[want.numel() // 4: 3 * want.numel() // 4]
+        i = int(mid.diff().argmax().item())
+        thr = (mid[i].item() + mid[i + 1].item()) / 2
+        y0 = torch.full_like(y, -7.0)
+        y, stored = scs_probe.probe_scs(dev, x, variant, y0.clone(),
+                                        store_above=thr)
+        want, want_stored = scs_probe.probe_plain(dev, x, variant, y0, thr)
+        assert stored.item() == want_stored.item() > 0
+        keep = want != -7.0
+        assert torch.equal(y[~keep], want[~keep])
+        err = (y[keep] - want[keep]).abs().max().item()
+        assert err <= 1e-5 * max(want.abs().max().item(), 1e-30)
+        # +inf, as timed: nothing stored, nothing counted
+        y, stored = scs_probe.probe_scs(dev, x, variant, y0.clone(),
+                                        store_above=float("inf"))
+        torch.cuda.synchronize()
+        assert stored.item() == 0 and torch.equal(y, y0)

@@ -1,0 +1,203 @@
+"""The port's probe and benchmark entry points (uspmv_tpu_torch/scripts/) on
+the CPU: each runs with --backend cpu on a tiny input, writes JSON rows that
+carry the JAX scripts' keys to --out, and never writes at the repository
+root, whose *.jsonl are the JAX package's TPU records. The sweeps' sets and
+ap_bench's thresholds are the JAX scripts' own."""
+
+import importlib.util
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from uspmv_tpu.io import generators as jgen
+
+from uspmv_tpu_torch.io import generators as tgen
+from uspmv_tpu_torch.runtime.operator import DeviceUnavailableError
+from uspmv_tpu_torch.scripts import (
+    _common,
+    ap_bench,
+    gather_probe,
+    microbench,
+    perf_sweep,
+    tile_cost,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+SCRIPTS = {
+    "gather_probe": gather_probe,
+    "microbench": microbench,
+    "tile_cost": tile_cost,
+    "perf_sweep": perf_sweep,
+    "ap_bench": ap_bench,
+}
+# tiny arguments that run each entry point in seconds on the CPU
+TINY = {
+    "gather_probe": ["--elements", "4096", "--x_elems", "2048", "8192",
+                     "--tput_blocks", "1", "--reps", "1"],
+    "microbench": ["--n", "4096", "--elements", "16384", "--reps", "1"],
+    "tile_cost": ["8", "--reps", "1"],
+    "perf_sweep": ["Laplace3D,6", "--quick", "--bench_time", "0.0001"],
+    "ap_bench": ["Laplace3D,6", "--bench_time", "0.0001"],
+}
+# the keys of the JAX scripts' JSON rows (scripts/perf_sweep.py:81-93,
+# scripts/ap_bench.py:124-132); the other three print text, whose fields
+# the port's rows carry under these names
+JAX_KEYS = {
+    "perf_sweep": {"matrix", "C", "sigma", "value_type", "block_vec_size",
+                   "gflops", "effective_gbps", "us_per_iter", "device_beta",
+                   "platform", "impl"},
+    "ap_bench": {"matrix", "value_type", "gflops", "gbps", "max_rel_err",
+                 "nnz_per_precision", "beta", "impl", "platform"},
+    "microbench": {"case", "ms_per_iter", "gbps"},
+    "tile_cost": {"variant", "us", "ns_per_element", "gflops"},
+}
+
+
+def read_rows(path):
+    return [json.loads(line) for line in Path(path).read_text().splitlines()]
+
+
+def jax_script(name):
+    """A module of the JAX package's scripts/, loaded from its file (their
+    top levels import nothing of JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        f"jax_scripts_{name}", REPO / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_entry_point_runs_on_the_cpu(name, tmp_path, capsys):
+    out = tmp_path / f"{name}.jsonl"
+    assert SCRIPTS[name].main([*TINY[name], "--backend", "cpu",
+                               "--out", str(out)]) == 0
+    rows = read_rows(out)
+    assert rows
+    timed = [r for r in rows if "platform" in r]
+    assert timed and all(r["platform"] == "cpu" for r in timed)
+    for row in rows:
+        assert set(row) >= JAX_KEYS.get(name, set()), row
+    assert f"appended to {out}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_default_output_lies_under_the_build_directory(name):
+    default = _common.default_out(name)
+    build = REPO / "build" / "uspmv_tpu_torch"
+    assert default == build / f"{name}.jsonl"
+    assert default.parent != REPO
+    args = SCRIPTS[name].build_parser().parse_args(
+        [a for a in TINY[name] if not a.startswith("Laplace")])
+    assert args.backend == "cuda" and args.out is None
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_cuda_backend_without_a_gpu_raises(name, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    with pytest.raises(DeviceUnavailableError):
+        SCRIPTS[name].main([*TINY[name], "--out", str(tmp_path / "x.jsonl")])
+    assert not (tmp_path / "x.jsonl").exists()
+
+
+def test_gather_probe_rows(tmp_path):
+    rows = gather_probe.run(gather_probe.build_parser().parse_args(
+        [*TINY["gather_probe"], "--backend", "cpu",
+         "--out", str(tmp_path / "g.jsonl")]))
+    table = [r for r in rows if r["probe"] in ("gather1d", "gather2d")]
+    assert len(table) == len(gather_probe.SHAPES_1D) + len(
+        gather_probe.SHAPES_2D)
+    assert all(r["correct"] for r in table)
+    assert len([r for r in rows if r["probe"] == "bench_gather"]) == len(
+        gather_probe.BENCH_1D)
+    assert {r["mode"] for r in rows if r["probe"] == "gather_tput"} == {
+        "copy", "gather"}
+    sweep = [r for r in rows if r["probe"] == "sweep"]
+    # two x sizes x three patterns x two modes, and the in-place copy
+    assert len(sweep) == 2 * 3 * 2 + 1
+    for r in sweep:
+        assert r["bound_ms"] > 0 and r["bound_by"] == "bytes"
+        assert (r["library_ms"] is None) == (r["mode"] != "gather_store")
+        assert r["rel_err"] <= r["tol"]
+
+
+def test_tile_cost_rows(tmp_path):
+    rows = tile_cost.run(tile_cost.build_parser().parse_args(
+        ["8", "--reps", "1", "--backend", "cpu",
+         "--out", str(tmp_path / "t.jsonl")]))
+    by = {r["variant"]: r for r in rows}
+    assert list(by) == [*tile_cost.scs_probe.VARIANTS, "spmv", "unit", "ones"]
+    assert by["full"]["bit_equal_to_spmv"]
+    assert by["unit"]["rel_err_vs_ones"] < tile_cost.TOL
+    # the unit stream moves 4 B per stored element less than explicit ones
+    assert by["ones"]["bound_bytes"] - by["unit"]["bound_bytes"] == \
+        4 * by["unit"]["n_elements"]
+    assert by["bare"]["bound_bytes"] < by["no_x"]["bound_bytes"] < \
+        by["full"]["bound_bytes"]
+    assert all(r["matrix"] == "Laplace3D,8" for r in rows)
+
+
+@pytest.mark.parametrize("flags", [[], ["--quick"], ["--bs_only"]])
+def test_perf_sweep_sets_are_the_jax_scripts(flags):
+    """scripts/perf_sweep.py:49-65."""
+    args = perf_sweep.build_parser().parse_args(flags)
+    want = {
+        (): ([(1, 1), (16, 512), (1024, 1), (1024, 1024)], ["sp", "hp"],
+             [1, 4, 8, 16, 32]),
+        ("--quick",): ([(1024, 1)], ["sp"], [1, 8]),
+        ("--bs_only",): ([(1024, 1)], ["sp"], [1, 4, 8, 16, 32]),
+    }[tuple(flags)]
+    assert perf_sweep.sweep_sets(args) == want
+    assert args.matrix == "Laplace3D,64" and args.bench_time == 1.5
+
+
+def test_perf_sweep_rows_cover_the_set(tmp_path):
+    rows = perf_sweep.run(perf_sweep.build_parser().parse_args(
+        ["Laplace3D,6", "--bs_only", "--bench_time", "0.0001",
+         "--backend", "cpu", "--out", str(tmp_path / "p.jsonl")]))
+    assert [r["block_vec_size"] for r in rows] == [1, 4, 8, 16, 32]
+    assert all(r["impl"].startswith("torch-plain") for r in rows)
+
+
+@pytest.mark.parametrize("tol", [1e-14, 1e-16, 1e-2])
+@pytest.mark.parametrize("spec", ["Laplace3D,6", "WideSpectrum,5"])
+def test_ap_bench_thresholds_are_the_jax_scripts(spec, tol):
+    jax_mod = jax_script("ap_bench")
+    name, *args = spec.split(",")
+    jm = getattr(jgen, {"Laplace3D": "laplace3d",
+                        "WideSpectrum": "wide_spectrum"}[name])(int(args[0]))
+    tm = tgen.generate_matrix(spec)
+    for fn in ("get_buckets_threshold", "clamp_threshold"):
+        j_fn, t_fn = getattr(jax_mod, fn), getattr(ap_bench, fn)
+        if fn == "get_buckets_threshold":
+            assert t_fn(tm, tol) == j_fn(jm, tol)
+        else:
+            th = ap_bench.get_buckets_threshold(tm, tol)
+            assert t_fn(tm, th) == j_fn(jm, th)
+
+
+def test_ap_bench_cases_and_errors(tmp_path):
+    rows = ap_bench.run(ap_bench.build_parser().parse_args(
+        ["Laplace3D,6", "--bench_time", "0.0001", "--backend", "cpu",
+         "--out", str(tmp_path / "a.jsonl")]))
+    assert [r["value_type"] for r in rows] == [
+        "sp", "hp", "dp_emu", "ap[sp_hp]", "ap[dp_sp]", "ap[dp_sp_hp]"]
+    err = {r["value_type"]: r["max_rel_err"] for r in rows}
+    assert err["dp_emu"] < 1e-14 and err["sp"] < 1e-6
+    assert np.isfinite(list(err.values())).all()
+
+
+def test_microbench_cases_are_the_jax_scripts():
+    """scripts/microbench.py's case names, in its order."""
+    cases = microbench.make_cases(1024, 8192, torch.device("cpu"))
+    assert list(cases) == [
+        "stream_mul", "take_1d", "take_mul", "scatter_add", "segsum_sorted",
+        "taa_lanes_8xW", "taa_lanes_Kx128", "taa_sublanes_Kx128", "dia_7"]
+    with pytest.raises(ValueError, match="unknown cases"):
+        microbench.main(["no_such_case", "--backend", "cpu", "--n", "1024",
+                         "--elements", "8192"])

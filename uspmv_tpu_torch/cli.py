@@ -208,13 +208,13 @@ def translate_reference_flags(argv):
 def _check_cli_slice(args) -> None:
     """Driver-level flags of later slices (the operator checks the rest)."""
     unported = [
-        (args.matrix_stats, "-matrix_stats (slice 7)"),
-        (args.output_sparsity, "-output_sparsity (slice 7)"),
-        (args.debug, "-debug sanity dumps (slice 7)"),
-        (args.log_prof is not None, "-log_prof profiling (slice 7)"),
+        (args.matrix_stats, "-matrix_stats (slice 8)"),
+        (args.output_sparsity, "-output_sparsity (slice 8)"),
+        (args.debug, "-debug sanity dumps (slice 8)"),
+        (args.log_prof is not None, "-log_prof profiling (slice 8)"),
         (args.coordinator is not None or args.n_processes is not None
          or args.process_id is not None or args.local_devices is not None,
-         "multi-host execution (slice 6)"),
+         "multi-host execution (slice 7)"),
     ]
     for hit, what in unported:
         if hit:

@@ -26,6 +26,20 @@
 // `acc += a * x`, which the compiler contracts to an FMA, so results differ
 // from the plain PyTorch version (ops/scs_spmv.py) in the last bits only.
 //
+// The unit-value form (uspmv_scs_spmv_unit_f32) answers the `unit=True`
+// variant of `_kernel` / `_kernel_windowed` (pallas_scs.py:858-868 and
+// :1558-1566, built by `build_device_lane_tiles(unit_values=True)`): an
+// all-ones matrix with no value stream, where the TPU marks padding by bit 15
+// of the gather table and selects instead of multiplying. Here col_idxs is -1
+// at padding slots and
+//   acc[v] = sum_{j < chunk_lengths[c], col_idxs[e] >= 0} x[col_idxs[e]][v]
+// summed in order of j in float, with the same grid, strides, block-vector
+// layouts and accumulate flag as every other entry. It streams 4 B per
+// stored element where sp streams 8, so its time against sp's says whether
+// the kernel is bound by bytes or by loads in flight. It has its own row loop
+// (scs_ones_row_sum), so scs_row.cuh, which the solve kernel shares, stays as
+// it is.
+//
 // Instantiated (value type Tv, vector/accumulator type Tx) pairs:
 //   (double, double)        dp, -dp_emu, the dp stream of ap[dp_*]
 //   (float,  float)         sp
@@ -121,12 +135,76 @@ scs_spmv_kernel(const ScsArgs a) {
   }
 }
 
-template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit = false>
-void launch_variant(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
-  scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit><<<grid, kThreads, 0, stream>>>(a);
+// The row sum of an all-ones matrix: acc[v] = sum of x[col*x_ld + v] over
+// the slots of row r whose column is >= 0 (-1 marks padding), in order of j.
+template <int BS, bool kFull>
+__device__ __forceinline__ void scs_ones_row_sum(const ScsMatrix& m,
+                                                 const float* x, int64_t x_ld,
+                                                 int64_t r, int ncols,
+                                                 float (&acc)[BS]) {
+  const int C = m.C;
+  const int64_t c = r / C;
+  const int64_t i = r - c * C;
+  const int32_t len = __ldg(m.chunk_lengths + c);
+  const int64_t base = static_cast<int64_t>(__ldg(m.chunk_ptrs + c)) + i;
+#pragma unroll
+  for (int v = 0; v < BS; ++v) {
+    acc[v] = 0.0f;
+  }
+  for (int32_t j = 0; j < len; ++j) {
+    const int32_t col = __ldg(m.col_idxs + base + static_cast<int64_t>(j) * C);
+    if (col >= 0) {
+      const float* xr = x + static_cast<int64_t>(col) * x_ld;
+#pragma unroll
+      for (int v = 0; v < BS; ++v) {
+        if (kFull || v < ncols) {
+          acc[v] += __ldg(xr + v);
+        }
+      }
+    }
+  }
 }
 
-template <typename Tv, typename Tx>
+// The unit-value form of scs_spmv_kernel (float x and y; m.values unread).
+// kOnesStride1: one vector with unit strides.
+template <int BS, bool kFull, bool kOnesStride1>
+__global__ void __launch_bounds__(kThreads)
+scs_ones_kernel(const ScsArgs a) {
+  const int64_t r =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= a.m.n_rows_padded) {
+    return;
+  }
+  const float* __restrict__ x = static_cast<const float*>(a.x) +
+                                static_cast<int64_t>(blockIdx.y) * a.x_vstride;
+  float* __restrict__ y =
+      static_cast<float*>(a.y) + static_cast<int64_t>(blockIdx.y) * a.y_vstride;
+  const int64_t x_ld = kOnesStride1 ? 1 : a.x_ld;
+  const int64_t y_ld = kOnesStride1 ? 1 : a.y_ld;
+  float acc[BS];
+  scs_ones_row_sum<BS, kFull>(a.m, x, x_ld, r, a.ncols, acc);
+  float* yr = y + r * y_ld;
+#pragma unroll
+  for (int v = 0; v < BS; ++v) {
+    if (kFull || v < a.ncols) {
+      yr[v] = a.accumulate ? yr[v] + acc[v] : acc[v];
+    }
+  }
+}
+
+// kOnes: the unit-value kernel (Tv and Tx are then float and unused)
+template <typename Tv, typename Tx, bool kOnes, int BS, bool kFull,
+          bool kUnit = false>
+void launch_variant(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
+  if constexpr (kOnes) {
+    scs_ones_kernel<BS, kFull, kUnit><<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit>
+        <<<grid, kThreads, 0, stream>>>(a);
+  }
+}
+
+template <typename Tv, typename Tx, bool kOnes = false>
 int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
                     const void* chunk_lengths, const void* col_idxs,
                     const void* values, const void* x, int64_t x_ld,
@@ -161,25 +239,25 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   switch (ncols) {
     case 1:
       if (x_ld == 1 && y_ld == 1) {
-        launch_variant<Tv, Tx, 1, true, true>(a, grid, s);
+        launch_variant<Tv, Tx, kOnes, 1, true, true>(a, grid, s);
       } else {
-        launch_variant<Tv, Tx, 1, true>(a, grid, s);
+        launch_variant<Tv, Tx, kOnes, 1, true>(a, grid, s);
       }
       break;
     case 2:
-      launch_variant<Tv, Tx, 2, true>(a, grid, s);
+      launch_variant<Tv, Tx, kOnes, 2, true>(a, grid, s);
       break;
     case 3:
-      launch_variant<Tv, Tx, 4, false>(a, grid, s);
+      launch_variant<Tv, Tx, kOnes, 4, false>(a, grid, s);
       break;
     case 4:
-      launch_variant<Tv, Tx, 4, true>(a, grid, s);
+      launch_variant<Tv, Tx, kOnes, 4, true>(a, grid, s);
       break;
     case 8:
-      launch_variant<Tv, Tx, 8, true>(a, grid, s);
+      launch_variant<Tv, Tx, kOnes, 8, true>(a, grid, s);
       break;
     default:  // 5..7
-      launch_variant<Tv, Tx, 8, false>(a, grid, s);
+      launch_variant<Tv, Tx, kOnes, 8, false>(a, grid, s);
       break;
   }
   return static_cast<int>(cudaGetLastError());
@@ -250,6 +328,20 @@ int uspmv_scs_spmv_bf16_f64(int64_t n_rows_padded, int C,
                             int ncols, int n_vec, int accumulate,
                             void* stream) {
   return launch_scs_spmv<__nv_bfloat16, double>(
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
+      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+}
+
+// y (+)= A x for an all-ones matrix built with unit_values: the arguments
+// of the entries above, float x and y; values is not read (may be null).
+int uspmv_scs_spmv_unit_f32(int64_t n_rows_padded, int C,
+                            const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* col_idxs, const void* values,
+                            const void* x, int64_t x_ld, int64_t x_vstride,
+                            void* y, int64_t y_ld, int64_t y_vstride,
+                            int ncols, int n_vec, int accumulate,
+                            void* stream) {
+  return launch_scs_spmv<float, float, true>(
       n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
       x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
 }

@@ -34,7 +34,9 @@ class DeviceScs:
     chunk_ptrs: torch.Tensor  # int32 [n_chunks + 1]
     chunk_lengths: torch.Tensor  # int32 [n_chunks]
     col_idxs: torch.Tensor  # int32 [n_elements]
-    values: torch.Tensor  # [n_elements]: float64, float32 or bfloat16
+    # [n_elements]: float64, float32 or bfloat16; empty float32 for a unit
+    # stream
+    values: torch.Tensor
     row_idxs: torch.Tensor  # int32 [n_elements], permuted row of each element
 
     C: int
@@ -45,14 +47,18 @@ class DeviceScs:
     nnz: int
     # smallest x length the column indices allow (largest column + 1)
     x_len: int
+    # an all-ones matrix without a value stream: col_idxs is -1 at padding
+    # slots (build_device_scs(unit_values=True))
+    unit_vals: bool = False
 
     @property
     def device(self) -> torch.device:
         return self.values.device
 
     def stream_bytes(self) -> int:
-        """Matrix bytes the kernel streams per SpMV: values (8, 4 or 2 B)
-        + col_idxs + chunk metadata (x and y are counted by the caller)."""
+        """Matrix bytes the kernel streams per SpMV: values (8, 4 or 2 B;
+        none for a unit stream) + col_idxs + chunk metadata (x and y are
+        counted by the caller)."""
         return sum(
             t.numel() * t.element_size()
             for t in (self.values, self.col_idxs, self.chunk_ptrs,
@@ -89,15 +95,33 @@ def _put_values(values: np.ndarray, device: torch.device,
 
 
 def build_device_scs(
-    scs: ScsData, device: torch.device, dtype: Optional[torch.dtype] = None
+    scs: ScsData, device: torch.device, dtype: Optional[torch.dtype] = None,
+    unit_values: bool = False,
 ) -> DeviceScs:
     """Host ScsData -> DeviceScs on ``device``, values in ``dtype``
-    (default: the host values' own dtype)."""
+    (default: the host values' own dtype).
+
+    ``unit_values``: the matrix is all ones (every stored value is 1 or 0),
+    so the value stream is dropped and the kernel sums x[col] over the
+    valid slots (the counterpart of ``build_device_lane_tiles(
+    unit_values=True)``, uspmv_tpu/ops/pallas_scs.py:353-371). A slot
+    whose value is 0 is padding; its column becomes -1, as the TPU
+    tables mark it with bit 15. Only float32 values are taken, as there."""
+    col_idxs = scs.col_idxs.astype(np.int32)
+    values = _put_values(scs.values, device, dtype)
+    if unit_values:
+        if values.dtype != torch.float32:
+            raise ValueError("unit_values requires plain f32 tiles")
+        valid = scs.values != 0
+        if not np.all(scs.values[valid] == 1):
+            raise ValueError("unit_values requires an all-ones matrix")
+        col_idxs = np.where(valid, col_idxs, np.int32(-1))
+        values = values.new_empty(0)
     return DeviceScs(
         chunk_ptrs=_put(scs.chunk_ptrs.astype(np.int32), device),
         chunk_lengths=_put(scs.chunk_lengths.astype(np.int32), device),
-        col_idxs=_put(scs.col_idxs.astype(np.int32), device),
-        values=_put_values(scs.values, device, dtype),
+        col_idxs=_put(col_idxs, device),
+        values=values,
         row_idxs=_put(scs.flat_row_idx(), device),
         C=scs.C,
         n_rows=scs.n_rows,
@@ -105,7 +129,8 @@ def build_device_scs(
         n_chunks=scs.n_chunks,
         n_elements=scs.n_elements,
         nnz=scs.nnz,
-        x_len=int(scs.col_idxs.max()) + 1 if scs.n_elements else 0,
+        x_len=int(col_idxs.max()) + 1 if scs.n_elements else 0,
+        unit_vals=unit_values,
     )
 
 

@@ -75,8 +75,9 @@ def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
 def solve_fits(dev: DeviceScs, x_shape: Tuple[int, ...], x_dtype: torch.dtype,
                layout: str = "rowwise") -> bool:
     """Whether the fused kernel takes this matrix stream with an x of this
-    shape, dtype and layout (the counterpart of ``solve_tiles_fit``)."""
-    if (dev.values.dtype, x_dtype) not in _ENTRY_POINTS:
+    shape, dtype and layout (the counterpart of ``solve_tiles_fit``, which
+    refuses a unit-value stream too)."""
+    if dev.unit_vals or (dev.values.dtype, x_dtype) not in _ENTRY_POINTS:
         return False
     if dev.x_len > dev.n_rows_padded:  # y must be a valid next x
         return False
@@ -92,6 +93,8 @@ def _check_args(dev: DeviceScs, x: torch.Tensor, k: int, layout: str) -> None:
         raise ValueError(f"layout must be one of {LAYOUTS}, not {layout!r}")
     if int(k) < 1:
         raise ValueError(f"solve_scs needs k >= 1 iterations, not {k}")
+    if dev.unit_vals:
+        raise ValueError("the fused solve kernel takes no unit-value stream")
     entry_point(dev.values.dtype, x.dtype)
     if x.device != dev.device:
         raise ValueError(f"x is on {x.device}, the matrix on {dev.device}")

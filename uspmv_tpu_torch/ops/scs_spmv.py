@@ -11,7 +11,10 @@ runs ``spmv_scs_plain``. Any failure to build or launch the kernel raises,
 and so does a pair of dtypes the kernel does not take.
 
 Supported (values, x) dtype pairs, x being the vector and accumulator type:
-(f64, f64), (f32, f32), (bf16, f32), (f32, f64), (bf16, f64).
+(f64, f64), (f32, f32), (bf16, f32), (f32, f64), (bf16, f64). A unit stream
+(``build_device_scs(unit_values=True)``: an all-ones matrix without values)
+takes f32 x and runs the kernel's unit-value entry, the counterpart of the
+``unit=True`` form of the TPU kernel.
 
 x layouts (ops/vectors.py): one vector [n_pad]; rowwise block vectors
 [n_pad, bs], for which one launch streams the matrix once for up to 8
@@ -38,6 +41,8 @@ _ENTRY_POINTS = {
     (torch.float32, torch.float64): "uspmv_scs_spmv_f32_f64",
     (torch.bfloat16, torch.float64): "uspmv_scs_spmv_bf16_f64",
 }
+# the all-ones matrix without a value stream (DeviceScs.unit_vals)
+UNIT_ENTRY = "uspmv_scs_spmv_unit_f32"
 _ARGTYPES = (
     [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 5
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p] + [ctypes.c_int64] * 2
@@ -47,7 +52,9 @@ MAX_COLS_PER_PASS = 8  # rowwise columns one launch carries (kMaxCols)
 MAX_VECTORS = 65535  # colwise vectors in one launch (gridDim.y)
 LAYOUTS = ("rowwise", "colwise")
 
-_launches: Dict[str, int] = {name: 0 for name in _ENTRY_POINTS.values()}
+_launches: Dict[str, int] = {
+    name: 0 for name in [*_ENTRY_POINTS.values(), UNIT_ENTRY]
+}
 # while a CUDA graph is captured: the kernel nodes enqueued, per entry point
 _captured: Optional[Dict[str, int]] = None
 _lib = None
@@ -115,11 +122,22 @@ def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
         ) from None
 
 
+def entry_for(dev: DeviceScs, x_dtype: torch.dtype) -> str:
+    """The kernel instantiation that runs ``dev`` with x of ``x_dtype``:
+    the unit-value entry for a unit stream, else ``entry_point``."""
+    if dev.unit_vals:
+        if x_dtype != torch.float32:
+            raise TypeError(
+                f"a unit-value stream takes float32 x, not {x_dtype}")
+        return UNIT_ENTRY
+    return entry_point(dev.values.dtype, x_dtype)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = _build.load_library().lib
-        for name in _ENTRY_POINTS.values():
+        for name in _launches:
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
@@ -174,15 +192,22 @@ def spmv_scs_plain(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     widened to x's dtype, ``index_add_`` over each flat element's permuted
     row, in x's dtype (like uspmv_tpu/ops/spmv_xla.spmv_flat). Padding
     elements add 0 * x[0]. With ``y`` given, adds the product into it in
-    place and returns it."""
-    vals = dev.values.to(x.dtype)
+    place and returns it. A unit stream sums x[col] over the slots whose
+    column is >= 0."""
+    if dev.unit_vals:
+        valid = dev.col_idxs >= 0
+        cols = torch.where(valid, dev.col_idxs, 0)
+        vals = valid.to(x.dtype)
+    else:
+        cols = dev.col_idxs
+        vals = dev.values.to(x.dtype)
     if x.dim() == 1 or layout == "rowwise":
-        xg = x.index_select(0, dev.col_idxs)
+        xg = x.index_select(0, cols)
         prod = (vals if x.dim() == 1 else vals[:, None]) * xg
         part = torch.zeros(out_shape(dev, x, layout), dtype=x.dtype,
                            device=x.device).index_add_(0, dev.row_idxs, prod)
     else:  # colwise [bs, n_pad]
-        prod = vals[None, :] * x.index_select(1, dev.col_idxs)
+        prod = vals[None, :] * x.index_select(1, cols)
         part = torch.zeros(out_shape(dev, x, layout), dtype=x.dtype,
                            device=x.device).index_add_(1, dev.row_idxs, prod)
     if y is None:
@@ -212,7 +237,7 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     (which must not be x). Returns y in x's dtype."""
     if y is not None and out is not None:
         raise ValueError("give y (accumulate into) or out (write to), not both")
-    entry_point(dev.values.dtype, x.dtype)
+    name = entry_for(dev, x.dtype)
     check_args(dev, x, layout, y if out is None else out)
     if out is not None and out.data_ptr() == x.data_ptr():
         raise ValueError("out must not be x: rows read x while others write")
@@ -222,7 +247,6 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
         return spmv_scs_plain(dev, x, layout, y)
     if x.device.type != "cuda":
         raise ValueError(f"spmv_scs runs on cuda or cpu tensors, not {x.device}")
-    name = entry_point(dev.values.dtype, x.dtype)
     tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values, x)
     accumulate = y is not None
     if out is not None:

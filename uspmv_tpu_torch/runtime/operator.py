@@ -93,8 +93,8 @@ def check_slice(config: Config) -> None:
     """Raise NotImplementedError for configurations this port does not run
     yet, naming the slice of ROADMAP.md queue 1 that ports them."""
     unported = [
-        (config.n_shards > 1, "distributed execution (slice 6)"),
-        (config.impl == "bcoo", "the vendor comparison impl='bcoo' (slice 7)"),
+        (config.n_shards > 1, "distributed execution (slice 7)"),
+        (config.impl == "bcoo", "the vendor comparison impl='bcoo' (slice 8)"),
         (config.impl == "xla" or not config.use_pallas,
          "impl='xla' (the port has one kernel path; impl='auto')"),
     ]

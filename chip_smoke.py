@@ -7,7 +7,8 @@ Run from the root of a checkout, on a host with one CUDA device, nvcc and
 nvidia-smi. Phases, each printing JSON lines:
 
   1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-  2. build: nvcc compiles uspmv_tpu_torch/csrc/*.cu for sm_90a;
+  2. build: nvcc compiles uspmv_tpu_torch/csrc/*.cu for sm_90a; the
+     registers and local memory of the row-sum kernels (cuobjdump);
   3. kernel vs plain, small shapes:
      a. the sp and dp operators on Laplace3D-32 at (C, sigma) in
         {(1024, 1), (32, 512), (1, 1)} and RandomBanded-200k at (1024, 1);
@@ -27,9 +28,13 @@ nvidia-smi. Phases, each printing JSON lines:
   4. headline: Laplace3D-128, SELL-C-sigma C=1024 sigma=1 sp, through
      SpmvOperator.from_mtx, solve (5 repetitions, validated against the
      scipy f64 oracle) and bench_spmv; then the kernel and the plain
-     version are compared and timed on the same tensors;
+     version are compared, and the kernel, the plain version and cuSPARSE
+     timed in turns (plain, kernel, library, library, kernel, plain) on the
+     same tensors, with each one's spread and the kernel's launch geometry
+     (blocks resident per SM, grid);
   5. large x: Laplace3D-160 (x = 16.4 MB), kernel vs plain, one validated
-     solve, and the kernel's time beside its bound and cuSPARSE's;
+     solve, and the kernel's time beside its bound and cuSPARSE's, timed
+     in turns as in 4;
   6. the paths of slice 2, each driven as a user would (from_mtx, a solve
      of 5 repetitions validated OK, bench_spmv for 1 s) with the launch
      counts set to 0 before and read after, then the whole SpMV and each
@@ -91,7 +96,11 @@ nvidia-smi. Phases, each printing JSON lines:
      after. FemTet3D-55 is the control: it must stay on cuda-scs. Then
      RandomImbalanced-500k at (1024, 1) as hp, dp, ap[dp_sp], ap[dp_hp]
      and sp with rowwise bs=4, and a CUDA-graph solve of k=64 bit-equal to
-     the loop. Kernel vs plain tolerance there:
+     the loop. In the driven runs each kernel and cuSPARSE on its
+     sub-matrix are timed in turns (kernel, library, library, kernel), and
+     each packed stream carries its launch geometry and its random-gather
+     floor: the x-access probes gathering x at the stream's own columns.
+     Kernel vs plain tolerance there:
      max(1e-5, 4 eps_f32 sqrt(longest row)), since a row of 10^5 products
      summed in f32 in two orders differs by more than 1e-5;
   9. the last TPU kernels (slice 6), through the port's probe and sweep
@@ -163,6 +172,9 @@ X_ACCESS = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
 SOLVE_K = 512
+# the kernels whose registers the build phase reports (cuobjdump)
+ROW_SUM_KERNELS = ("scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
+                   "scs_solve_kernel")
 # Solves judged on the relative L2 norm, not per element, and why. Every
 # other validated solve of this script must be OK per element (hp and the
 # ap[*_hp] mixes by validate's own bf16 bound). Keys: (phase, matrix,
@@ -281,7 +293,14 @@ def unit_row_sums(mtx):
 
 def csr_library(dev, old_to_new, n_rows, x, y, reps=100, tol=None):
     """Time ``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) on the matrix of
-    ``dev`` in the original row order (``library_csr_ms``). ``y`` is the
+    ``dev`` in the original row order (``csr_library_call``)."""
+    call, err = csr_library_call(dev, old_to_new, n_rows, x, y, tol)
+    return (time_ms(call, reps), None) if call else (None, err)
+
+
+def csr_library_call(dev, old_to_new, n_rows, x, y, tol=None):
+    """``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) on the matrix of
+    ``dev`` in the original row order (``library_csr_call``). ``y`` is the
     kernel's result for the same x: the library's must agree with it within
     ``tol`` (default: the tolerance of x's dtype)."""
     import torch
@@ -295,16 +314,24 @@ def csr_library(dev, old_to_new, n_rows, x, y, reps=100, tol=None):
     cols = new_to_old[dev.col_idxs[keep].long()]
     require(rows.min().item() >= 0 and cols.min().item() >= 0,
             "csr_library: a nonzero outside the original rows")
-    return library_csr_ms(rows, cols, dev.values[keep], n_rows,
-                          x.index_select(0, o2n).contiguous(),
-                          y.index_select(0, o2n), tol or acc_tol(x), reps)
+    return library_csr_call(rows, cols, dev.values[keep], n_rows,
+                            x.index_select(0, o2n).contiguous(),
+                            y.index_select(0, o2n), tol or acc_tol(x))
 
 
 def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
     """Time ``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) for the n x n
-    matrix of the given triples (device tensors, in the index space of x,
-    int32 indices in the CSR), values widened to x's dtype unless they are
-    bf16; its result must agree with ``want``. Returns (ms, None), or
+    matrix of the given triples (``library_csr_call``). Returns (ms, None),
+    or (None, error text) where PyTorch has no CSR product for the dtypes."""
+    call, err = library_csr_call(rows, cols, vals, n, x, want, tol)
+    return (time_ms(call, reps), None) if call else (None, err)
+
+
+def library_csr_call(rows, cols, vals, n, x, want, tol):
+    """``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) for the n x n matrix
+    of the given triples (device tensors, in the index space of x, int32
+    indices in the CSR), values widened to x's dtype unless they are bf16;
+    its result must agree with ``want``. Returns (the call, None), or
     (None, error text) where PyTorch has no CSR product for the dtypes."""
     import torch
 
@@ -323,7 +350,7 @@ def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
         return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
     compare(y_lib.to(want.dtype), want, tol, "library CSR product vs the "
             "kernel")
-    return time_ms(lambda: A @ x, reps), None
+    return (lambda: A @ x), None
 
 
 def time_ms(fn, reps):
@@ -371,6 +398,46 @@ def time_pair(kernel, plain, reps=100):
     t_plain.append(time_ms(plain, reps))
     return (float(np.median(t_kern)), float(np.median(t_plain)),
             dict(kernel_samples_ms=t_kern, plain_samples_ms=t_plain))
+
+
+def time_turns(timers):
+    """Each of ``timers`` (name -> a call that returns one time in ms) in
+    the order first..last, last..first: kernel, library, library, kernel.
+    Returns {name: median ms}, {name + "_samples_ms": the two samples} and
+    {name + "_spread": (max - min) / median}."""
+    import numpy as np
+
+    names = list(timers)
+    samples = {k: [] for k in names}
+    for k in [*names, *reversed(names)]:
+        samples[k].append(timers[k]())
+    med = {k: float(np.median(v)) for k, v in samples.items()}
+    extra = {}
+    for k, v in samples.items():
+        extra[f"{k}_samples_ms"] = v
+        extra[f"{k}_spread"] = (max(v) - min(v)) / med[k]
+    return med, extra
+
+
+def sell_vs_library(dev, op, x, y, reps):
+    """The SELL-C-sigma kernel on ``dev`` and x beside its plain version and
+    cuSPARSE on the same matrix, timed by CUDA events in turns (plain,
+    kernel, library, library, kernel, plain), with the kernel's launch
+    geometry. Returns (library ms, library error, fields), the fields
+    holding kernel_ms, plain_ms, the samples, spreads and geometry."""
+    from uspmv_tpu_torch.ops import scs_spmv
+
+    call, lib_err = csr_library_call(dev, op.old_to_new, op.n_rows, x, y)
+    timers = {"plain": lambda: time_ms(
+                  lambda: scs_spmv.spmv_scs_plain(dev, x), reps),
+              "kernel": lambda: time_ms(lambda: scs_spmv.spmv_scs(dev, x),
+                                        reps)}
+    if call:
+        timers["library"] = lambda: time_ms(call, reps)
+    med, fields = time_turns(timers)
+    fields.update(kernel_ms=med["kernel"], plain_ms=med["plain"],
+                  launch=scs_spmv.launch_geometry(dev, x.dtype))
+    return med.get("library"), lib_err, fields
 
 
 def compare(y, y_plain, tol, what):
@@ -1100,8 +1167,8 @@ def small_tiers(rng_seed=2):
                         entry = scs_packed.entry_point(dev.values.dtype,
                                                        x.dtype)
                         counts = dev.row_ptr[1:] - dev.row_ptr[:-1]
-                        ends = dev.row_ptr[dev.group_ptr.long()]
-                        require(((ends[1:] - ends[:-1]) == 0).any().item(),
+                        require((dev.groups[:, 2] == dev.groups[:, 3]
+                                 ).any().item(),
                                 f"{what}: no row group without elements")
                         for acc in (False, True):
                             n0 = scs_packed.launch_counts()[entry]
@@ -1187,22 +1254,35 @@ def tier_stream_records(op, x, reps, tol, with_library):
         y = run(dev, x, layout, out=out).clone()
         max_abs, rel = compare(y, plain(dev, x, layout), tol,
                                f"{entry} vs plain")
-        ms = graph_ms(lambda: run(dev, x, layout, out=out), reps)
         plain_ms = time_ms(lambda: plain(dev, x, layout), reps)
         nbytes = op.matrix_passes() * dev.stream_bytes() + xy_bytes
         b_ms, b_by = bound(nbytes, 2 * dev.nnz * bs, x.dtype)
-        lib_ms, lib_err = None, "block vectors: not timed"
+        call, lib_err = None, "block vectors: not timed"
         if with_library and x.dim() == 1:
             keep = slice(None) if packed else dev.values != 0
-            lib_ms, lib_err = library_csr_ms(
+            call, lib_err = library_csr_call(
                 dev.row_idxs[keep], dev.col_idxs[keep], dev.values[keep], n,
-                x, y, tol, reps)
+                x, y, tol)
+        # the kernel by a replayed graph and the library by events, in
+        # turns: kernel, library, library, kernel
+        timers = {"kernel": lambda: graph_ms(
+            lambda: run(dev, x, layout, out=out), reps)}
+        if call:
+            timers["library"] = lambda: time_ms(call, reps)
+        med, turns = time_turns(timers)
         recs[entry] = dict(
             stream=p, kind="packed" if packed else "scs", nnz=dev.nnz,
-            n_elements=dev.nnz if packed else dev.n_elements, ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            bound_bytes=nbytes, max_abs_err=max_abs, rel_err=rel,
-            library_ms=lib_ms, library_error=lib_err)
+            n_elements=dev.nnz if packed else dev.n_elements,
+            ms=med["kernel"], plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, bound_bytes=nbytes, max_abs_err=max_abs,
+            rel_err=rel, library_ms=med.get("library"),
+            library_error=lib_err, **turns)
+        if packed:
+            n_vec = x.shape[0] if x.dim() == 2 and layout == "colwise" else 1
+            recs[entry]["launch"] = scs_packed.launch_geometry(dev, x.dtype,
+                                                               n_vec)
+        if packed and with_library and x.dim() == 1:
+            recs[entry].update(gather_floor(dev, x, reps))
         if p not in op.pieces:
             continue
         pc = op.pieces[p]
@@ -1232,6 +1312,34 @@ def tier_stream_records(op, x, reps, tol, with_library):
             bound_by=b_by, bound_bytes=nbytes, max_abs_err=max_abs,
             rel_err=rel, library_ms=lib_ms, library_error=lib_err)
     return recs
+
+
+def gather_floor(dev, x, reps):
+    """The random-gather floor of a packed stream: the x-access probes
+    (csrc/x_access.cu) gathering x at the stream's own columns, once per
+    stored element, from an f32 vector as many bytes long as x (an f64 x is
+    gathered as x_f32[2 col], the same 32 B sectors), by a replayed graph.
+    gather_store writes each value, gather_fma sums value times x per
+    thread: the two ends of what the kernel's phase a does."""
+    import torch
+
+    from uspmv_tpu_torch.ops import x_access
+
+    scale = x.element_size() // 4
+    idx = (dev.col_idxs * scale).contiguous()
+    xf = torch.randn(dev.n_rows_padded * scale, device=x.device)
+    v = dev.values.float()
+    out = torch.empty(idx.numel(), device=x.device)
+    fma_out = torch.empty(x_access.fma_threads(idx.numel()), device=x.device)
+    require(torch.equal(x_access.gather_store(xf, idx, out=out),
+                        x_access.gather_store_plain(xf, idx)),
+            "gather floor: gather_store vs plain")
+    return dict(
+        gather_elements=idx.numel(), gather_x_bytes=xf.numel() * 4,
+        gather_store_ms=graph_ms(
+            lambda: x_access.gather_store(xf, idx, out=out), reps),
+        gather_fma_ms=graph_ms(
+            lambda: x_access.gather_fma(xf, idx, v, out=fma_out), reps))
 
 
 def tier_launch_counts():
@@ -1632,8 +1740,6 @@ def main():
         launch_count,
         launch_counts,
         reset_launch_count,
-        spmv_scs,
-        spmv_scs_plain,
     )
     from uspmv_tpu_torch.runtime.bench import bench_spmv
 
@@ -1654,6 +1760,14 @@ def main():
          library=str(lib.path),
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if "registers" in ln or "Compiling entry" in ln])
+    # registers and local memory (spills) of the row-sum kernels
+    resources = [r for r in _build.kernel_resources(lib.path)
+                 if any(k in r["function"] for k in ROW_SUM_KERNELS)]
+    require({k for k in ROW_SUM_KERNELS
+             if any(k in r["function"] for r in resources)}
+            == set(ROW_SUM_KERNELS),
+            f"cuobjdump: row-sum kernels missing from {resources}")
+    emit("kernel_resources", kernels=resources)
 
     rng = np.random.default_rng(0)
 
@@ -1716,11 +1830,10 @@ def main():
     x = op.make_x(x_host)
     y, max_abs, rel = kernel_vs_plain(dev, x, TOL["sp"], "headline")
     rel_scipy = vs_scipy(op, mtx, x_host, y, TOL["sp"], "headline")
-    ms, plain_ms, samples = time_pair(lambda: spmv_scs(dev, x),
-                                      lambda: spmv_scs_plain(dev, x), 200)
     flops, nbytes = op.flops_per_spmv(), op.bytes_per_spmv()
     b_ms, b_by = bound(nbytes, flops, x.dtype)
-    lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x, y, 200)
+    lib_ms, lib_err, samples = sell_vs_library(dev, op, x, y, 200)
+    ms, plain_ms = samples.pop("kernel_ms"), samples.pop("plain_ms")
     emit("headline", matrix="Laplace3D,128", C=1024, sigma=1,
          value_type="sp", n_rows=op.n_rows, nnz=op.nnz,
          n_elements=dev.n_elements, beta=op.beta()["sp"],
@@ -1752,10 +1865,9 @@ def main():
     y, max_abs, rel = kernel_vs_plain(dev, x, TOL["sp"], "large x")
     rel_scipy = vs_scipy(op, big, x_host, y, TOL["sp"], "large x")
     rep, _ = validated_solve(op, big, 1, "large-x solve")
-    ms, plain_ms, samples = time_pair(lambda: spmv_scs(dev, x),
-                                      lambda: spmv_scs_plain(dev, x), 100)
     b_ms, b_by = bound(op.bytes_per_spmv(), op.flops_per_spmv(), x.dtype)
-    lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x, y, 100)
+    lib_ms, lib_err, samples = sell_vs_library(dev, op, x, y, 100)
+    ms, plain_ms = samples.pop("kernel_ms"), samples.pop("plain_ms")
     emit("large_x", matrix="Laplace3D,160", n_rows=op.n_rows, nnz=op.nnz,
          x_bytes=op.n_rows_padded * 4, max_abs_err=max_abs, rel_err=rel,
          rel_err_vs_scipy=rel_scipy, validation=rep.summary(),

@@ -632,3 +632,170 @@ def test_probe_variants_match_plain(cuda, variant):
                                         store_above=float("inf"))
         torch.cuda.synchronize()
         assert stored.item() == 0 and torch.equal(y, y0)
+
+
+# ---------------------- the batched row loop and the persistent packed grid
+
+# rows per trip of the SELL row loop by block width BS (scs_row.cuh:
+# kBatchX / BS); the chunk lengths each K needs covered: 0, 1, K-1, K, K+1
+# and 2K+3
+ROW_TRIP = {1: 8, 2: 4, 4: 2, 8: 1}
+CHUNK_LENGTHS = sorted({n for K in ROW_TRIP.values()
+                        for n in (0, 1, K - 1, K, K + 1, 2 * K + 3)})
+
+
+def chunk_length_matrix(C):
+    """Rows in blocks of C, block b's rows at most CHUNK_LENGTHS[b % 11]
+    long and its first row exactly that long, so that at sigma=1 the
+    chunks take every length of CHUNK_LENGTHS (and rows inside a chunk are
+    shorter: padding slots)."""
+    blocks = max(2 * len(CHUNK_LENGTHS), -(-300 // C))
+    n = blocks * C
+    rng = np.random.default_rng(C)
+    top = np.asarray(CHUNK_LENGTHS)[np.arange(n) // C % len(CHUNK_LENGTHS)]
+    counts = np.where(np.arange(n) % C == 0, top,
+                      rng.integers(0, top + 1))
+    I = np.repeat(np.arange(n), counts)
+    J = np.concatenate([rng.choice(n, k, replace=False) for k in counts])
+    return MtxData.from_arrays(I, J, rng.standard_normal(I.size), n,
+                               n).sort_by_row()
+
+
+def chunk_devs(mtx, C, sigma, device):
+    """The SCS of ``mtx`` with permuted columns, as every pair's DeviceScs
+    (values rounded to bf16 where the pair reads bf16, so all pairs hold
+    the same numbers) and as the unit stream of its pattern."""
+    import dataclasses
+
+    from uspmv_tpu_torch.formats.scs import convert_to_scs, permute_scs_cols
+
+    scs = convert_to_scs(mtx, C, sigma)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    permute_scs_cols(scs, perm)
+    devs = {}
+    for vdt, xdt in PAIRS:
+        rounded = dataclasses.replace(scs, values=torch.from_numpy(
+            scs.values).to(vdt).double().numpy())
+        devs[(vdt, xdt)] = build_device_scs(rounded, device, vdt)
+    ones = dataclasses.replace(scs, values=(scs.values != 0).astype(
+        np.float32))
+    devs[(None, torch.float32)] = build_device_scs(ones, device,
+                                                   unit_values=True)
+    return scs, devs
+
+
+@pytest.mark.parametrize("sigma", [1, 512])
+@pytest.mark.parametrize("C", [1, 3, 32, 1024])
+def test_row_loop_trips_match_plain_and_the_solve(cuda, C, sigma):
+    """Chunks of 0, 1, K-1, K, K+1 and 2K+3 elements for every trip K of
+    the row loop: every pair and the unit stream, rowwise bs 1-8 and
+    colwise, written and accumulated, against the plain version; twice in
+    a row bit-equal; and the fused solve at k=1 bit-equal to the SpMV."""
+    from uspmv_tpu_torch.ops import scs_solve
+
+    scs, devs = chunk_devs(chunk_length_matrix(C), C, sigma, cuda)
+    if sigma == 1:
+        assert set(CHUNK_LENGTHS) <= set(scs.chunk_lengths.tolist())
+    n = scs.n_rows_padded
+    shapes = [("rowwise", bs) for bs in range(1, 9)] + [("colwise", 3)]
+    for (vdt, xdt), dev in devs.items():
+        for layout, bs in shapes:
+            shape = block_shape(n, layout, bs)
+            x, y0 = randn_pair(shape, xdt, cuda, bs)
+            for accumulate in (False, True):
+                what = f"{vdt} {xdt} {layout} bs={bs} acc={accumulate}"
+                got = [spmv_scs(dev, x, layout,
+                                y0.clone() if accumulate else None)
+                       for _ in range(2)]
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], got[1]), what
+                ref = spmv_scs_plain(dev, x, layout,
+                                     y0.clone() if accumulate else None)
+                err = (got[0] - ref).abs().max().item()
+                assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(),
+                                                 1e-30), what
+            if (vdt, xdt) in SOLVE_PAIRS and layout == "rowwise":
+                prev, fin = scs_solve.solve_scs(dev, x, 1)
+                assert torch.equal(prev, x), what
+                assert torch.equal(fin, spmv_scs(dev, x)), what
+
+
+def packed_matrix(n, seed):
+    """Rows 0-127 of exactly 32 elements (one group of GROUP_MAX_ELEMS),
+    rows 200-459 empty (a whole group), the rest of 0 to 8 elements or,
+    one in twenty, of 32; no column twice in a row."""
+    rng = np.random.default_rng(seed)
+    counts = np.where(rng.random(n) < 0.05, 32, rng.integers(0, 9, n))
+    counts[:128] = 32
+    counts[200:460] = 0
+    I = np.repeat(np.arange(n), counts)
+    j = np.arange(I.size) - np.repeat(np.cumsum(counts) - counts, counts)
+    J = (rng.integers(0, n, I.size) // 33 * 33 + j) % n  # distinct in a row
+    return MtxData.from_arrays(I, J, rng.standard_normal(I.size), n,
+                               n).sort_by_row()
+
+
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 3),
+                                       ("colwise", 2)])
+@pytest.mark.parametrize("n", [2000, 400_000])
+@pytest.mark.parametrize("pair", PACKED_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_packed_grid_matches_plain_and_repeats_bit_for_bit(cuda, pair, n,
+                                                           layout, bs):
+    """The persistent grid with fewer groups than SMs (n=2000) and more
+    groups than it holds (n=400,000), a group of exactly GROUP_MAX_ELEMS
+    elements, rows of 0 and 32 elements; dp, sp, hp, rowwise and colwise."""
+    from uspmv_tpu_torch.formats.scs import convert_to_scs, permute_scs_cols
+    from uspmv_tpu_torch.ops import scs_packed
+    from uspmv_tpu_torch.ops.device_format import (
+        GROUP_MAX_ELEMS,
+        build_device_packed,
+    )
+
+    vdt, xdt = pair
+    mtx = packed_matrix(n, seed=n)
+    mtx.values = torch.from_numpy(mtx.values).to(vdt).double().numpy()
+    scs = convert_to_scs(mtx, 32, 1)
+    perm = np.arange(scs.n_rows_padded, dtype=np.int32)
+    perm[: scs.n_rows] = scs.old_to_new_idx
+    permute_scs_cols(scs, perm)
+    dev = build_device_packed(scs, cuda, vdt)
+    assert dev.max_group_elems == GROUP_MAX_ELEMS
+    counts = np.diff(dev.row_ptr.cpu().numpy())
+    assert counts.min() == 0 and counts.max() == 32
+    n_vec = bs if layout == "colwise" else 1
+    geom = scs_packed.launch_geometry(dev, xdt, n_vec)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert geom["stage_bytes"] == GROUP_MAX_ELEMS * xdt.itemsize
+    assert geom["blocks_per_sm"] >= 1
+    if n == 2000:
+        assert geom["grid"] == dev.n_groups < sms
+    else:
+        assert geom["grid"] < dev.n_groups
+    shape = block_shape(dev.n_rows_padded, layout, bs)
+    x, y0 = randn_pair(shape, xdt, cuda, n)
+    name = scs_packed.entry_point(vdt, xdt)
+    for accumulate in (False, True):
+        before = scs_packed.launch_counts()[name]
+        got = [scs_packed.spmv_packed(dev, x, layout,
+                                      y0.clone() if accumulate else None)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        assert scs_packed.launch_counts()[name] == before + 2
+        assert torch.equal(got[0], got[1])
+        ref = scs_packed.spmv_packed_plain(dev, x, layout,
+                                           y0.clone() if accumulate else None)
+        err = (got[0] - ref).abs().max().item()
+        assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
+
+
+def test_launch_geometry_of_the_sell_kernel(cuda):
+    """Every entry's one-vector kernel keeps at least kMinBlocksPerSm (5)
+    blocks resident and launches a block per 256 padded rows."""
+    dev = banded_dev(torch.float32, cuda)
+    for (vdt, xdt), entry in scs_spmv._ENTRY_POINTS.items():
+        geom = scs_spmv.launch_geometry(banded_dev(vdt, cuda), xdt)
+        assert geom["blocks_per_sm"] >= 5, entry
+        assert geom["grid"] == -(-dev.n_rows_padded // 256)
+    unit, _ = ones_devs(cuda)
+    assert scs_spmv.launch_geometry(unit, torch.float32)["blocks_per_sm"] >= 5

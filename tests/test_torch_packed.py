@@ -46,6 +46,7 @@ from uspmv_tpu_torch.ops.device_format import (
     GROUP_MAX_ROWS,
     build_device_packed,
     build_device_scs,
+    group_records,
     row_groups,
 )
 from uspmv_tpu_torch.ops.scs_packed import spmv_packed, spmv_packed_plain
@@ -106,7 +107,8 @@ def test_packed_decodes_to_the_coo(name, C, sigma):
     dev = build_device_packed(scs, CPU)
     assert dev.nnz == mtx.nnz and dev.device_beta == 1.0
     assert dev.n_rows_padded == scs.n_rows_padded
-    row_ptr, groups = dev.row_ptr.numpy(), dev.group_ptr.numpy()
+    row_ptr, rec = dev.row_ptr.numpy(), dev.groups.numpy()
+    groups = np.append(rec[:, 0], rec[-1, 1])
     assert np.array_equal(np.diff(row_ptr), scs.row_counts_new)
     assert np.array_equal(np.repeat(np.arange(scs.n_rows_padded),
                                     np.diff(row_ptr)), dev.row_idxs.numpy())
@@ -115,8 +117,8 @@ def test_packed_decodes_to_the_coo(name, C, sigma):
     assert (np.diff(groups) > 0).all() and dev.n_groups == groups.size - 1
     assert np.diff(groups).max() <= GROUP_MAX_ROWS
     assert np.diff(row_ptr[groups]).max() <= GROUP_MAX_ELEMS
-    assert dev.stream_bytes() == (8 + 4) * mtx.nnz + 4 * (row_ptr.size
-                                                          + groups.size)
+    assert dev.stream_bytes() == (8 + 4) * mtx.nnz + 4 * row_ptr.size \
+        + 16 * dev.n_groups
     # the stored triples, in original indices
     I = scs.new_to_old_idx[dev.row_idxs.numpy()]
     J, V = dev.col_idxs.numpy(), dev.values.numpy()
@@ -127,6 +129,52 @@ def test_packed_decodes_to_the_coo(name, C, sigma):
     # within a row, the SCS's own order (the input order of the COO)
     row7 = I == mtx.I[mtx.nnz // 2]
     assert np.array_equal(J[row7], mtx.J[mtx.I == mtx.I[mtx.nnz // 2]])
+
+
+@pytest.mark.parametrize("C,sigma", [(1, 1), (32, 64), (1024, 1)])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_group_records_and_stage_size(name, C, sigma):
+    """The kernel's per-group int4 records, the largest group and the
+    wrapper's shared-memory bytes, against a numpy recomputation from
+    row_ptr and group_ptr."""
+    scs = convert_to_scs(MATRICES[name](), C, sigma)
+    dev = build_device_packed(scs, CPU)
+    row_ptr, rec = dev.row_ptr.numpy(), dev.groups.numpy()
+    groups = row_groups(row_ptr)
+    assert dev.groups.dtype == torch.int32 and dev.groups.is_contiguous()
+    assert rec.shape == (dev.n_groups, 4)
+    for g in range(dev.n_groups):
+        r0, r1 = groups[g], groups[g + 1]
+        assert tuple(rec[g]) == (r0, r1, row_ptr[r0], row_ptr[r1])
+    sizes = np.diff(row_ptr[groups])
+    assert dev.max_group_elems == sizes.max() <= GROUP_MAX_ELEMS
+    assert scs_packed.stage_bytes(dev, torch.float64) == 8 * sizes.max()
+    assert scs_packed.stage_bytes(dev, torch.float32) == 4 * sizes.max()
+
+
+def test_group_records_at_the_limits():
+    """A group of exactly GROUP_MAX_ELEMS elements sizes the stage at
+    32 KB of doubles; a matrix of empty rows needs no stage."""
+    row_ptr = np.array([0, 3, 3 + GROUP_MAX_ELEMS, 3 + GROUP_MAX_ELEMS])
+    groups = row_groups(row_ptr)
+    rec = group_records(row_ptr, groups)
+    assert rec.dtype == np.int32
+    assert rec.tolist() == [[0, 1, 0, 3], [1, 3, 3, 3 + GROUP_MAX_ELEMS]]
+    assert (rec[:, 3] - rec[:, 2]).max() * 8 == 32 * 1024
+    n = GROUP_MAX_ELEMS
+    I = np.concatenate([np.zeros(n, np.int64), np.arange(1, 40)])
+    J = np.concatenate([np.arange(n), np.arange(1, 40)])
+    mtx = MtxData.from_arrays(I, J, np.ones(I.size), n, n, is_sorted=True)
+    dev = build_device_packed(convert_to_scs(mtx, 32, 1), CPU)
+    assert dev.max_group_elems == GROUP_MAX_ELEMS
+    assert scs_packed.stage_bytes(dev, torch.float64) == 32 * 1024
+    empty = build_device_packed(convert_to_scs(MtxData.from_arrays(
+        np.zeros(0, np.int64), np.zeros(0, np.int64), np.zeros(0), 300, 300,
+        is_sorted=True), 32, 1), CPU)
+    assert empty.n_groups == 2 and empty.max_group_elems == 0
+    assert empty.groups.numpy().tolist() == [[0, 256, 0, 0],
+                                             [256, 320, 0, 0]]
+    assert scs_packed.stage_bytes(empty, torch.float32) == 0
 
 
 def greedy_groups(row_ptr, max_rows, max_elems):

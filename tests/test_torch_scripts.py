@@ -17,10 +17,12 @@ from uspmv_tpu.io import generators as jgen
 
 from uspmv_tpu_torch.io import generators as tgen
 from uspmv_tpu_torch.runtime.operator import DeviceUnavailableError
+from uspmv_tpu_torch.ops import _build
 from uspmv_tpu_torch.scripts import (
     _common,
     ap_bench,
     gather_probe,
+    kernel_ab,
     microbench,
     perf_sweep,
     tile_cost,
@@ -201,3 +203,74 @@ def test_microbench_cases_are_the_jax_scripts():
     with pytest.raises(ValueError, match="unknown cases"):
         microbench.main(["no_such_case", "--backend", "cpu", "--n", "1024",
                          "--elements", "8192"])
+
+
+# ------------------------------------------------- kernel_ab (GPU only)
+
+
+def test_kernel_ab_arguments_and_turns(tmp_path):
+    libs = kernel_ab.parse_libs(["parent=a/csrc", "change=b"])
+    assert list(libs) == ["parent", "change"]
+    assert libs["change"] == Path("b")
+    for bad in (["parent"], ["=a"], ["p=a", "p=b"]):
+        with pytest.raises(ValueError, match="--lib"):
+            kernel_ab.parse_libs(bad)
+    # parent, change, change, parent: each as often early as late
+    assert kernel_ab.turns(["p", "c"], 2) == ["p", "c", "c", "p"] * 2
+    assert kernel_ab.packed_abi(REPO / "uspmv_tpu_torch" / "csrc") \
+        == "records"
+    (tmp_path / "scs_packed.cu").write_text("int uspmv_scs_packed(...);")
+    assert kernel_ab.packed_abi(tmp_path) == "group_ptr"
+    assert len(kernel_ab._PACKED_ARGTYPES_GROUP_PTR) + 1 \
+        == len(kernel_ab.scs_packed._ARGTYPES)
+    args = kernel_ab.build_parser().parse_args(["--lib", "a=b"])
+    assert args.out is None and args.cases == "sell,packed,solve"
+    assert _common.default_out("kernel_ab").parent \
+        == REPO / "build" / "uspmv_tpu_torch"
+    with pytest.raises(ValueError, match="unknown"):
+        kernel_ab.main(["--lib", "a=b", "--cases", "sell,gemm"])
+
+
+def test_kernel_ab_without_a_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    out = tmp_path / "ab.jsonl"
+    with pytest.raises(DeviceUnavailableError):
+        kernel_ab.main(["--lib", f"a={REPO / 'uspmv_tpu_torch' / 'csrc'}",
+                        "--out", str(out)])
+    assert not out.exists()
+
+
+def test_kernel_resources_reads_cuobjdump(monkeypatch):
+    """The registers and local memory per kernel, from cuobjdump's
+    -res-usage text (demangled by c++filt where it is installed)."""
+    import subprocess
+
+    text = ("Resource usage:\n Common:\n  GLOBAL:0\n"
+            " Function _Z6kernAPf:\n  REG:40 STACK:0 SHARED:0 LOCAL:0 "
+            "CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
+            " Function _Z6kernBPd:\n  REG:64 STACK:8 SHARED:1024 LOCAL:16 "
+            "CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0\n")
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        if cmd[0] == "c++filt":
+            out = "kernA(float*)\nkernB(double*)\n"
+        else:
+            out = text
+        return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
+
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "/cuda/bin/nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_run)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: name)
+    got = _build.kernel_resources(Path("lib.so"))
+    assert calls[0] == ["/cuda/bin/cuobjdump", "-res-usage", "lib.so"]
+    assert got == [
+        dict(function="kernA(float*)", registers=40, stack=0, shared=0,
+             local=0),
+        dict(function="kernB(double*)", registers=64, stack=8, shared=1024,
+             local=16)]
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    assert [r["function"] for r in _build.kernel_resources(Path("x"))] \
+        == ["_Z6kernAPf", "_Z6kernBPd"]

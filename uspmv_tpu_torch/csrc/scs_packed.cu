@@ -12,30 +12,49 @@
 // What it computes. The matrix is the SELL-C-sigma matrix with its padding
 // dropped: rows in the SCS's permuted order, row r's elements contiguous at
 // row_ptr[r] .. row_ptr[r+1]-1 in the SCS's own order. Rows are cut into
-// consecutive groups g = group_ptr[g] .. group_ptr[g+1]-1 of at most
-// kThreads rows and kStageElems elements. For every row r and column v:
+// consecutive groups of at most kThreads rows and GROUP_MAX_ELEMS elements
+// (ops/device_format.py); group g is the record groups[g] = (row0, row1, e0,
+// e1): rows row0 .. row1-1, elements e0 .. e1-1. For every row r and
+// column v:
 //   y[r][v] (+)= sum_k Tx(values[k]) * x[col_idxs[k]][v]
 // as a rounded product followed by a sum in order of k: two roundings, not
 // the FMA of scs_spmv.cu, so the result differs from that kernel in the
 // last bits and agrees with the plain PyTorch version (ops/scs_packed.py)
 // up to the order of its index_add_.
 //
-// Design: one block per row group. Phase a: the block's threads stride over
-// the group's elements, coalesced whatever the row lengths, and write
-// val * x[col] into shared memory. Phase b: thread t sums row t's products
-// from shared memory and writes, or with `accumulate` adds into, y; a row
-// with no elements writes 0. Bound by bytes: the value and an int32 column
-// per nonzero and 4 B per row of pointers, no padding, x through L2, y once.
-// Rowwise block vectors run one pass (a, b) per column inside the launch;
-// the group's values and columns (<= 48 KB) are read again from L1/L2, so
-// device memory sees them once. Colwise block vectors: gridDim.y = vectors.
-// Phase b reads shared memory at a stride of the row length (bank conflicts
-// when rows are a multiple of 32 long); a warp per row for long rows is
-// later work.
+// Design: a persistent grid, as many blocks as stay resident on the card,
+// each taking groups g = blockIdx.x, + gridDim.x, ... Phase a: the block's
+// threads stride over the group's elements, coalesced whatever the row
+// lengths, and write val * x[col] into shared memory. Phase b: thread t sums
+// row t's products from shared memory in order of k and writes, or with
+// `accumulate` adds into, y; a row with no elements writes 0. Rowwise block
+// vectors run one pass (a, b) per column inside the launch; the group's
+// values and columns are read again from L1/L2, so device memory sees them
+// once. Colwise block vectors: gridDim.y = vectors.
 //
-// Launch rules: the caller's stream, static shared memory (kStageElems
-// accumulator words: 16 KB for float, 32 KB for double), no allocation, no
-// synchronisation; the entry point returns cudaGetLastError().
+// What bounds it. The columns of the matrices this tier takes are
+// scattered, so each x load is an L2 sector of its own: the floor is the
+// random-gather rate (x_access.cu's gather probes), not the bytes. Below
+// that, latency: a group's metadata, then its columns, then x. So the
+// design (1) sizes the stage to the matrix (the largest group's elements,
+// as dynamic shared memory), where a stage sized for GROUP_MAX_ELEMS took
+// 32 KB of doubles a block and cost dp a wave of blocks; (2) reads a group
+// as one 16 B record, and the next group's record while the current one
+// is summed; (3) issues kPhaseABatch values and columns per thread before
+// their x loads, predicated on the group's end. The matrix goes through
+// the read-only path: the evict-first hint of the SELL kernel did not help
+// here in a paired run. Phase b keeps a thread per row (a row is 5
+// elements on average on the imbalanced matrices, at most 32 once split),
+// with shared-memory bank conflicts where rows are a multiple of 32 long.
+// On an NVIDIA H100 80GB HBM3 at 700 W the packed rows of
+// RandomImbalanced-500k at C=1024 take 1.18 (sp) and 1.30 (dp) times the
+// gather probe's time on the same columns, and dp runs in 0.75 of
+// cuSPARSE's time on the same rows (chip_smoke.py path G; PERF.md).
+//
+// Launch rules: the caller's stream, stage_bytes of dynamic shared memory
+// (at most 48 KB; the wrapper passes max_group_elems * sizeof(Tx)), no
+// allocation, no synchronisation; the entry point returns the first error
+// of the occupancy query or the launch.
 
 #include <cstdint>
 
@@ -49,11 +68,19 @@ namespace {
 using uspmv::kThreads;
 using uspmv::widen;
 
-constexpr int kStageElems = 4096;
 constexpr int kMaxGridY = 65535;
+constexpr int kMaxStageBytes = 48 * 1024;
+
+// Elements per thread whose value and column phase a loads before their x.
+// A group averages 5 per thread on the imbalanced matrices. For doubles 2
+// beat 4 in a paired run on an H100 (PERF.md), and for floats 8 beat
+// 4 and 16.
+template <typename Tx>
+constexpr int kPhaseABatch = sizeof(Tx) == 8 ? 2 : 8;
 
 struct PackedArgs {
-  const int32_t* group_ptr;
+  const int4* groups;  // (row0, row1, e0, e1) per group
+  int n_groups;
   const int32_t* row_ptr;
   const int32_t* col_idxs;
   const void* values;
@@ -70,58 +97,130 @@ struct PackedArgs {
 template <typename Tv, typename Tx>
 __global__ void __launch_bounds__(kThreads)
 scs_packed_kernel(const PackedArgs a) {
-  __shared__ Tx stage[kStageElems];
+  constexpr int B = kPhaseABatch<Tx>;
+  extern __shared__ __align__(16) unsigned char stage_raw[];
+  Tx* stage = reinterpret_cast<Tx*>(stage_raw);
   const Tv* __restrict__ values = static_cast<const Tv*>(a.values);
   const Tx* __restrict__ x = static_cast<const Tx*>(a.x) +
                              static_cast<int64_t>(blockIdx.y) * a.x_vstride;
   Tx* __restrict__ y =
       static_cast<Tx*>(a.y) + static_cast<int64_t>(blockIdx.y) * a.y_vstride;
-  const int32_t row0 = __ldg(a.group_ptr + blockIdx.x);
-  const int32_t row1 = __ldg(a.group_ptr + blockIdx.x + 1);
-  const int32_t e0 = __ldg(a.row_ptr + row0);
-  const int32_t e1 = __ldg(a.row_ptr + row1);
-  const int32_t r = row0 + static_cast<int32_t>(threadIdx.x);
-  const bool has_row = r < row1;
-  int32_t begin = 0;
-  int32_t end = 0;
-  if (has_row) {
-    begin = __ldg(a.row_ptr + r) - e0;
-    end = __ldg(a.row_ptr + r + 1) - e0;
+  const int t = static_cast<int>(threadIdx.x);
+  int g = static_cast<int>(blockIdx.x);
+  if (g >= a.n_groups) {
+    return;
   }
-  for (int v = 0; v < a.ncols; ++v) {
-    for (int32_t k = e0 + static_cast<int32_t>(threadIdx.x); k < e1;
-         k += kThreads) {
-      const Tx val = static_cast<Tx>(widen(__ldg(values + k)));
-      stage[k - e0] =
-          val * __ldg(x + static_cast<int64_t>(__ldg(a.col_idxs + k)) *
-                              a.x_ld + v);
+  int4 next = __ldg(a.groups + g);
+  for (; g < a.n_groups; g += gridDim.x) {
+    const int4 grp = next;  // (row0, row1, e0, e1)
+    const int32_t r = grp.x + t;
+    const bool has_row = r < grp.y;
+    int32_t begin = 0;
+    int32_t end = 0;
+    if (has_row) {  // needed in phase b only: in flight during phase a
+      begin = __ldg(a.row_ptr + r) - grp.z;
+      end = __ldg(a.row_ptr + r + 1) - grp.z;
     }
-    __syncthreads();
-    if (has_row) {
-      Tx acc = Tx(0);
-      for (int32_t k = begin; k < end; ++k) {
-        acc += stage[k];
+    const int g_next = g + static_cast<int>(gridDim.x);
+    for (int v = 0; v < a.ncols; ++v) {
+      for (int32_t k0 = grp.z + t; k0 < grp.w; k0 += B * kThreads) {
+        Tv val[B];
+        int32_t col[B];
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const int32_t k = k0 + b * kThreads;
+          if (k < grp.w) {
+            val[b] = __ldg(values + k);
+            col[b] = __ldg(a.col_idxs + k);
+          }
+        }
+        Tx xv[B];
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          if (k0 + b * kThreads < grp.w) {
+            xv[b] = __ldg(x + static_cast<int64_t>(col[b]) * a.x_ld + v);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const int32_t k = k0 + b * kThreads;
+          if (k < grp.w) {
+            stage[k - grp.z] = static_cast<Tx>(widen(val[b])) * xv[b];
+          }
+        }
       }
-      Tx* yr = y + static_cast<int64_t>(r) * a.y_ld + v;
-      *yr = a.accumulate ? *yr + acc : acc;
+      __syncthreads();
+      if (v + 1 == a.ncols && g_next < a.n_groups) {
+        next = __ldg(a.groups + g_next);  // arrives while phase b sums
+      }
+      if (has_row) {
+        Tx acc = Tx(0);
+        for (int32_t k = begin; k < end; ++k) {
+          acc += stage[k];
+        }
+        Tx* yr = y + static_cast<int64_t>(r) * a.y_ld + v;
+        *yr = a.accumulate ? *yr + acc : acc;
+      }
+      __syncthreads();  // the next pass or group overwrites the stage
     }
-    __syncthreads();  // the next column's products overwrite the stage
   }
 }
 
+// The persistent grid of one instantiation: blocks resident per SM at
+// stage_bytes (per_sm), and the blocks along x of a launch (blocks): all
+// resident blocks shared among the n_vec colwise vectors, at most one per
+// group.
 template <typename Tv, typename Tx>
-int launch_packed(int64_t n_groups, const void* group_ptr,
-                  const void* row_ptr, const void* col_idxs,
-                  const void* values, const void* x, int64_t x_ld,
-                  int64_t x_vstride, void* y, int64_t y_ld, int64_t y_vstride,
-                  int ncols, int n_vec, int accumulate, void* stream) {
+cudaError_t packed_grid(int64_t n_groups, int n_vec, int stage_bytes,
+                        int* per_sm, int64_t* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  int n_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_packed_kernel<Tv, Tx>, kThreads, stage_bytes);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // reset it, or the next launch would report it
+    return err;
+  }
+  if (*per_sm < 1) {
+    return cudaErrorLaunchOutOfResources;
+  }
+  int64_t b = static_cast<int64_t>(*per_sm) * n_sm / (n_vec > 0 ? n_vec : 1);
+  b = b < 1 ? 1 : b;
+  *blocks = b < n_groups ? b : n_groups;
+  return cudaSuccess;
+}
+
+template <typename Tv, typename Tx>
+int launch_packed(int64_t n_groups, const void* groups, const void* row_ptr,
+                  const void* col_idxs, const void* values, const void* x,
+                  int64_t x_ld, int64_t x_vstride, void* y, int64_t y_ld,
+                  int64_t y_vstride, int ncols, int n_vec, int accumulate,
+                  int stage_bytes, void* stream) {
   if (n_groups <= 0 || n_vec <= 0 || ncols <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (n_vec > kMaxGridY || n_groups > INT32_MAX) {
+  if (n_vec > kMaxGridY || n_groups > INT32_MAX || stage_bytes < 0 ||
+      stage_bytes > kMaxStageBytes ||
+      stage_bytes % static_cast<int>(sizeof(Tx)) != 0 ||
+      reinterpret_cast<uintptr_t>(groups) % alignof(int4) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const PackedArgs a{static_cast<const int32_t*>(group_ptr),
+  int per_sm = 0;
+  int64_t blocks = 0;
+  const cudaError_t err =
+      packed_grid<Tv, Tx>(n_groups, n_vec, stage_bytes, &per_sm, &blocks);
+  if (err != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const PackedArgs a{static_cast<const int4*>(groups),
+                     static_cast<int>(n_groups),
                      static_cast<const int32_t*>(row_ptr),
                      static_cast<const int32_t*>(col_idxs),
                      values,
@@ -133,31 +232,43 @@ int launch_packed(int64_t n_groups, const void* group_ptr,
                      y_vstride,
                      ncols,
                      accumulate};
-  const dim3 grid(static_cast<unsigned int>(n_groups),
+  const dim3 grid(static_cast<unsigned int>(blocks),
                   static_cast<unsigned int>(n_vec));
   scs_packed_kernel<Tv, Tx>
-      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+      <<<grid, kThreads, static_cast<size_t>(stage_bytes),
+         static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Every entry point: y (+)= A x for one precision stream. The row groups
-// must hold at most kThreads (256) rows and kStageElems (4096) elements
-// each; ops/device_format.build_device_packed sees to it.
-#define USPMV_PACKED_ENTRY(name, Tv, Tx)                                      \
-  int name(int64_t n_groups, const void* group_ptr, const void* row_ptr,      \
-           const void* col_idxs, const void* values, const void* x,           \
-           int64_t x_ld, int64_t x_vstride, void* y, int64_t y_ld,            \
-           int64_t y_vstride, int ncols, int n_vec, int accumulate,           \
-           void* stream) {                                                    \
-    return launch_packed<Tv, Tx>(n_groups, group_ptr, row_ptr, col_idxs,      \
-                                 values, x, x_ld, x_vstride, y, y_ld,         \
-                                 y_vstride, ncols, n_vec, accumulate, stream); \
+// Every entry point: y (+)= A x for one precision stream. groups holds
+// n_groups int4 records (row0, row1, e0, e1), 16-byte aligned; each group
+// holds at most kThreads (256) rows and stage_bytes / sizeof(Tx) elements
+// (ops/device_format.build_device_packed and ops/scs_packed.stage_bytes
+// see to it).
+#define USPMV_PACKED_ENTRY(name, Tv, Tx)                                     \
+  int name(int64_t n_groups, const void* groups, const void* row_ptr,        \
+           const void* col_idxs, const void* values, const void* x,          \
+           int64_t x_ld, int64_t x_vstride, void* y, int64_t y_ld,           \
+           int64_t y_vstride, int ncols, int n_vec, int accumulate,          \
+           int stage_bytes, void* stream) {                                  \
+    return launch_packed<Tv, Tx>(n_groups, groups, row_ptr, col_idxs,        \
+                                 values, x, x_ld, x_vstride, y, y_ld,        \
+                                 y_vstride, ncols, n_vec, accumulate,        \
+                                 stage_bytes, stream);                       \
+  }                                                                          \
+  int name##_grid(int64_t n_groups, int n_vec, int stage_bytes, int* per_sm, \
+                  int64_t* blocks) {                                         \
+    return static_cast<int>(packed_grid<Tv, Tx>(n_groups, n_vec,             \
+                                                stage_bytes, per_sm,         \
+                                                blocks));                    \
   }
 
 extern "C" {
 
+// name: the launch; name_grid: the grid that launch would take (per_sm
+// resident blocks per SM, blocks along x), for a report of the launch.
 USPMV_PACKED_ENTRY(uspmv_scs_packed_f64_f64, double, double)
 USPMV_PACKED_ENTRY(uspmv_scs_packed_f32_f32, float, float)
 USPMV_PACKED_ENTRY(uspmv_scs_packed_bf16_f32, __nv_bfloat16, float)

@@ -34,12 +34,17 @@
 // only in the part it replaces. The unit-value entry of scs_spmv.cu (no
 // value stream) is timed beside them.
 //
-// What bounds it: bytes, 8 B per stored element of value and column plus x
-// and y once; the headline kernel reaches about half of that bound, and
-// which part holds it back is what these variants measure. They live in a
-// source of their own so that the production kernel's code and ptxas report
-// stay as they are. One thread per padded row, 256 threads a block, as in
-// scs_spmv.cu.
+// What bounds it: the production kernel is bound by the loads a thread has
+// in flight more than by its bytes (8 B per stored element of value and
+// column plus x and y once), and which part holds it back is what these
+// variants measure. So each variant runs the production row loop
+// (scs_row.cuh's scs_row_product for one vector): the row in trips of
+// kBatchX elements, values and columns first (evict-first), then the
+// trip's x (or what replaces it), then the FMAs in order of j, under the
+// same launch bounds, so that `full` minus a variant is the cost of one
+// part of the production kernel. They live in a source of their own so that
+// the production kernel's code and ptxas report stay as they are. One
+// thread per padded row, 256 threads a block, as in scs_spmv.cu.
 //
 // Launch rules: the caller's stream, no allocation, no synchronisation; the
 // entry point returns cudaGetLastError().
@@ -52,7 +57,10 @@
 
 namespace {
 
+using uspmv::kBatchX;
+using uspmv::kMinBlocksPerSm;
 using uspmv::kThreads;
+using uspmv::load_stream;
 using uspmv::ScsMatrix;
 
 enum Variant : int {
@@ -65,37 +73,57 @@ enum Variant : int {
 };
 
 template <int kVariant>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_probe_kernel(const ScsMatrix m, const float* __restrict__ x,
                  int32_t x_mask, float store_above, int accumulate,
                  float* __restrict__ y, int* __restrict__ stored) {
+  constexpr int K = kBatchX;  // scs_row_product's trip for one vector
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= m.n_rows_padded) {
     return;
   }
-  const float* __restrict__ values = static_cast<const float*>(m.values);
   const int C = m.C;
   const int64_t c = r / C;
   const int64_t i = r - c * C;
   const int32_t len = __ldg(m.chunk_lengths + c);
   const int64_t base = static_cast<int64_t>(__ldg(m.chunk_ptrs + c)) + i;
+  const float* vp = static_cast<const float*>(m.values) + base;
+  const int32_t* cp = m.col_idxs + base;
   float acc = 0.0f;
-  for (int32_t j = 0; j < len; ++j) {
-    const int64_t e = base + static_cast<int64_t>(j) * C;
-    const float val = __ldg(values + e);
-    const int32_t col = __ldg(m.col_idxs + e);
-    float g;
-    if constexpr (kVariant == kXWindow) {
-      g = __ldg(x + (col & x_mask));
-    } else if constexpr (kVariant == kNoX || kVariant == kBare) {
-      g = static_cast<float>(col);
-    } else if constexpr (kVariant == kXRow) {
-      g = __ldg(x + (r ^ static_cast<int64_t>(col >> 31)));
-    } else {  // kNoStore
-      g = __ldg(x + col);
+  for (int32_t j0 = 0; j0 < len; j0 += K) {
+    float val[K];
+    int32_t col[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        val[k] = load_stream(vp + static_cast<int64_t>(k) * C);
+        col[k] = load_stream(cp + static_cast<int64_t>(k) * C);
+      }
     }
-    acc += val * g;
+    float g[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        if constexpr (kVariant == kXWindow) {
+          g[k] = __ldg(x + (col[k] & x_mask));
+        } else if constexpr (kVariant == kNoX || kVariant == kBare) {
+          g[k] = static_cast<float>(col[k]);
+        } else if constexpr (kVariant == kXRow) {
+          g[k] = __ldg(x + (r ^ static_cast<int64_t>(col[k] >> 31)));
+        } else {  // kNoStore
+          g[k] = __ldg(x + col[k]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        acc = uspmv::fma_rn(val[k], g[k], acc);
+      }
+    }
+    vp += static_cast<int64_t>(K) * C;
+    cp += static_cast<int64_t>(K) * C;
   }
   if constexpr (kVariant == kNoStore || kVariant == kBare) {
     if (acc > store_above) {

@@ -14,9 +14,17 @@ namespace uspmv {
 
 constexpr int kThreads = 256;
 constexpr int kMaxCols = 8;
+// Blocks of kThreads the row-sum kernels keep resident on an SM at least
+// (__launch_bounds__): caps a thread at 48 registers. The loop below trades
+// registers (loads in flight per thread) against resident threads; in a
+// paired run on an H100 (PERF.md) 5 blocks beat 4 and 6.
+constexpr int kMinBlocksPerSm = 5;
+// x values one thread holds per trip of the row loop: a trip takes
+// kBatchX / BS elements of the row (4 for one vector, 1 for bs >= 4). A
+// trip of 8 needed 64 registers and lost to 4 on every (values, x) pair.
+constexpr int kBatchX = 4;
 
-// One precision stream's SCS arrays. They are never written by a kernel,
-// so they are read through the read-only data path (__ldg).
+// One precision stream's SCS arrays. They are never written by a kernel.
 struct ScsMatrix {
   int64_t n_rows_padded;
   int C;
@@ -32,8 +40,24 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// acc + a * b rounded once: what `acc += a * b` contracts to.
+__device__ __forceinline__ float fma_rn(float a, float b, float acc) {
+  return __fmaf_rn(a, b, acc);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double acc) {
+  return __fma_rn(a, b, acc);
+}
+
+// A value or column of the matrix stream, read once per SpMV: the load is
+// marked evict-first (ld.global.cs), so the stream, larger than L2 at the
+// sizes that matter, passes through it without pushing out x.
+template <typename T>
+__device__ __forceinline__ T load_stream(const T* p) {
+  return __ldcs(p);
+}
+
 // kReadOnlyX: x is not written during the launch, so it may be read
-// through the read-only path too. A kernel that writes a vector and reads
+// through the read-only path. A kernel that writes a vector and reads
 // it again after a grid-wide barrier must pass false: a read-only load
 // may return the line as it was before the other blocks wrote it.
 template <typename Tx, bool kReadOnlyX>
@@ -46,33 +70,73 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 
 // acc[v] = sum_{j < chunk_lengths[c]} Tx(values[e]) * x[col_idxs[e]*x_ld + v],
 // e = chunk_ptrs[c] + j*C + i, for padded row r = c*C + i, summed in order
-// of j as `acc += a * x` (contracted to an FMA). BS accumulators per
-// thread; kFull: ncols == BS (no column guard).
+// of j as acc = fma(a, x, acc) from acc = 0. BS accumulators per thread;
+// kFull: ncols == BS (no column guard).
+//
+// What bounds it: a row's loads depend on each other (column, then x), and
+// a thread that walks them one element at a time waits a device-memory
+// round trip and then an L2 round trip per element. So the loop takes the
+// row in trips of K = kBatchX / BS elements: it issues the K values and
+// columns, then the K * BS x loads, then the FMAs in order of j, with the
+// last trip predicated. A trip costs one round trip of each kind, whatever
+// the row's length and C, and the order of the sum, hence every bit of the
+// result, is that of the element-by-element loop. With these loads in
+// flight the one-vector kernels run near the device-memory rate (the
+// numbers are in scs_spmv.cu and PERF.md).
 template <typename Tv, typename Tx, int BS, bool kFull, bool kReadOnlyX>
 __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
                                                 const Tx* x, int64_t x_ld,
                                                 int64_t r, int ncols,
                                                 Tx (&acc)[BS]) {
-  const Tv* __restrict__ values = static_cast<const Tv*>(m.values);
+  constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
   const int64_t c = r / C;
   const int64_t i = r - c * C;
   const int32_t len = __ldg(m.chunk_lengths + c);
   const int64_t base = static_cast<int64_t>(__ldg(m.chunk_ptrs + c)) + i;
+  const Tv* vp = static_cast<const Tv*>(m.values) + base;
+  const int32_t* cp = m.col_idxs + base;
 #pragma unroll
   for (int v = 0; v < BS; ++v) {
     acc[v] = Tx(0);
   }
-  for (int32_t j = 0; j < len; ++j) {
-    const int64_t e = base + static_cast<int64_t>(j) * C;
-    const Tx val = static_cast<Tx>(widen(__ldg(values + e)));
-    const Tx* xr = x + static_cast<int64_t>(__ldg(m.col_idxs + e)) * x_ld;
+  for (int32_t j0 = 0; j0 < len; j0 += K) {
+    Tv val[K];
+    int32_t col[K];
 #pragma unroll
-    for (int v = 0; v < BS; ++v) {
-      if (kFull || v < ncols) {
-        acc[v] += val * load_x<Tx, kReadOnlyX>(xr + v);
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        val[k] = load_stream(vp + static_cast<int64_t>(k) * C);
+        col[k] = load_stream(cp + static_cast<int64_t>(k) * C);
       }
     }
+    Tx xv[K][BS];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        const Tx* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+#pragma unroll
+        for (int v = 0; v < BS; ++v) {
+          if (kFull || v < ncols) {
+            xv[k][v] = load_x<Tx, kReadOnlyX>(xr + v);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (j0 + k < len) {
+        const Tx a = static_cast<Tx>(widen(val[k]));
+#pragma unroll
+        for (int v = 0; v < BS; ++v) {
+          if (kFull || v < ncols) {
+            acc[v] = fma_rn(a, xv[k][v], acc[v]);
+          }
+        }
+      }
+    }
+    vp += static_cast<int64_t>(K) * C;
+    cp += static_cast<int64_t>(K) * C;
   }
 }
 

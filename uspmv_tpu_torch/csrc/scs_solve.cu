@@ -24,7 +24,8 @@
 // nor __restrict__: iteration it + 1 reads what other blocks wrote in
 // iteration it of the same launch, which the read-only path (__ldg,
 // ld.global.nc) does not promise to see. The barrier's fence makes the
-// writes visible to ordinary loads. The matrix arrays keep __ldg.
+// writes visible to ordinary loads. The matrix arrays are read as the SpMV
+// kernel reads them (scs_row.cuh: evict-first, in batched trips).
 //
 // No thread returns before the last barrier: every thread of every block
 // reaches every grid.sync(), rows or not.
@@ -55,6 +56,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using uspmv::kMaxCols;
+using uspmv::kMinBlocksPerSm;
 using uspmv::kThreads;
 using uspmv::ScsMatrix;
 
@@ -69,7 +71,7 @@ struct SolveArgs {
 };
 
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_solve_kernel(const SolveArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int64_t first =

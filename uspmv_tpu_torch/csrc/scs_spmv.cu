@@ -22,9 +22,9 @@
 //   y[r][v] = y[r][v] + acc[v]   (accumulate != 0: the adaptive-precision
 //                                 sum y = y_p0 + y_p1 + ..., in the order of
 //                                 the JAX operator's closure)
-// summed in order of j in the accumulator type Tx. Each step is
-// `acc += a * x`, which the compiler contracts to an FMA, so results differ
-// from the plain PyTorch version (ops/scs_spmv.py) in the last bits only.
+// summed in order of j in the accumulator type Tx. Each step is one FMA,
+// acc = fma(a, x, acc), so results differ from the plain PyTorch version
+// (ops/scs_spmv.py) in the last bits only.
 //
 // The unit-value form (uspmv_scs_spmv_unit_f32) answers the `unit=True`
 // variant of `_kernel` / `_kernel_windowed` (pallas_scs.py:858-868 and
@@ -37,8 +37,8 @@
 // layouts and accumulate flag as every other entry. It streams 4 B per
 // stored element where sp streams 8, so its time against sp's says whether
 // the kernel is bound by bytes or by loads in flight. It has its own row loop
-// (scs_ones_row_sum), so scs_row.cuh, which the solve kernel shares, stays as
-// it is.
+// (scs_ones_row_sum), batched as scs_row.cuh's is, since the solve kernel,
+// which shares scs_row.cuh, has no unit form.
 //
 // Instantiated (value type Tv, vector/accumulator type Tx) pairs:
 //   (double, double)        dp, -dp_emu, the dp stream of ap[dp_*]
@@ -69,11 +69,23 @@
 // Design: one thread per padded row. Elements are column-major within a
 // chunk, so the threads of a chunk read consecutive values and col_idxs at
 // each j and the loads coalesce for any C >= 32; C = 1 (CRS) is correct but
-// uncoalesced. The kernel is bound by device-memory bytes: per stored
-// element 12 B for f64 values, 8 B for f32, 6 B for bf16 (value + int32
-// column), plus x once through L2 and y once (twice when accumulating).
-// Making it fast (a warp per chunk slice, vectorised loads, streaming cache
-// hints, one fused launch over all precision streams) is later work.
+// uncoalesced. Per stored element the kernel moves 12 B for f64 values, 8 B
+// for f32, 6 B for bf16 (value + int32 column), plus x once through L2 and
+// y once (twice when accumulating). A row's column must arrive before its
+// x can be asked for, so a thread that walks a row element by element waits
+// two round trips per element, and that latency, not the bytes, bounded
+// the first design. The row loop (scs_row.cuh) therefore takes a row in
+// trips of kBatchX / BS elements, all values and columns of a trip first,
+// then all their x, then the FMAs in order of j; a row of Laplace3D's 7
+// elements is two trips. The matrix stream is read evict-first
+// (ld.global.cs) so that x stays in the 50 MB L2 while a 117 MB stream
+// passes through it, and __launch_bounds__ keeps kMinBlocksPerSm blocks
+// resident. The unit-value form batches its column loads the same way.
+// What bounds it now is the bytes: on an NVIDIA H100 80GB HBM3 at 700 W
+// the headline (Laplace3D-128, C=1024, sigma=1, sp) takes 0.0454 ms, 88% of
+// its byte bound and 0.68 of cuSPARSE's time (chip_smoke.py; PERF.md).
+// SpMMV with 8 rowwise columns stays at half its bound: a trip there is
+// one element with 8 x loads.
 //
 // Launch rules: the caller's stream, no allocation, no synchronisation. Each
 // entry point returns cudaGetLastError() so the caller can raise when a
@@ -88,8 +100,11 @@
 
 namespace {
 
+using uspmv::kBatchX;
 using uspmv::kMaxCols;
+using uspmv::kMinBlocksPerSm;
 using uspmv::kThreads;
+using uspmv::load_stream;
 using uspmv::ScsMatrix;
 
 constexpr int kMaxGridY = 65535;
@@ -110,7 +125,7 @@ struct ScsArgs {
 // BS accumulators per thread; kFull: ncols == BS (no column guard);
 // kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV.
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_spmv_kernel(const ScsArgs a) {
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -136,39 +151,63 @@ scs_spmv_kernel(const ScsArgs a) {
 }
 
 // The row sum of an all-ones matrix: acc[v] = sum of x[col*x_ld + v] over
-// the slots of row r whose column is >= 0 (-1 marks padding), in order of j.
+// the slots of row r whose column is >= 0 (-1 marks padding), in order of
+// j, in trips of kBatchX / BS columns as scs_row_product takes them.
 template <int BS, bool kFull>
 __device__ __forceinline__ void scs_ones_row_sum(const ScsMatrix& m,
                                                  const float* x, int64_t x_ld,
                                                  int64_t r, int ncols,
                                                  float (&acc)[BS]) {
+  constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
   const int64_t c = r / C;
   const int64_t i = r - c * C;
   const int32_t len = __ldg(m.chunk_lengths + c);
-  const int64_t base = static_cast<int64_t>(__ldg(m.chunk_ptrs + c)) + i;
+  const int32_t* cp = m.col_idxs + static_cast<int64_t>(
+      __ldg(m.chunk_ptrs + c)) + i;
 #pragma unroll
   for (int v = 0; v < BS; ++v) {
     acc[v] = 0.0f;
   }
-  for (int32_t j = 0; j < len; ++j) {
-    const int32_t col = __ldg(m.col_idxs + base + static_cast<int64_t>(j) * C);
-    if (col >= 0) {
-      const float* xr = x + static_cast<int64_t>(col) * x_ld;
+  for (int32_t j0 = 0; j0 < len; j0 += K) {
+    int32_t col[K];
 #pragma unroll
-      for (int v = 0; v < BS; ++v) {
-        if (kFull || v < ncols) {
-          acc[v] += __ldg(xr + v);
+    for (int k = 0; k < K; ++k) {
+      col[k] = j0 + k < len ? load_stream(cp + static_cast<int64_t>(k) * C)
+                            : -1;
+    }
+    float xv[K][BS];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (col[k] >= 0) {
+        const float* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+#pragma unroll
+        for (int v = 0; v < BS; ++v) {
+          if (kFull || v < ncols) {
+            xv[k][v] = __ldg(xr + v);
+          }
         }
       }
     }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (col[k] >= 0) {
+#pragma unroll
+        for (int v = 0; v < BS; ++v) {
+          if (kFull || v < ncols) {
+            acc[v] += xv[k][v];
+          }
+        }
+      }
+    }
+    cp += static_cast<int64_t>(K) * C;
   }
 }
 
 // The unit-value form of scs_spmv_kernel (float x and y; m.values unread).
 // kOnesStride1: one vector with unit strides.
 template <int BS, bool kFull, bool kOnesStride1>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_ones_kernel(const ScsArgs a) {
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -263,9 +302,41 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of kThreads of the one-vector instantiation (BS 1, unit strides)
+// that stay resident on an SM, for a report of the launch.
+template <typename Tv, typename Tx, bool kOnes = false>
+int blocks_per_sm(int* per_sm) {
+  cudaError_t err;
+  if constexpr (kOnes) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_ones_kernel<1, true, true>, kThreads, 0);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true>, kThreads, 0);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
+#define USPMV_BLOCKS_PER_SM(name, ...) \
+  int name##_blocks_per_sm(int* per_sm) { \
+    return blocks_per_sm<__VA_ARGS__>(per_sm); \
+  }
+
 extern "C" {
+
+// <entry>_blocks_per_sm: resident blocks per SM of the entry's one-vector
+// kernel; the grid is ceil(n_rows_padded / 256) blocks by n_vec.
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f64_f64, double, double)
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f32_f32, float, float)
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_bf16_f32, __nv_bfloat16, float)
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f32_f64, float, double)
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_bf16_f64, __nv_bfloat16, double)
+USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_unit_f32, float, float, true)
 
 // Every entry point: y (+)= A x for one precision stream. x_ld / y_ld are
 // the element strides between rows (bs for rowwise block vectors, else 1),

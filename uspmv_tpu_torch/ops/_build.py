@@ -17,11 +17,12 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
@@ -63,6 +64,31 @@ def find_nvcc() -> str:
     )
 
 
+def nvcc_command(sources: list, out: Path) -> list:
+    """The nvcc call that builds ``sources`` into the library ``out``."""
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, sources)]
+
+
+def kernel_resources(library: Path) -> List[dict]:
+    """Per kernel of a built library, as ``cuobjdump -res-usage`` reports
+    it: the function (demangled by c++filt where it is installed),
+    registers per thread, stack, static shared and local memory in bytes
+    (local memory > 0: registers spilled)."""
+    tool = Path(find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-res-usage", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
+                       r"SHARED:(\d+) LOCAL:(\d+)", text)
+    names = [f[0] for f in found]
+    if names and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    return [dict(function=name, registers=int(reg), stack=int(stack),
+                 shared=int(shared), local=int(local))
+            for name, (_, reg, stack, shared, local) in zip(names, found)]
+
+
 def _sources() -> list:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
@@ -88,12 +114,11 @@ def load_library() -> KernelLibrary:
     out = BUILD_DIR / f"libuspmv_tpu_torch_{_digest(sources)}.so"
     built, seconds, log = False, 0.0, ""
     if not out.exists():
-        nvcc = find_nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: concurrent builds
         # never load a half-written library
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        cmd = nvcc_command(sources, tmp)
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0

@@ -136,8 +136,9 @@ def build_device_scs(
 
 # ------------------------------------------------------------ packed rows
 
-# limits of one row group, those of csrc/scs_packed.cu (kThreads rows, one
-# per thread; kStageElems products staged in shared memory)
+# limits of one row group: csrc/scs_packed.cu runs a row per thread of a
+# kThreads block and stages a group's products in shared memory, sized by
+# the largest group (at most GROUP_MAX_ELEMS * 8 B = 32 KB)
 GROUP_MAX_ROWS = 256
 GROUP_MAX_ELEMS = 4096
 
@@ -152,7 +153,9 @@ class DevicePacked:
     row_ptr: torch.Tensor  # int32 [n_rows_padded + 1]
     col_idxs: torch.Tensor  # int32 [nnz]
     values: torch.Tensor  # [nnz]: float64, float32 or bfloat16
-    group_ptr: torch.Tensor  # int32 [n_groups + 1], first row of each group
+    # int32 [n_groups, 4]: (first row, end row, first element, end element)
+    # of each group, the one 16 B record the kernel reads per group
+    groups: torch.Tensor
     row_idxs: torch.Tensor  # int32 [nnz], permuted row of each element
 
     n_rows: int
@@ -160,6 +163,7 @@ class DevicePacked:
     n_groups: int
     nnz: int
     x_len: int
+    max_group_elems: int  # elements of the largest group (the stage size)
 
     @property
     def device(self) -> torch.device:
@@ -167,11 +171,10 @@ class DevicePacked:
 
     def stream_bytes(self) -> int:
         """Matrix bytes the kernel streams per SpMV: values + col_idxs +
-        row and group pointers."""
+        row pointers + the group records."""
         return sum(
             t.numel() * t.element_size()
-            for t in (self.values, self.col_idxs, self.row_ptr,
-                      self.group_ptr)
+            for t in (self.values, self.col_idxs, self.row_ptr, self.groups)
         )
 
     @property
@@ -224,18 +227,27 @@ def build_device_packed(
     src = scs.chunk_ptrs[rows // scs.C].astype(np.int64) + j * scs.C \
         + rows % scs.C
     col_idxs = scs.col_idxs[src].astype(np.int32)
+    groups = group_records(row_ptr, group_ptr)
     return DevicePacked(
         row_ptr=_put(row_ptr.astype(np.int32), device),
         col_idxs=_put(col_idxs, device),
         values=_put_values(scs.values[src], device, dtype),
-        group_ptr=_put(group_ptr, device),
+        groups=_put(groups, device),
         row_idxs=_put(rows.astype(np.int32), device),
         n_rows=scs.n_rows,
         n_rows_padded=scs.n_rows_padded,
         n_groups=group_ptr.size - 1,
         nnz=int(rows.size),
         x_len=int(col_idxs.max()) + 1 if rows.size else 0,
+        max_group_elems=int((groups[:, 3] - groups[:, 2]).max(initial=0)),
     )
+
+
+def group_records(row_ptr: np.ndarray, group_ptr: np.ndarray) -> np.ndarray:
+    """int32 [n_groups, 4]: (first row, end row, first element, end
+    element) of each group of ``row_groups``."""
+    return np.stack([group_ptr[:-1], group_ptr[1:], row_ptr[group_ptr[:-1]],
+                     row_ptr[group_ptr[1:]]], axis=1).astype(np.int32)
 
 
 # ------------------------------------------------------- heavy-row pieces

@@ -4,8 +4,9 @@ wrapper and its plain version.
 Port of ``spmv_mixed_tiles`` (uspmv_tpu/ops/pallas_scs.py). The TPU's mixed
 tiles let many short rows share one dense tile so that the stream carries
 little padding; ``DevicePacked`` (ops/device_format.py) stores no padding at
-all, and one thread block per row group routes the products to their rows
-through shared memory (csrc/scs_packed.cu).
+all, and a persistent grid of thread blocks takes the row groups, each
+routing a group's products to their rows through shared memory
+(csrc/scs_packed.cu) sized by the largest group (``stage_bytes``).
 
 ``spmv_packed`` has the contract of ``ops.scs_spmv.spmv_scs``: it returns
 y = A x in the permuted, padded row order; with ``y`` given it adds A x into
@@ -46,7 +47,7 @@ _ENTRY_POINTS = {
 }
 _ARGTYPES = (
     [ctypes.c_int64] + [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
-    + [ctypes.c_void_p] + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
     + [ctypes.c_void_p]
 )
 
@@ -81,6 +82,30 @@ def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
         ) from None
 
 
+def stage_bytes(dev: DevicePacked, x_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block: a product of x's dtype for
+    every element of the largest group."""
+    return dev.max_group_elems * x_dtype.itemsize
+
+
+def launch_geometry(dev: DevicePacked, x_dtype: torch.dtype,
+                    n_vec: int = 1) -> Dict[str, int]:
+    """How ``spmv_packed`` launches ``dev`` for x of ``x_dtype`` (``n_vec``
+    colwise vectors) on the current GPU: threads per block, dynamic shared
+    memory, blocks resident per SM and the persistent grid along x."""
+    name = entry_point(dev.values.dtype, x_dtype)
+    lib = _kernel_lib()
+    per_sm, blocks = ctypes.c_int(0), ctypes.c_int64(0)
+    smem = stage_bytes(dev, x_dtype)
+    rc = getattr(lib, f"{name}_grid")(dev.n_groups, n_vec, smem,
+                                      ctypes.byref(per_sm),
+                                      ctypes.byref(blocks))
+    scs_spmv.raise_for(lib, rc, f"{name} grid query")
+    return dict(threads_per_block=scs_spmv.THREADS, stage_bytes=smem,
+                blocks_per_sm=per_sm.value, grid=blocks.value,
+                n_groups=dev.n_groups)
+
+
 def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -89,6 +114,10 @@ def _kernel_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+            grid = getattr(lib, f"{name}_grid")
+            grid.argtypes = ([ctypes.c_int64] + [ctypes.c_int] * 2
+                             + [ctypes.c_void_p] * 2)
+            grid.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -137,13 +166,13 @@ def spmv_packed(dev: DevicePacked, x: torch.Tensor, layout: str = "rowwise",
     accumulate = y is not None
     if out is not None:
         y = out
-    index_tensors = (dev.group_ptr, dev.row_ptr, dev.col_idxs)
+    index_tensors = (dev.groups, dev.row_ptr, dev.col_idxs)
     if not all(t.is_contiguous() for t in (*index_tensors, dev.values, x)) or (
         y is not None and not y.is_contiguous()
     ):
         raise ValueError("spmv_packed needs contiguous tensors")
     if any(t.dtype != torch.int32 for t in index_tensors):
-        raise TypeError("group_ptr, row_ptr and col_idxs must be int32")
+        raise TypeError("groups, row_ptr and col_idxs must be int32")
     if y is None:
         y = torch.empty(out_shape(dev, x, layout), dtype=x.dtype,
                         device=x.device)
@@ -163,10 +192,10 @@ def spmv_packed(dev: DevicePacked, x: torch.Tensor, layout: str = "rowwise",
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
-            dev.n_groups, dev.group_ptr.data_ptr(), dev.row_ptr.data_ptr(),
+            dev.n_groups, dev.groups.data_ptr(), dev.row_ptr.data_ptr(),
             dev.col_idxs.data_ptr(), dev.values.data_ptr(),
             x.data_ptr(), x_ld, x_vstride, y.data_ptr(), y_ld, y_vstride,
-            ncols, n_vec, int(accumulate),
+            ncols, n_vec, int(accumulate), stage_bytes(dev, x.dtype),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     book_launch(lib, rc, name, _launches)

@@ -48,6 +48,7 @@ _ARGTYPES = (
     + [ctypes.c_int64] * 2 + [ctypes.c_void_p] + [ctypes.c_int64] * 2
     + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
+THREADS = 256  # threads per block of every row-sum kernel (kThreads)
 MAX_COLS_PER_PASS = 8  # rowwise columns one launch carries (kMaxCols)
 MAX_VECTORS = 65535  # colwise vectors in one launch (gridDim.y)
 LAYOUTS = ("rowwise", "colwise")
@@ -99,11 +100,7 @@ def book_launch(lib, rc: int, name: str, launches: Dict[str, int],
     one to the wrapper's count ``launches`` -- or, while a CUDA graph is
     captured, the kernel nodes to the capture's count. Shared by the
     wrappers of every csrc/*.cu, which load one library."""
-    if rc != 0:
-        msg = lib.uspmv_cuda_error_string(rc).decode(errors="replace")
-        raise RuntimeError(
-            f"kernel {name} launch failed: {msg} (cudaError {rc})"
-        )
+    raise_for(lib, rc, f"kernel {name} launch")
     if _captured is not None:
         _captured[name] = _captured.get(name, 0) + nodes
     else:
@@ -141,10 +138,34 @@ def _kernel_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+            query = getattr(lib, f"{name}_blocks_per_sm")
+            query.argtypes = [ctypes.c_void_p]
+            query.restype = ctypes.c_int
         lib.uspmv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uspmv_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def raise_for(lib, rc: int, what: str) -> None:
+    """Raise with CUDA's text when a call into the library returned an
+    error."""
+    if rc != 0:
+        msg = lib.uspmv_cuda_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"{what} failed: {msg} (cudaError {rc})")
+
+
+def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype) -> Dict[str, int]:
+    """How ``spmv_scs`` launches ``dev`` for one vector of ``x_dtype`` on
+    the current GPU: threads per block, blocks resident per SM (the
+    occupancy of that instantiation) and the grid."""
+    name = entry_for(dev, x_dtype)
+    lib = _kernel_lib()
+    per_sm = ctypes.c_int(0)
+    raise_for(lib, getattr(lib, f"{name}_blocks_per_sm")(
+        ctypes.byref(per_sm)), f"{name} occupancy query")
+    return dict(threads_per_block=THREADS, blocks_per_sm=per_sm.value,
+                grid=-(-dev.n_rows_padded // THREADS))
 
 
 def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:

@@ -10,5 +10,10 @@ as ``python -m uspmv_tpu_torch.scripts.<name>``:
 
 Each takes ``--backend cuda|cpu`` (default cuda, which raises
 DeviceUnavailableError without a GPU) and appends its JSON rows to
-``--out``, by default a file under ``build/uspmv_tpu_torch/``.
+``--out``, by default a file under ``build/uspmv_tpu_torch/``. One more has
+no JAX counterpart and runs on a GPU only:
+
+    kernel_ab     two or more source trees of the SELL-C-sigma, packed and
+                  solve kernels (a parent commit's and a change's), timed
+                  in turns on the same inputs
 """

@@ -23,7 +23,7 @@ nvidia-smi. Phases, each printing JSON lines:
         thresholds 2 (a row with more pieces than a warp has lanes), 32
         and 1024, one vector, rowwise and colwise bs=4, the write and the
         accumulate form; each kernel against its plain version, and twice
-        in a row bit-equal;
+        in a row bit-equal (the pieces' counters and slots back at 0);
      with the launch count checked per call;
   4. headline: Laplace3D-128, SELL-C-sigma C=1024 sigma=1 sp, through
      SpmvOperator.from_mtx, solve (5 repetitions, validated against the
@@ -97,9 +97,11 @@ nvidia-smi. Phases, each printing JSON lines:
      RandomImbalanced-500k at (1024, 1) as hp, dp, ap[dp_sp], ap[dp_hp]
      and sp with rowwise bs=4, and a CUDA-graph solve of k=64 bit-equal to
      the loop. In the driven runs each kernel and cuSPARSE on its
-     sub-matrix are timed in turns (kernel, library, library, kernel), and
-     each packed stream carries its launch geometry and its random-gather
-     floor: the x-access probes gathering x at the stream's own columns.
+     sub-matrix are timed in turns (kernel, library, library, kernel), as
+     are op.spmv and cuSPARSE on the whole matrix; each packed stream
+     carries its launch geometry, and each packed and pieces stream its
+     random-gather floor: the x-access probes gathering x at the stream's
+     own columns.
      Kernel vs plain tolerance there:
      max(1e-5, 4 eps_f32 sqrt(longest row)), since a row of 10^5 products
      summed in f32 in two orders differs by more than 1e-5;
@@ -1158,6 +1160,10 @@ def small_tiers(rng_seed=2):
                                 f"{what}: {entry} launches not counted")
                         require(torch.equal(*got), f"{what}: {entry} differs "
                                 "from run to run")
+                        require(not pc.arrivals.any().item()
+                                and not pc.slots.any().item(),
+                                f"{what}: {entry} left a counter or slot "
+                                "set")
                         _, rel = compare(got[0], scs_pieces.spmv_pieces_plain(
                             pc, x, layout, y0.clone()), tol, f"{what} {entry}")
                         worst[entry] = max(worst.get(entry, 0.0), rel)
@@ -1292,35 +1298,49 @@ def tier_stream_records(op, x, reps, tol, with_library):
         max_abs, rel = compare(
             y, scs_pieces.spmv_pieces_plain(pc, x, layout, y0.clone()), tol,
             f"{entry} vs plain")
-        ms = graph_ms(lambda: scs_pieces.spmv_pieces(pc, x, layout, out),
-                      reps)
         plain_ms = time_ms(
             lambda: scs_pieces.spmv_pieces_plain(pc, x, layout, out), reps)
-        # per vector: the stream and its partial sums, the x entries the
-        # pieces can touch, the parents' rows of y read and written
-        nbytes = bs * (pc.stream_bytes() + x.element_size()
-                       * (min(n, pc.nnz) + 2 * pc.n_parents))
+        # bound, per vector: the function's own bytes (the CSR stream and
+        # the parents' runs and rows), the x entries the pieces can touch,
+        # the parents' rows of y read and written; moved: the same with
+        # the kernel's records, counters and long records' slots
+        xy = x.element_size() * (min(n, pc.nnz) + 2 * pc.n_parents)
+        nbytes = bs * (pc.bound_bytes() + xy)
         b_ms, b_by = bound(nbytes, 2 * pc.nnz * bs, x.dtype)
-        lib_ms, lib_err = None, "block vectors: not timed"
+        call, lib_err = None, "block vectors: not timed"
         if with_library and x.dim() == 1:
-            lib_ms, lib_err = library_csr_ms(
+            call, lib_err = library_csr_call(
                 pc.piece_rows[pc.piece_idxs.long()], pc.col_idxs, pc.values,
-                n, x, y, tol, reps)
+                n, x, y, tol)
+        # as the stream kernels above: kernel, library, library, kernel
+        timers = {"kernel": lambda: graph_ms(
+            lambda: scs_pieces.spmv_pieces(pc, x, layout, out), reps)}
+        if call:
+            timers["library"] = lambda: time_ms(call, reps)
+        med, turns = time_turns(timers)
         recs[entry] = dict(
             stream=p, kind="pieces", nnz=pc.nnz, n_pieces=pc.n_pieces,
-            n_parents=pc.n_parents, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, bound_bytes=nbytes, max_abs_err=max_abs,
-            rel_err=rel, library_ms=lib_ms, library_error=lib_err)
+            n_parents=pc.n_parents, n_records=pc.records.shape[0],
+            n_long=pc.longs.shape[0], ms=med["kernel"], plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            moved_bytes=bs * (pc.stream_bytes() + xy),
+            max_abs_err=max_abs, rel_err=rel, library_ms=med.get("library"),
+            library_error=lib_err, **turns)
+        if with_library and x.dim() == 1:
+            recs[entry].update(gather_floor(pc, x, reps))
     return recs
 
 
 def gather_floor(dev, x, reps):
-    """The random-gather floor of a packed stream: the x-access probes
-    (csrc/x_access.cu) gathering x at the stream's own columns, once per
-    stored element, from an f32 vector as many bytes long as x (an f64 x is
-    gathered as x_f32[2 col], the same 32 B sectors), by a replayed graph.
+    """The random-gather floor of a packed or pieces stream: the x-access
+    probes (csrc/x_access.cu) gathering x at the stream's own columns, once
+    per stored element, from an f32 vector as many bytes long as x (an f64
+    x is gathered as x_f32[2 col], the same 32 B sectors), by a replayed
+    graph.
     gather_store writes each value, gather_fma sums value times x per
-    thread: the two ends of what the kernel's phase a does."""
+    thread: the two ends of what the kernel's phase a does. Both are upper
+    bounds of the floor: a probe that gathers these columns faster lowers
+    it."""
     import torch
 
     from uspmv_tpu_torch.ops import x_access
@@ -1461,7 +1481,7 @@ def path_g(matrices, card):
     import torch
 
     from uspmv_tpu_torch.io import generators
-    from uspmv_tpu_torch.ops import scs_solve
+    from uspmv_tpu_torch.ops import scs_pieces, scs_solve
     from uspmv_tpu_torch.runtime import operator
 
     launches, tier_records = {}, {}
@@ -1488,9 +1508,21 @@ def path_g(matrices, card):
             o2n = torch.as_tensor(op.old_to_new, dtype=torch.int64,
                                   device="cuda")
             tol = auto["tol"]
-            lib_ms, lib_err = library_csr_ms(
+            # op.spmv by a replayed graph and cuSPARSE in turns: spmv,
+            # library, library, spmv
+            call, lib_err = library_csr_call(
                 I, J, V, n, x.index_select(0, o2n).contiguous(),
-                y.index_select(0, o2n), tol, 100)
+                y.index_select(0, o2n), tol)
+            lib_ms = None
+            if call:
+                out = torch.empty_like(x)
+                med, turns = time_turns({
+                    "spmv": lambda: graph_ms(lambda: op.spmv(x, out=out),
+                                             100),
+                    "library": lambda: time_ms(call, 100)})
+                lib_ms = med["library"]
+                auto.update(spmv_turns_ms=med["spmv"], **turns)
+                del out
             packed = op.is_packed()
             if spec == "FemTet3D,55":
                 require(auto["impl"] == "cuda-scs-sp" and not op.pieces,
@@ -1561,11 +1593,12 @@ def path_g(matrices, card):
     after = {e: c for e, c in tier_launch_counts().items() if c}
     # the loop launched each wrapper k times; the capture launched each once
     # to warm up, and the two graph solves launched nothing more: they
-    # replayed k iterations of kernel nodes each (two per pieces launch)
+    # replayed k iterations of kernel nodes each (one per pieces launch)
+    per_pieces = scs_pieces.KERNELS_PER_LAUNCH
     require(sum(loop_launches.values()) == k * (len(op.devs) + len(op.pieces))
             and after == {e: c + 1 for e, c in loop_launches.items()}
             and sum(nodes.values()) == 2 * k * (len(op.devs)
-                                                + 2 * len(op.pieces))
+                                                + per_pieces * len(op.pieces))
             and scs_solve.launch_count() == f0,
             f"path G solve: loop launches {loop_launches}, after the graph "
             f"solves {after}, graph nodes {nodes}")
@@ -1735,7 +1768,7 @@ def main():
         laplace3d,
         random_banded,
     )
-    from uspmv_tpu_torch.ops import _build
+    from uspmv_tpu_torch.ops import _build, scs_pieces
     from uspmv_tpu_torch.ops.scs_spmv import (
         launch_count,
         launch_counts,
@@ -1988,7 +2021,8 @@ def main():
             "replaces": PALLAS + replaces,
             "also_replaces": [PALLAS + ":1201"] if pieces else [],
             "launches": tier_launches[entry],
-            "kernels_per_launch": 2 if pieces else 1,
+            "kernels_per_launch": (scs_pieces.KERNELS_PER_LAUNCH if pieces
+                                   else 1),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -1996,6 +2030,7 @@ def main():
             "timed_on": f"path G, RandomImbalanced-500k C=1024 sigma=1 "
                         f"{run}, {stream} stream, by a replayed CUDA graph",
             "bound_bytes": rec["bound_bytes"], "nnz": rec["nnz"],
+            "gather_floor_upper_ms": rec.get("gather_store_ms"),
         })
     for entry, rec in probe_records.items():
         kernels.append({

@@ -373,32 +373,110 @@ def randn_pair(shape, xdt, device, seed):
 PIECES_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 
 
-@pytest.mark.parametrize("th", [2, 32, 1024])
-@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
-                                       ("colwise", 4)])
-@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
-def test_pieces_match_plain_and_repeat_bit_for_bit(cuda, pair, layout, bs, th):
+def check_pieces(pieces, x, y0, layout):
+    """spmv_pieces twice against its plain version: one launch each, the
+    same bits, the counters back at 0, the rows of no parent untouched."""
     from uspmv_tpu_torch.ops import scs_pieces
 
-    vdt, xdt = pair
-    _, pieces = split_streams(imbalanced(), th, 32, 64, vdt, xdt, bs, cuda)
-    assert pieces.n_pieces >= (1500 if th == 2 else 2)
-    shape = block_shape(pieces.n_rows_padded, layout, bs)
-    x, y0 = randn_pair(shape, xdt, cuda, th)
-    name = scs_pieces.entry_point(vdt, xdt)
+    name = scs_pieces.entry_point(pieces.values.dtype, x.dtype)
     before = scs_pieces.launch_counts()[name]
     y = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
     again = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
     torch.cuda.synchronize()
     assert scs_pieces.launch_counts()[name] == before + 2
-    assert torch.equal(y, again)  # no atomics: the same bits every run
+    assert torch.equal(y, again)  # no float atomics: the same bits every run
+    assert not pieces.arrivals.any() and not pieces.slots.any()
     ref = scs_pieces.spmv_pieces_plain(pieces, x, layout, y0.clone())
     err = (y - ref).abs().max().item()
-    assert err <= PIECES_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
-    untouched = torch.ones(pieces.n_rows_padded, dtype=torch.bool, device=cuda)
+    assert err <= PIECES_TOL[x.dtype] * max(ref.abs().max().item(), 1e-30)
+    untouched = torch.ones(pieces.n_rows_padded, dtype=torch.bool,
+                           device=x.device)
     untouched[pieces.parent_row.long()] = False
-    rows = y if layout == "rowwise" or bs == 1 else y.T
+    rows = y if layout == "rowwise" or x.dim() == 1 else y.T
     assert torch.equal(rows[untouched], (y0 if rows is y else y0.T)[untouched])
+    return y
+
+
+@pytest.mark.parametrize("th", [2, 32, 1024])
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
+                                       ("rowwise", 8), ("colwise", 4),
+                                       ("colwise", 8)])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_pieces_match_plain_and_repeat_bit_for_bit(cuda, pair, layout, bs, th):
+    vdt, xdt = pair
+    _, pieces = split_streams(imbalanced(), th, 32, 64, vdt, xdt, bs, cuda)
+    assert pieces.n_pieces >= (1500 if th == 2 else 2)
+    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
+                       cuda, th)
+    check_pieces(pieces, x, y0, layout)
+
+
+def parents_of(pieces_per_parent, th=4, n=2000, seed=8):
+    """A matrix whose row 10 * i + 3 splits at ``th`` into
+    pieces_per_parent[i] pieces (the last one shorter), over random rows
+    of at most th elements."""
+    rng = np.random.default_rng(seed)
+    I, J = [], []
+    for r in range(n):
+        k = rng.integers(0, th + 1)
+        I.append(np.full(k, r))
+        J.append(rng.permutation(n)[:k])
+    for i, p in enumerate(pieces_per_parent):
+        r, k = 10 * i + 3, th + th * p - 1
+        I[r] = np.full(k, r)
+        J[r] = rng.permutation(n)[:k]
+    I, J = np.concatenate(I), np.concatenate(J)
+    return MtxData.from_arrays(I, J, rng.standard_normal(I.size), n,
+                               n).sort_by_row()
+
+
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
+                                       ("colwise", 8)])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_pieces_short_and_long_parents(cuda, pair, layout, bs):
+    """Parents of 1, 7, 8 (short: one record, up to full), 9 (two records),
+    32, 33 and 300 pieces (a fold of 300 slots)."""
+    from uspmv_tpu_torch.ops.device_format import RECORD_PIECES as R
+
+    vdt, xdt = pair
+    runs = [1, R - 1, R, R + 1, 32, 33, 300]
+    _, pieces = split_streams(parents_of(runs), 4, 32, 8, vdt, xdt, bs, cuda)
+    got = np.diff(pieces.parent_ptr.cpu().numpy())
+    assert sorted(got[got > 1]) == sorted(p for p in runs if p > 1)
+    assert pieces.longs.shape[0] == sum(p > R for p in runs)
+    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
+                       cuda, bs)
+    check_pieces(pieces, x, y0, layout)
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_pieces_graph_replays_equal_the_launch(cuda, pair):
+    """Two replays of one captured graph give the launch's bits: the last
+    record of each long parent resets its counter."""
+    from uspmv_tpu_torch.ops import scs_pieces
+
+    vdt, xdt = pair
+    _, pieces = split_streams(imbalanced(), 2, 32, 64, vdt, xdt, 1, cuda)
+    assert pieces.longs.shape[0] > 0
+    x, y0 = randn_pair(pieces.n_rows_padded, xdt, cuda, 5)
+    want = scs_pieces.spmv_pieces(pieces, x, "rowwise", y0.clone())
+    y = y0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # a warm-up outside the capture
+        scs_pieces.spmv_pieces(pieces, x, "rowwise", y0.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with scs_spmv.record_captured_launches() as nodes:
+        with torch.cuda.graph(graph):
+            scs_pieces.spmv_pieces(pieces, x, "rowwise", y)
+    assert nodes == {scs_pieces.entry_point(vdt, xdt): 1}
+    for _ in range(2):
+        y.copy_(y0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want)
+        assert not pieces.arrivals.any() and not pieces.slots.any()
 
 
 PACKED_PAIRS = [(torch.float64, torch.float64), (torch.float32, torch.float32),
@@ -477,6 +555,8 @@ def test_tiers_on_card_match_cpu_and_graph_equals_loop(cuda, tier, values):
     """Every tier through SpmvOperator: the card against the plain versions
     on the CPU, the CUDA-graph solve against the loop bit for bit (no
     atomics anywhere), and the fused solve refused."""
+    from uspmv_tpu_torch.ops import scs_pieces
+
     mtx = imbalanced()
     mtx.values[:] = mtx.values / np.bincount(
         mtx.I, weights=np.abs(mtx.values)).max()
@@ -504,7 +584,8 @@ def test_tiers_on_card_match_cpu_and_graph_equals_loop(cuda, tier, values):
         g0 = sum(graph_nodes_replayed().values())
         g_prev, g_fin = gpu.solve(xd, 5, impl="graph")
         assert torch.equal(g_fin, l_fin) and torch.equal(g_prev, l_prev)
-    per_spmv = len(gpu.devs) + 2 * len(gpu.pieces)
+    per_spmv = (len(gpu.devs)
+                + scs_pieces.KERNELS_PER_LAUNCH * len(gpu.pieces))
     assert sum(graph_nodes_replayed().values()) - g0 == 5 * per_spmv
     with pytest.raises(ValueError, match="fused solve kernel takes"):
         gpu.solve(xd, 5, impl="fused")
@@ -563,6 +644,30 @@ def test_unit_stream_refusals_on_the_card(cuda):
                                    device=cuda))
     with pytest.raises(ValueError, match="unit-value"):
         solve_scs(unit, torch.zeros(unit.n_rows_padded, device=cuda), 2)
+
+
+@pytest.mark.parametrize("out_offset", [0, 1])
+@pytest.mark.parametrize("idx_offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4, 1000, 2**20 + 5])
+def test_gather_store_exact_at_any_length_and_alignment(cuda, n, idx_offset,
+                                                        out_offset):
+    """The scalar head and tail and both stores: views at offset 1 are 4 B
+    past a 16 B boundary."""
+    from uspmv_tpu_torch.ops import x_access
+
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(2**21, generator=gen, device=cuda)
+    idx = torch.randint(0, x.numel(), (n + idx_offset,), generator=gen,
+                        device=cuda, dtype=torch.int32)[idx_offset:]
+    out = torch.full((n + out_offset,), float("nan"),
+                     device=cuda)[out_offset:]
+    before = x_access.launch_counts()[x_access.ENTRIES["gather_store"]]
+    got = x_access.gather_store(x, idx, out=out)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(got, x_access.gather_store_plain(x, idx))
+    assert (x_access.launch_counts()[x_access.ENTRIES["gather_store"]]
+            == before + 1)
 
 
 @pytest.mark.parametrize("n,n_x", [(1000, 37), (2**20 + 5, 2**21)])

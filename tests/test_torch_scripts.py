@@ -217,14 +217,17 @@ def test_kernel_ab_arguments_and_turns(tmp_path):
             kernel_ab.parse_libs(bad)
     # parent, change, change, parent: each as often early as late
     assert kernel_ab.turns(["p", "c"], 2) == ["p", "c", "c", "p"] * 2
-    assert kernel_ab.packed_abi(REPO / "uspmv_tpu_torch" / "csrc") \
+    # the pieces kernel: work records here, the two-pass design's arguments
+    # (parent runs and rows, no records or counters) for an older tree
+    assert kernel_ab.pieces_abi(REPO / "uspmv_tpu_torch" / "csrc") \
         == "records"
-    (tmp_path / "scs_packed.cu").write_text("int uspmv_scs_packed(...);")
-    assert kernel_ab.packed_abi(tmp_path) == "group_ptr"
-    assert len(kernel_ab._PACKED_ARGTYPES_GROUP_PTR) + 1 \
-        == len(kernel_ab.scs_packed._ARGTYPES)
+    (tmp_path / "scs_pieces.cu").write_text("int uspmv_scs_pieces(...);")
+    assert kernel_ab.pieces_abi(tmp_path) == "two_pass"
+    assert len(kernel_ab._PIECES_ARGTYPES_TWO_PASS) + 4 \
+        == len(kernel_ab.scs_pieces._ARGTYPES)
     args = kernel_ab.build_parser().parse_args(["--lib", "a=b"])
-    assert args.out is None and args.cases == "sell,packed,solve"
+    assert args.out is None
+    assert args.cases == "sell,packed,solve,pieces,gather"
     assert _common.default_out("kernel_ab").parent \
         == REPO / "build" / "uspmv_tpu_torch"
     with pytest.raises(ValueError, match="unknown"):

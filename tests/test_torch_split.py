@@ -431,9 +431,16 @@ def test_metrics_and_report_carry_the_pieces(matrix):
     assert op.nnz_per_precision() == {"sp": tm.nnz}
     assert scs.nnz + pc.nnz == tm.nnz and op.beta() == {"sp": scs.beta}
     assert op.device_beta() == {"sp": tm.nnz / (scs.n_elements + pc.nnz)}
-    # the pieces' stream and partial sums are read once per vector
+    # per vector: the pieces' stream, the parents' runs and rows and the
+    # work records once, each long record's slot (an 8 B word per float
+    # sum: written, read and cleared), and each long parent's entry and
+    # counter (read and written)
+    n_rec, n_long = pc.records.shape[0], pc.longs.shape[0]
+    long_records = int((pc.records[:, 3] >= 0).sum())
+    assert 0 < long_records < n_rec
     assert pc.stream_bytes() == 4 * (2 * pc.nnz + pc.n_pieces + 1
-                                     + 2 * pc.n_parents + 1 + 2 * pc.n_pieces)
+                                     + 2 * pc.n_parents + 1 + 4 * n_rec
+                                     + 6 * n_long + 6 * long_records)
     assert op.bytes_per_spmv() == (dev.stream_bytes() + 2 * pc.stream_bytes()
                                    + 2 * 2 * 4 * op.n_rows_padded)
     res = bench_spmv(op, bench_time=1e-3, warmup=1, start_iters=2,

@@ -28,9 +28,17 @@
 // larger than L2 costs a 32 B sector of device memory per 4 B load, 8x the
 // bytes the bound counts. The design keeps the two streams coalesced and
 // the gather the only scattered access, so the time against the bound says
-// what the scattered load costs at each x size and pattern; the grid-stride
-// loop is unrolled so each thread keeps several gathers in flight. Making it
-// faster is not the point: it measures.
+// what the scattered load costs at each x size and pattern. The FMA modes'
+// grid-stride loop is unrolled so each thread keeps several gathers in
+// flight. The store mode moves the streams as 16 B per thread: a thread
+// loads kStoreVecs int4 of indices (evict-first: read once), issues all
+// their gathers, and writes float4s with a streaming store, in one trip
+// (a grid of as many threads as the index stream needs, which the block
+// scheduler balances to the end); a scalar head reaches the indices' 16 B
+// alignment and a scalar tail takes what is left, so any contiguous int32
+// view works. Making the probes fast is not their point, but the store
+// mode is the yardstick of the gather floor (chip_smoke.py path G) and
+// must not lose to index_select on the same indices.
 //
 // Launch rules: the caller's stream, no allocation, no synchronisation. Each
 // entry point returns cudaGetLastError().
@@ -44,14 +52,56 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// int4s of indices a thread of gather_store loads before its gathers
+constexpr int kStoreVecs = 2;
+
+// out[e] = x[idx[e]]. Elements [0, head) and the last (n - head) % 4 one at
+// a time; the rest as int4 / float4, idx + head 16 B aligned, and
+// kVecStore: out + head too.
+template <bool kVecStore>
 __global__ void __launch_bounds__(kThreads)
 gather_store_kernel(const float* __restrict__ x,
                     const int32_t* __restrict__ idx, float* __restrict__ out,
-                    int64_t n) {
+                    int64_t n, int64_t head) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                   threadIdx.x;
-       e < n; e += stride) {
+  const int64_t n4 = (n - head) / 4;
+  const int4* __restrict__ idx4 = reinterpret_cast<const int4*>(idx + head);
+  float* __restrict__ body = out + head;
+  for (int64_t q0 = t; q0 < n4; q0 += kStoreVecs * stride) {
+    int4 iv[kStoreVecs];
+#pragma unroll
+    for (int u = 0; u < kStoreVecs; ++u) {
+      if (q0 + u * stride < n4) {
+        iv[u] = __ldcs(idx4 + q0 + u * stride);
+      }
+    }
+    float4 v[kStoreVecs];
+#pragma unroll
+    for (int u = 0; u < kStoreVecs; ++u) {
+      if (q0 + u * stride < n4) {
+        v[u] = make_float4(__ldg(x + iv[u].x), __ldg(x + iv[u].y),
+                           __ldg(x + iv[u].z), __ldg(x + iv[u].w));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStoreVecs; ++u) {
+      const int64_t q = q0 + u * stride;
+      if (q < n4) {
+        if (kVecStore) {
+          __stcs(reinterpret_cast<float4*>(body) + q, v[u]);
+        } else {
+          __stcs(body + 4 * q, v[u].x);
+          __stcs(body + 4 * q + 1, v[u].y);
+          __stcs(body + 4 * q + 2, v[u].z);
+          __stcs(body + 4 * q + 3, v[u].w);
+        }
+      }
+    }
+  }
+  const int64_t e = t < head ? t : head + 4 * n4 + (t - head);
+  if (t < head + (n - head - 4 * n4)) {
     out[e] = __ldg(x + __ldg(idx + e));
   }
 }
@@ -78,18 +128,39 @@ fma_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
 
 extern "C" {
 
-// out[e] = x[idx[e]] for e < n; every idx[e] must lie in x.
+// out[e] = x[idx[e]] for e < n; every idx[e] must lie in x. idx and out
+// need 4 B alignment only.
 int uspmv_x_gather_store(const void* x, const void* idx, void* out, int64_t n,
                          void* stream) {
   if (n <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  const int64_t blocks =
-      std::min<int64_t>((n + kThreads - 1) / kThreads, INT32_MAX);
-  gather_store_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const int32_t*>(idx),
-      static_cast<float*>(out), n);
+  const uintptr_t ia = reinterpret_cast<uintptr_t>(idx);
+  const uintptr_t oa = reinterpret_cast<uintptr_t>(out);
+  if (ia % 4 != 0 || oa % 4 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t head = std::min<int64_t>((16 - ia % 16) % 16 / 4, n);
+  const bool vec_store = (oa + 4 * head) % 16 == 0;
+  // one trip: kStoreVecs int4 per thread, and a thread per head or tail
+  // element at least
+  const int64_t per_block = static_cast<int64_t>(kStoreVecs) * kThreads;
+  const int64_t needed =
+      std::max<int64_t>((n - head) / 4, head + (n - head) % 4);
+  const int64_t blocks = std::min<int64_t>(
+      std::max<int64_t>((needed + per_block - 1) / per_block, 1),
+      INT32_MAX);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const int32_t* ip = static_cast<const int32_t*>(idx);
+  float* op = static_cast<float*>(out);
+  if (vec_store) {
+    gather_store_kernel<true><<<static_cast<unsigned int>(blocks), kThreads,
+                                0, s>>>(xf, ip, op, n, head);
+  } else {
+    gather_store_kernel<false><<<static_cast<unsigned int>(blocks), kThreads,
+                                 0, s>>>(xf, ip, op, n, head);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -252,20 +252,41 @@ def group_records(row_ptr: np.ndarray, group_ptr: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------- heavy-row pieces
 
+# Pieces per work record of csrc/scs_pieces.cu (its kBatch). A parent with
+# at most this many pieces is short: whole in one record, with the
+# consecutive short parents that fit, whose warp sums and folds them in
+# registers. A longer parent is cut into records of this many pieces, each
+# folded into one sum in ``slots``; the last of them to finish folds the
+# parent's.
+RECORD_PIECES = 8
+
 
 @dataclasses.dataclass
 class DevicePieces:
     """The virtual rows ("pieces") of one precision's split heavy rows as
-    a CSR stream, with each parent's consecutive run of pieces. Pieces that
-    hold no element of this precision are left out."""
+    a CSR stream, with each parent's consecutive run of pieces and the work
+    records the kernel walks. Pieces that hold no element of this
+    precision are left out."""
 
     piece_ptr: torch.Tensor  # int32 [n_pieces + 1]
     col_idxs: torch.Tensor  # int32 [nnz], permuted like the SCS columns
     values: torch.Tensor  # [nnz]: float64, float32 or bfloat16
     parent_ptr: torch.Tensor  # int32 [n_parents + 1], runs of pieces
     parent_row: torch.Tensor  # int32 [n_parents], permuted row, each once
-    # one partial sum per (vector, piece), written and read by the kernels
-    partials: torch.Tensor  # [n_vec, n_pieces] in the accumulator dtype
+    # int32 [n_records, 4]: first piece, end piece, first parent, and the
+    # long parent's id l >= 0 or -(short parents); long records first
+    # (piece_records)
+    records: torch.Tensor
+    # int32 [n_long, 4] per long parent: first slot, first piece, pieces,
+    # records
+    longs: torch.Tensor
+    # a long parent's record sum per (vector, record): 64-bit words of 32
+    # bits of the sum and a tag (csrc/scs_pieces.cu), one word for a float
+    # sum, two for a double; 0 between launches (the kernel clears them)
+    slots: torch.Tensor  # int64 [n_vec, long records, words]
+    # per (vector, long parent): records done in this launch, 0 between
+    # launches (the last record to finish resets it)
+    arrivals: torch.Tensor  # int32 [n_vec, n_long]
     piece_idxs: torch.Tensor  # int32 [nnz], piece of each element (plain)
     piece_rows: torch.Tensor  # int32 [n_pieces], parent's row (plain)
 
@@ -279,19 +300,83 @@ class DevicePieces:
     def device(self) -> torch.device:
         return self.values.device
 
+    def bound_bytes(self) -> int:
+        """Bytes of the function itself per vector, y[parent] += sum of
+        value * x[col] over its pieces: the CSR stream and the parents'
+        runs and rows, each read once (x and y are the caller's to
+        count)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.values, self.col_idxs, self.piece_ptr,
+                             self.parent_ptr, self.parent_row))
+
     def stream_bytes(self) -> int:
-        """Bytes both kernels move per vector: the CSR stream once, the
-        parents' runs, and each partial sum written and read once."""
-        part = self.n_pieces * self.partials.element_size()
-        return 2 * part + sum(
-            t.numel() * t.element_size()
-            for t in (self.values, self.col_idxs, self.piece_ptr,
-                      self.parent_ptr, self.parent_row)
-        )
+        """Bytes the kernel moves per vector: ``bound_bytes``, the records
+        once, each long parent's entry once and its counter read and
+        written, and each long record's slot written, read and cleared
+        once (a short parent's sums never leave the registers)."""
+        slots = self.slots[0].numel() * self.slots.element_size()
+        n_long = self.longs.shape[0]
+        return (self.bound_bytes() + 3 * slots + 8 * n_long
+                + (self.records.numel() + self.longs.numel()) * 4)
 
     @property
     def device_beta(self) -> float:
         return 1.0
+
+
+def _packed(q: np.ndarray, ptr: np.ndarray, cap: int) -> np.ndarray:
+    """Records (first piece, end piece, first parent, -P) of the parents
+    ``q`` (increasing), each P consecutive ones whole, at most ``cap``
+    pieces in all, taken greedily in order: a record starting at parent p
+    ends before the first parent that breaks the run of ``q`` or whose
+    end lies beyond ptr[p] + cap. One step per record."""
+    q = np.asarray(q, dtype=np.int64)
+    if not q.size:
+        return np.zeros((0, 4), dtype=np.int64)
+    # per parent: the parents p..e-1 that fit in a record starting at p,
+    # ptr[e] <= ptr[p] + cap within p's run of consecutive ids in q
+    breaks = np.flatnonzero(np.diff(q) != 1)
+    run_end = np.repeat(q[np.append(breaks, q.size - 1)] + 1,
+                        np.diff(np.concatenate(([0], breaks + 1, [q.size]))))
+    fit = np.maximum(np.minimum(
+        np.searchsorted(ptr, ptr[q] + cap, side="right") - 1, run_end) - q, 1)
+    step = fit.tolist()
+    starts = []
+    i = 0
+    while i < q.size:
+        starts.append(i)
+        i += step[i]
+    q0, n_par = q[starts], fit[starts]
+    return np.stack([ptr[q0], ptr[q0 + n_par], q0, -n_par], axis=1)
+
+
+def piece_records(parent_ptr: np.ndarray):
+    """The work records of csrc/scs_pieces.cu for parents whose pieces are
+    parent_ptr[q] .. parent_ptr[q+1]-1. Returns (records, longs), int32
+    [n_records, 4] and [n_long, 4]. A long parent (more than RECORD_PIECES
+    pieces), long parent l, is records (first piece, end piece, q, l) of
+    RECORD_PIECES pieces (the last may be shorter), and
+    longs[l] = (first slot, first piece, pieces, records), a slot per
+    record; long parents go in order of decreasing pieces, so the largest
+    start first, and their slots lie in that order. Then the short
+    parents, packed (``_packed``) up to RECORD_PIECES."""
+    R = RECORD_PIECES
+    ptr = np.asarray(parent_ptr, dtype=np.int64)
+    runs = ptr[1:] - ptr[:-1]
+    order = np.argsort(-runs, kind="stable")
+    long_q = order[runs[order] > R]
+    n_rec = -(-runs[long_q] // R)
+    l_id = np.repeat(np.arange(long_q.size), n_rec)
+    chunk = np.arange(l_id.size) - np.repeat(np.cumsum(n_rec) - n_rec, n_rec)
+    first = ptr[long_q][l_id] + chunk * R
+    records = np.concatenate([
+        np.stack([first, np.minimum(first + R, ptr[long_q + 1][l_id]),
+                  long_q[l_id], l_id], axis=1),
+        _packed(np.flatnonzero(runs <= R), ptr, R),
+    ]).astype(np.int32)
+    longs = np.stack([np.cumsum(n_rec) - n_rec, ptr[long_q], runs[long_q],
+                      n_rec], axis=1).astype(np.int32)
+    return records, longs
 
 
 def build_device_pieces(
@@ -309,8 +394,9 @@ def build_device_pieces(
     DevicePieces. ``piece_parent_row[v]`` is the permuted row of virtual
     row v's parent; the virtual rows of one parent are consecutive ids
     (``split_heavy_rows``). Element order within a piece is kept.
-    ``acc_dtype`` and ``n_vec`` size the partial sums (default: one vector
-    of the values' dtype, float32 for bfloat16)."""
+    ``acc_dtype`` and ``n_vec`` size the long parents' slots and the
+    counters (default: one vector of the values' dtype, float32 for
+    bfloat16)."""
     piece_ids = np.asarray(piece_ids, dtype=np.int64)
     order = np.argsort(piece_ids, kind="stable")
     present, counts = np.unique(piece_ids, return_counts=True)
@@ -331,15 +417,22 @@ def build_device_pieces(
     if acc_dtype is None:
         acc_dtype = (torch.float32 if dev_values.dtype == torch.bfloat16
                      else dev_values.dtype)
+    parent_ptr = np.append(first, present.size)
+    records, longs = piece_records(parent_ptr)
+    n_vec = max(int(n_vec), 1)
     return DevicePieces(
         piece_ptr=_put(piece_ptr.astype(np.int32), device),
         col_idxs=_put(cols, device),
         values=dev_values,
-        parent_ptr=_put(np.append(first, present.size).astype(np.int32),
-                        device),
+        parent_ptr=_put(parent_ptr.astype(np.int32), device),
         parent_row=_put(parent_row.astype(np.int32), device),
-        partials=torch.zeros((max(int(n_vec), 1), present.size),
-                             dtype=acc_dtype, device=device),
+        records=_put(records, device),
+        longs=_put(longs, device),
+        slots=torch.zeros((n_vec, int(longs[:, 3].sum()),
+                           torch.finfo(acc_dtype).bits // 32),
+                          dtype=torch.int64, device=device),
+        arrivals=torch.zeros((n_vec, longs.shape[0]), dtype=torch.int32,
+                             device=device),
         piece_idxs=_put(np.repeat(np.arange(present.size, dtype=np.int32),
                                   counts), device),
         piece_rows=_put(piece_rows.astype(np.int32), device),

@@ -1,4 +1,4 @@
-"""Heavy-row pieces: the CUDA kernels' wrapper and its plain version.
+"""Heavy-row pieces: the CUDA kernel's wrapper and its plain version.
 
 Port of ``spmv_product_tiles`` and ``spmv_product_tiles_t``
 (uspmv_tpu/ops/pallas_scs.py) together with the fold of split rows that
@@ -9,12 +9,15 @@ of y, in place: y[parent_row[q]] += sum over the parent's pieces of
 sum_k values[k] * x[col_idxs[k]].
 
 For CUDA tensors one call of the entry point of ``csrc/scs_pieces.cu``
-enqueues two kernels on the current stream (a warp per piece writes a
-partial sum, a warp per parent folds its run of partials into y); it counts
-as one launch of the wrapper and as two kernel nodes in a captured CUDA
-graph. Nothing is allocated: the partial sums live in ``dev.partials``. For
-CPU tensors it runs ``spmv_pieces_plain``. A failure to build or launch
-raises.
+enqueues one kernel on the current stream: warps walk the work records of
+``dev.records`` (``device_format.piece_records``). Parents of at most
+``device_format.RECORD_PIECES`` pieces are summed and folded by one warp
+in registers, several to a record; a longer one's records meet in
+``dev.slots``, where the last to finish folds them (``dev.arrivals``
+counts them; both are 0 again after the launch). It counts as one launch of
+the wrapper and as one kernel node in a captured CUDA graph. Nothing is
+allocated. For CPU tensors it runs ``spmv_pieces_plain``. A failure to
+build or launch raises.
 
 Every sum has one fixed order and there are no floating-point atomics, so
 two calls give the same bits. Against the plain version the order of the
@@ -48,19 +51,20 @@ _ENTRY_POINTS = {
     (torch.bfloat16, torch.float64): "uspmv_scs_pieces_bf16_f64",
 }
 _ARGTYPES = (
-    [ctypes.c_int64] + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
-    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
-    + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_int64, ctypes.c_void_p] * 2 + [ctypes.c_void_p] * 6
+    + [ctypes.c_int64] * 2 + [ctypes.c_void_p, ctypes.c_int64]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2
+    + [ctypes.c_int, ctypes.c_void_p]
 )
-KERNELS_PER_LAUNCH = 2  # the partial sums, then the fold
+KERNELS_PER_LAUNCH = 1
 
 _launches: Dict[str, int] = {name: 0 for name in _ENTRY_POINTS.values()}
 _lib = None
 
 
 def launch_count() -> int:
-    """Launches made by ``spmv_pieces`` in this process (each enqueues
-    KERNELS_PER_LAUNCH kernels)."""
+    """Launches made by ``spmv_pieces`` in this process (one kernel
+    each)."""
     return sum(_launches.values())
 
 
@@ -132,14 +136,14 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
     if x.device.type != "cuda":
         raise ValueError(
             f"spmv_pieces runs on cuda or cpu tensors, not {x.device}")
-    index_tensors = (dev.piece_ptr, dev.col_idxs, dev.parent_ptr,
-                     dev.parent_row)
+    index_tensors = (dev.piece_ptr, dev.parent_ptr, dev.parent_row,
+                     dev.col_idxs, dev.records, dev.longs, dev.arrivals)
     if not all(t.is_contiguous()
-               for t in (*index_tensors, dev.values, dev.partials, x, y)):
+               for t in (*index_tensors, dev.values, dev.slots, x, y)):
         raise ValueError("spmv_pieces needs contiguous tensors")
     if any(t.dtype != torch.int32 for t in index_tensors):
-        raise TypeError("piece_ptr, col_idxs, parent_ptr and parent_row "
-                        "must be int32")
+        raise TypeError("piece_ptr, parent_ptr, parent_row, col_idxs, "
+                        "records, longs and arrivals must be int32")
     if x.dim() == 1:
         x_ld, vstride, n_vec = 1, 0, 1
     elif layout == "colwise":
@@ -151,12 +155,16 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
             f"block vectors take at most {MAX_VECTORS} vectors in one "
             f"launch, not {n_vec}"
         )
-    if (dev.partials.dtype != x.dtype or dev.partials.device != x.device
-            or dev.partials.numel() < n_vec * dev.n_pieces):
+    n_long = dev.longs.shape[0]
+    if (dev.slots.dtype != torch.int64 or dev.slots.device != x.device
+            or dev.slots.shape[0] < n_vec
+            or dev.slots.shape[2] != x.element_size() // 4
+            or dev.arrivals.shape != (dev.slots.shape[0], n_long)):
         raise ValueError(
-            f"the partial sums hold {tuple(dev.partials.shape)} "
-            f"{dev.partials.dtype}; this call needs ({n_vec}, "
-            f"{dev.n_pieces}) {x.dtype} (build_device_pieces: n_vec, "
+            f"the slots hold {tuple(dev.slots.shape)} {dev.slots.dtype} and "
+            f"the counters {tuple(dev.arrivals.shape)}; this call needs "
+            f"({n_vec}, {dev.slots.shape[1]}, {x.element_size() // 4}) "
+            f"int64 and ({n_vec}, {n_long}) (build_device_pieces: n_vec, "
             "acc_dtype)"
         )
     y_vstride = dev.n_rows_padded if layout == "colwise" and x.dim() == 2 \
@@ -164,10 +172,12 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
-            dev.n_pieces, dev.piece_ptr.data_ptr(), dev.col_idxs.data_ptr(),
-            dev.values.data_ptr(), dev.n_parents, dev.parent_ptr.data_ptr(),
-            dev.parent_row.data_ptr(), x.data_ptr(), x_ld, vstride,
-            dev.partials.data_ptr(), y.data_ptr(), x_ld, y_vstride, n_vec,
+            dev.records.shape[0], dev.records.data_ptr(), n_long,
+            dev.longs.data_ptr(), dev.piece_ptr.data_ptr(),
+            dev.parent_ptr.data_ptr(), dev.parent_row.data_ptr(),
+            dev.col_idxs.data_ptr(), dev.values.data_ptr(), x.data_ptr(),
+            x_ld, vstride, dev.slots.data_ptr(), dev.slots[0].numel(),
+            dev.arrivals.data_ptr(), y.data_ptr(), x_ld, y_vstride, n_vec,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     book_launch(lib, rc, name, _launches, nodes=KERNELS_PER_LAUNCH)

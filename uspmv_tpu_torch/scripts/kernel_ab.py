@@ -1,10 +1,10 @@
-"""Two or more versions of the SELL-C-sigma and packed-row kernels, timed in
-turns on the same inputs in one process on one card: the paired comparison
-of a kernel change (the parent's sources against the change's).
+"""Two or more versions of the port's kernels, timed in turns on the same
+inputs in one process on one card: the paired comparison of a kernel change
+(the parent's sources against the change's).
 
     python -m uspmv_tpu_torch.scripts.kernel_ab --lib NAME=CSRC_DIR
-        [--lib NAME=CSRC_DIR ...] [--cases sell,packed,solve] [--reps R]
-        [--rounds N] [--out PATH]
+        [--lib NAME=CSRC_DIR ...] [--cases sell,packed,solve,pieces,gather]
+        [--reps R] [--rounds N] [--out PATH]
 
 Each CSRC_DIR is a copy of ``uspmv_tpu_torch/csrc`` (the parent commit's,
 unpacked by ``git archive``, or an edited copy). Every one is built with the
@@ -19,16 +19,27 @@ and cuobjdump's registers per kernel are printed for each. The cases:
             operator's automatic threshold: its packed rows as dp, sp, hp
     solve   the fused solve (scs_solve.cu), k=32, on the headline's matrix
             scaled by 1/16 (row sums of |A| <= 1), sp
+    pieces  the heavy-row pieces (scs_pieces.cu) of the same
+            RandomImbalanced-500k operators as dp, sp, hp, added into a
+            random y
+    gather  x_access.cu's gather_store against index_select: 2^24
+            banded and random indices into an x of 8.4 MB, and the
+            columns of RandomImbalanced-500k's packed rows and pieces (sp,
+            as the packed and pieces cases), the indices of chip_smoke.py's
+            gather floors
 
 On a case every library's kernel runs on the same tensors, in the order
 first..last then last..first, --rounds times; each turn is one replay of a
 CUDA graph of R launches (the solve: R launches timed by CUDA events).
 cuSPARSE (``torch.sparse_csr_tensor @ x``) on the same matrix, where the
-value and x types agree, takes its turns among them. One row per (case,
-library) gives the median ms, the samples, the byte bound, whether y
-equals the first library's bit for bit, and the error against the plain
-version. A tree whose packed kernel predates the group records takes the
-packed arguments of that design: group_ptr, no stage size.
+value and x types agree, or ``torch.index_select`` for the gather, takes
+its turns among them, timed by CUDA events. One row per (case, library)
+gives the median ms, the samples, the byte bound, whether y equals the
+first library's bit for bit, and the error against the plain version. A
+tree whose pieces kernel is the pair of a piece pass and a fold pass (the
+design before the work records) takes that design's arguments (parent
+runs and rows, one partial per piece); the entry points of older designs
+are not bound.
 """
 
 from __future__ import annotations
@@ -47,18 +58,30 @@ import torch
 
 from ..config import Config
 from ..io import generators
-from ..ops import _build, scs_packed, scs_solve, scs_spmv
+from ..ops import (
+    _build,
+    scs_packed,
+    scs_pieces,
+    scs_solve,
+    scs_spmv,
+    x_access,
+)
 from ..ops.device_format import build_device_scs
 from ..runtime.operator import SpmvOperator
-from . import _common
+from . import _common, gather_probe
 
 NAME = "kernel_ab"
-CASES = ("sell", "packed", "solve")
+CASES = ("sell", "packed", "solve", "pieces", "gather")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SOLVE_K = 32
-# the packed entry points before the group records: no stage size
-_PACKED_ARGTYPES_GROUP_PTR = (scs_packed._ARGTYPES[:-2]
-                              + scs_packed._ARGTYPES[-1:])
+# the pieces entry points of the two-pass design: (n_pieces, piece_ptr,
+# col_idxs, values, n_parents, parent_ptr, parent_row, x, x_ld, x_vstride,
+# partials, y, y_ld, y_vstride, n_vec)
+_PIECES_ARGTYPES_TWO_PASS = (
+    [ctypes.c_int64] + [ctypes.c_void_p] * 3 + [ctypes.c_int64]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -96,11 +119,11 @@ def turns(names: List[str], rounds: int) -> List[str]:
     return [n for _ in range(rounds) for n in (*names, *reversed(names))]
 
 
-def packed_abi(csrc: Path) -> str:
-    """'records' where the tree's packed kernel reads group records and a
-    stage size, else 'group_ptr' (the design before the records)."""
-    text = (csrc / "scs_packed.cu").read_text()
-    return "records" if "stage_bytes" in text else "group_ptr"
+def pieces_abi(csrc: Path) -> str:
+    """'records' where the tree's pieces kernel walks work records, else
+    'two_pass' (a piece pass, then a fold pass)."""
+    text = (csrc / "scs_pieces.cu").read_text()
+    return "records" if "arrivals" in text else "two_pass"
 
 
 class Version:
@@ -109,14 +132,19 @@ class Version:
     def __init__(self, name: str, csrc: Path, lib_path: Path):
         self.name, self.path = name, lib_path
         self.lib = ctypes.CDLL(str(lib_path))
-        self.abi = packed_abi(csrc)
+        self.pieces_abi = pieces_abi(csrc)
         for entry in [*scs_spmv._ENTRY_POINTS.values(), scs_spmv.UNIT_ENTRY]:
             self._bind(entry, scs_spmv._ARGTYPES)
         for entry in scs_packed._ENTRY_POINTS.values():
-            self._bind(entry, scs_packed._ARGTYPES if self.abi == "records"
-                       else _PACKED_ARGTYPES_GROUP_PTR)
+            self._bind(entry, scs_packed._ARGTYPES)
         for entry in scs_solve._ENTRY_POINTS.values():
             self._bind(entry, scs_solve._ARGTYPES)
+        for entry in scs_pieces._ENTRY_POINTS.values():
+            self._bind(entry, scs_pieces._ARGTYPES
+                       if self.pieces_abi == "records"
+                       else _PIECES_ARGTYPES_TWO_PASS)
+        for entry, argtypes in x_access._ARGTYPES.items():
+            self._bind(entry, argtypes)
         self.lib.uspmv_cuda_error_string.argtypes = [ctypes.c_int]
         self.lib.uspmv_cuda_error_string.restype = ctypes.c_char_p
 
@@ -156,13 +184,15 @@ def build_all(libs: Dict[str, Path]) -> Dict[str, Version]:
 
 
 def resources(versions: Dict[str, Version]) -> List[dict]:
-    """Registers of the row-sum kernels of every version."""
+    """Registers of the row-sum, pieces and gather-store kernels of every
+    version."""
     rows = []
     for v in versions.values():
         for r in _build.kernel_resources(v.path):
             if any(k in r["function"] for k in (
                     "scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
-                    "scs_solve_kernel", "scs_probe_kernel")):
+                    "scs_solve_kernel", "scs_probe_kernel",
+                    "scs_pieces_kernel", "gather_store_kernel")):
                 rows.append(dict(kind="resources", lib=v.name, **r))
     return rows
 
@@ -194,15 +224,17 @@ def events_ms(fn: Callable[[], object], reps: int) -> float:
 
 def paired(case: str, versions: Dict[str, Version], run, plain_y,
            nbytes: int, reps: int, rounds: int, library=None,
-           timer=None) -> List[dict]:
-    """One case: ``run(version, y)`` writes y = the product; each version
-    is checked against ``plain_y`` and the first version's y, then timed in
-    turns with ``library`` (a call, or None)."""
+           timer=None, y0=None, library_name="cusparse",
+           tol=None) -> List[dict]:
+    """One case: ``run(version, y)`` writes y = the product (or, with
+    ``y0``, adds it into y = a copy of y0); each version is checked against
+    ``plain_y`` (to ``tol``, default TOL of its dtype) and the first
+    version's y, then timed in turns with ``library`` (a call, or None)."""
     device = plain_y.device
-    tol = TOL[plain_y.dtype]
+    tol = TOL[plain_y.dtype] if tol is None else tol
     ys, rows = {}, {}
     for name, v in versions.items():
-        y = torch.empty_like(plain_y)
+        y = torch.empty_like(plain_y) if y0 is None else y0.clone()
         run(v, y)
         torch.cuda.synchronize()
         ys[name] = y
@@ -213,18 +245,18 @@ def paired(case: str, versions: Dict[str, Version], run, plain_y,
             bound_bytes=nbytes, bound_ms=_common.bound_ms(nbytes),
             **_common.check_close(y, plain_y, tol, f"{case} {name}"))
     timer = timer or (lambda fn: _common.device_ms(fn, reps, device))
-    names = list(versions) + (["cusparse"] if library else [])
+    names = list(versions) + ([library_name] if library else [])
     samples = {n: [] for n in names}
     for n in turns(names, rounds):
-        if n == "cusparse":  # allocates its result: events, not a graph
+        if n == library_name:  # allocates its result: events, not a graph
             samples[n].append(events_ms(library, reps))
         else:
             y = ys[n]
             samples[n].append(timer(lambda v=versions[n], y=y: run(v, y)))
     if library:
-        rows["cusparse"] = dict(kind="case", case=case, lib="cusparse",
-                                bound_bytes=nbytes,
-                                bound_ms=_common.bound_ms(nbytes))
+        rows[library_name] = dict(kind="case", case=case, lib=library_name,
+                                  bound_bytes=nbytes,
+                                  bound_ms=_common.bound_ms(nbytes))
     out = []
     for n in names:
         ms = float(np.median(samples[n]))
@@ -317,18 +349,11 @@ def packed_cases(versions, device, reps, rounds) -> List[dict]:
         entry = scs_packed.entry_point(dev.values.dtype, xdt)
         n = dev.n_rows_padded
 
-        # the first row of every group and the end: the older group_ptr
-        group_ptr = torch.cat([dev.groups[:, 0], dev.groups[-1:, 1]])
-
-        def run(v, y, dev=dev, x=x, entry=entry, group_ptr=group_ptr):
-            head = (dev.n_groups, dev.groups.data_ptr()
-                    if v.abi == "records" else group_ptr.data_ptr(),
-                    dev.row_ptr.data_ptr(), dev.col_idxs.data_ptr(),
-                    dev.values.data_ptr(), x.data_ptr(), 1, 0, y.data_ptr(),
-                    1, 0, 1, 1, 0)
-            if v.abi == "records":
-                head += (scs_packed.stage_bytes(dev, x.dtype),)
-            v.call(entry, *head)
+        def run(v, y, dev=dev, x=x, entry=entry):
+            v.call(entry, dev.n_groups, dev.groups.data_ptr(),
+                   dev.row_ptr.data_ptr(), dev.col_idxs.data_ptr(),
+                   dev.values.data_ptr(), x.data_ptr(), 1, 0, y.data_ptr(),
+                   1, 0, 1, 1, 0, scs_packed.stage_bytes(dev, x.dtype))
 
         library = None
         if dev.values.dtype == xdt:
@@ -339,6 +364,86 @@ def packed_cases(versions, device, reps, rounds) -> List[dict]:
                        rounds, library)
         del op, dev
         torch.cuda.empty_cache()
+    return rows
+
+
+def pieces_cases(versions, device, reps, rounds) -> List[dict]:
+    rows = []
+    mtx = generators.random_imbalanced(500_000, 8)
+    for value_type in ("dp", "sp", "hp"):
+        op = SpmvOperator.from_mtx(
+            Config(kernel_format="scs", chunk_size=1024, sigma=1,
+                   value_type=value_type, backend="cuda"), mtx)
+        (pc,) = op.pieces.values()
+        xdt = torch.float64 if value_type == "dp" else torch.float32
+        n = pc.n_rows_padded
+        rng = np.random.default_rng(3)
+        x, y0 = (torch.as_tensor(rng.standard_normal(n), device=device
+                                 ).to(xdt) for _ in range(2))
+        entry = scs_pieces.entry_point(pc.values.dtype, xdt)
+        # the two-pass design's buffer: one partial per piece
+        two_pass = torch.zeros(pc.n_pieces, dtype=xdt, device=device)
+
+        def run(v, y, pc=pc, x=x, entry=entry, two_pass=two_pass):
+            if v.pieces_abi == "records":
+                v.call(entry, pc.records.shape[0], pc.records.data_ptr(),
+                       pc.longs.shape[0], pc.longs.data_ptr(),
+                       pc.piece_ptr.data_ptr(), pc.parent_ptr.data_ptr(),
+                       pc.parent_row.data_ptr(), pc.col_idxs.data_ptr(),
+                       pc.values.data_ptr(), x.data_ptr(), 1, 0,
+                       pc.slots.data_ptr(), pc.slots[0].numel(),
+                       pc.arrivals.data_ptr(), y.data_ptr(), 1, 0, 1)
+            else:
+                v.call(entry, pc.n_pieces, pc.piece_ptr.data_ptr(),
+                       pc.col_idxs.data_ptr(), pc.values.data_ptr(),
+                       pc.n_parents, pc.parent_ptr.data_ptr(),
+                       pc.parent_row.data_ptr(), x.data_ptr(), 1, 0,
+                       two_pass.data_ptr(), y.data_ptr(), 1, 0, 1)
+
+        library = None
+        if pc.values.dtype == xdt:
+            library = csr_call(pc.piece_rows[pc.piece_idxs.long()],
+                               pc.col_idxs, pc.values, n, x)
+        # as chip_smoke.py path G: the function's own stream, the x entries
+        # the pieces can touch, the parents' rows of y read and written
+        nbytes = pc.bound_bytes() + x.element_size() * (
+            min(n, pc.nnz) + 2 * pc.n_parents)
+        rows += paired(
+            f"RandomImbalanced-500k pieces {value_type}", versions, run,
+            scs_pieces.spmv_pieces_plain(pc, x, "rowwise", y0.clone()),
+            nbytes, reps, rounds, library, y0=y0)
+        del op, pc
+        torch.cuda.empty_cache()
+    return rows
+
+
+def gather_cases(versions, device, reps, rounds) -> List[dict]:
+    n, n_x = 2**24, 2**21
+    gen = torch.Generator(device=device).manual_seed(4)
+    sets = {f"{pattern} x 8.4 MB": (gather_probe.sweep_index(
+        pattern, n, n_x, gen, device), n_x)
+        for pattern in ("banded", "random")}
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=1024, sigma=1,
+               value_type="sp", backend="cuda"),
+        generators.random_imbalanced(500_000, 8))
+    for tier, dev in (("packed", op.devs["sp"]), ("pieces", op.pieces["sp"])):
+        sets[f"RandomImbalanced-500k {tier} columns"] = (dev.col_idxs,
+                                                         op.n_rows_padded)
+    rows = []
+    for name, (idx, n_x) in sets.items():
+        x = torch.randn(n_x, generator=gen, device=device)
+
+        def run(v, y, x=x, idx=idx):
+            v.call(x_access.ENTRIES["gather_store"], x.data_ptr(),
+                   idx.data_ptr(), y.data_ptr(), idx.numel())
+
+        nbytes = 8 * idx.numel() + 4 * torch.unique(idx).numel()
+        rows += paired(
+            f"gather_store {name}", versions, run,
+            x_access.gather_store_plain(x, idx), nbytes, reps, rounds,
+            lambda x=x, idx=idx: torch.index_select(x, 0, idx),
+            library_name="index_select", tol=0.0)
     return rows
 
 
@@ -393,7 +498,8 @@ def run(args: argparse.Namespace) -> List[dict]:
     print(card)
     for case in cases:
         fn = {"sell": sell_cases, "packed": packed_cases,
-              "solve": solve_cases}[case]
+              "solve": solve_cases, "pieces": pieces_cases,
+              "gather": gather_cases}[case]
         rows += fn(versions, device, args.reps, args.rounds)
     for r in rows:
         r.update(platform=_common.platform_of(device), card=card)

@@ -125,7 +125,33 @@ nvidia-smi. Phases, each printing JSON lines:
         operator and unit stream;
      c. perf_sweep --bs_only on Laplace3D-128 (bs 1, 4, 8, 16, 32), the
         script's default sweep on Laplace3D-64, and ap_bench on
-        Laplace3D-128, with short bench times, every row emitted.
+        Laplace3D-128, with short bench times, every row emitted;
+ 10. row-sharded execution (slice 9): DistributedSpmvOperator, R shards on
+     the one card, the halo exchange kernel (csrc/halo_exchange.cu). Each
+     driven run (from_mtx, a validated solve, bench_spmv 0.3 s) sets every
+     launch count to 0 before and reads it after, and needs the exchange
+     and a row kernel to have launched:
+     a. Laplace3D-128 sp (C=1024, sigma=1, seg-rows, bulkvec, overlap on)
+        at R=4 and R=8: y against the plain version of every launch and
+        against the single-device operator, the comm volume against the
+        partitioner's own count (at R=4 exactly 98,304 real and 131,072
+        padded halo rows), the sharded SpMV and the single-device one
+        timed by replayed CUDA graphs in turns; at R=4 also overlap off
+        against on, the exchange kernel alone (bit-equal to its plain
+        version; kernel, plain and index_select + index_copy_ timed by
+        graphs in turns), comm_halos=0 (y must be wrong), a k=64 graph
+        solve against the single-device one (us per iteration),
+        ap[dp_sp] (the f64 exchange), rowwise and colwise bs=4 (against
+        the one-vector operator column by column) and allgather;
+     b. RandomImbalanced-500k, R=4, seg-nnz: packed rows and pieces per
+        shard, against the plain version and the single-device operator
+        (the solve judged on the relative L2 norm), timed as in a;
+     c. the CLI in two processes: -n_shards 4 solve mode on Laplace3D-128
+        (validated OK) and bench mode with -print_comm_vol on Laplace3D-64,
+        which run beside d;
+     d. seg-metis against seg-nnz on Laplace3D-64: the partition's host
+        seconds, both comm volumes (seg-metis must not move more), y
+        against scipy.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
 GB/s, or flops over the peak of its type if larger; for the fused solve the
@@ -1753,6 +1779,389 @@ def phase9(mtx, headline_ms, card):
     return launches, records
 
 
+# the halo exchange: the XLA hot path it replaces (not a Pallas kernel)
+EXCHANGE_SOURCE = "uspmv_tpu_torch/csrc/halo_exchange.cu"
+EXCHANGE_REPLACES = "uspmv_tpu/parallel/distributed.py:917-944"
+# Laplace3D-128 split by rows into 4 shards of 32 planes: each inner shard
+# needs one 128 x 128 plane from each neighbour, the outer ones one plane;
+# the ring offsets 1 and 3 carry them, each padded to one plane per shard
+LAPLACE128_R4_COMM = {"real": 6 * 128 * 128, "padded": 8 * 128 * 128}
+
+
+def dist_plain(op, x):
+    """A sharded op.spmv with every launch through its plain version, in
+    op.spmv's order, into a new zeroed y (the exchange fills x's halo rows
+    in place, as op.spmv does)."""
+    import torch
+
+    from uspmv_tpu_torch.ops.device_format import DevicePacked
+    from uspmv_tpu_torch.ops.halo_exchange import halo_exchange_plain
+    from uspmv_tpu_torch.ops.scs_packed import spmv_packed_plain
+    from uspmv_tpu_torch.ops.scs_pieces import spmv_pieces_plain
+    from uspmv_tpu_torch.ops.scs_spmv import spmv_scs_plain
+
+    layout = op.config.vector_layout
+    y = torch.zeros_like(x)
+    for p in op.precisions:
+        xp = op.x_for(p, x)
+        ex = op.exchanges[p]
+        if ex is not None and ex.n and op.config.comm_halos:
+            halo_exchange_plain(ex, xp, layout)
+        for r, sh in enumerate(op.streams[p]):
+            xr = op.whole(xp) if op.halo_plans[p] is None \
+                else op.shard_view(xp, r)
+            for dev in (sh.main, sh.halo):
+                if dev is not None:
+                    plain = (spmv_packed_plain if isinstance(dev, DevicePacked)
+                             else spmv_scs_plain)
+                    plain(dev, xr, layout, op.shard_view(y, r,
+                                                         dev.n_rows_padded))
+            if sh.pieces is not None:
+                spmv_pieces_plain(sh.pieces, xr, layout, op.shard_view(
+                    y, r, sh.pieces.n_rows_padded))
+    return y
+
+
+def host_rel(got, want):
+    import numpy as np
+
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(np.asarray(got, dtype=np.float64) - want).max()
+                 / np.abs(want).max())
+
+
+def exchange_record(op, p, x, card, what):
+    """The exchange kernel of precision p of ``op`` on the stacked x:
+    bit-equal to its plain version, then the kernel, the plain version and
+    the library pair index_select + index_copy_ timed by replayed CUDA
+    graphs in turns. Returns the record for the kernels line."""
+    import torch
+
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    ex = op.exchanges[p]
+    layout = op.config.vector_layout
+    # precision p's own buffer, its halo rows cleared
+    x = op.x_for(p, x).clone()
+    flat, dim = hx.flat_view(ex, x, layout)
+    flat.index_fill_(dim, ex.dst.long(), 0)
+    got, want = hx.halo_exchange(ex, x.clone(), layout), \
+        hx.halo_exchange_plain(ex, x.clone(), layout)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"{what}: exchange != its plain version")
+    require(not torch.equal(got, x), f"{what}: the exchange wrote nothing")
+    max_abs = (got - want).abs().max().item()
+    xk = got.clone()
+    flat, dim = hx.flat_view(ex, xk, layout)
+    dst64 = ex.dst.long()
+    med, samples = time_turns({
+        "kernel": lambda: graph_ms(lambda: hx.halo_exchange(ex, xk, layout),
+                                   200),
+        "plain": lambda: graph_ms(
+            lambda: hx.halo_exchange_plain(ex, xk, layout), 200),
+        "library": lambda: graph_ms(lambda: flat.index_copy_(
+            dim, dst64, flat.index_select(dim, ex.src)), 200),
+    })
+    n_val = x.numel() // (ex.n_shards * ex.length)
+    nbytes = ex.bound_bytes(x.element_size(), n_val)
+    b_ms, b_by = bound(nbytes, 0, x.dtype)
+    rec = dict(entry=hx._ENTRY_POINTS[x.dtype], pairs=ex.n,
+               values_per_pair=n_val, bound_bytes=nbytes,
+               max_abs_err=max_abs, ms=med["kernel"],
+               plain_ms=med["plain"], library_ms=med["library"],
+               library_error=None, bound_ms=b_ms, bound_by=b_by,
+               timed_on=what)
+    emit("halo_exchange", card=card, **rec, **samples)
+    return rec
+
+
+def phase10(mtx, card):
+    """Phase 10: row-sharded execution on the card. ``mtx`` is the
+    headline's Laplace3D-128. Each driven run (from_mtx, a validated solve,
+    bench_spmv) sets the launch counts of every wrapper to 0 before and
+    reads them after. Returns (the halo-exchange launches of those runs per
+    entry point, {entry point: its record for the kernels line})."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.io import generators
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.parallel.partition import (
+        halo_comm_volume,
+        seg_work_sharing,
+    )
+    from uspmv_tpu_torch.runtime.bench import bench_solve, bench_spmv
+
+    t_phase = time.perf_counter()
+    wrappers = (scs_spmv, scs_packed, scs_pieces, hx)
+    launches, records = {}, {}
+    base = dict(kernel_format="scs", chunk_size=1024, sigma=1,
+                value_type="sp", backend="cuda")
+    rng = np.random.default_rng(10)
+
+    def build(m, **kw):
+        t0 = time.perf_counter()
+        op = DistributedSpmvOperator.from_mtx(Config(**dict(base, **kw)), m)
+        torch.cuda.synchronize()
+        return op, time.perf_counter() - t0
+
+    def drive(m, what, n_rev=5, l2_judged=False, **kw):
+        """The entry points a user calls: from_mtx, a validated solve and
+        one bench_spmv reading, with every launch count set to 0 before and
+        read after; the halo exchange and a row kernel must have run."""
+        for w in wrappers:
+            w.reset_launch_count()
+        op, build_s = build(m, **kw)
+        rep, rep_l2 = validated_solve(op, m, n_rev, what, l2_judged=l2_judged)
+        res = bench_spmv(op, bench_time=0.3)
+        got = {}
+        for w in wrappers:
+            got.update({k: n for k, n in w.launch_counts().items() if n})
+        require(any(k.startswith("uspmv_halo_exchange") for k in got),
+                f"{what}: the halo exchange never launched: {got}")
+        require(any(k.startswith(("uspmv_scs_spmv", "uspmv_scs_packed"))
+                    for k in got), f"{what}: no row kernel launched: {got}")
+        for k, n in got.items():
+            if k.startswith("uspmv_halo_exchange"):
+                launches[k] = launches.get(k, 0) + n
+        info = dict(impl=op.impl_name(), build_s=build_s,
+                    validation=rep.summary(), validation_l2=rep_l2.summary(),
+                    main_path_launches=got,
+                    comm=op.comm_volume_per_spmv())
+        info.update(bench_gflops=res.perf_gflops,
+                    bench_iterations=res.n_iterations,
+                    bench_per_shard=res.per_shard)
+        return op, info
+
+    def check(op, x, x_host, want_host, tol, what):
+        """y = op.spmv(x) against its plain version and against the
+        single-device (or scipy) y on the host. Returns (y, fields)."""
+        y = op.spmv(x)
+        torch.cuda.synchronize()
+        max_abs, rel = compare(y, dist_plain(op, x), tol, f"{what} vs plain")
+        rel_want = host_rel(op.to_host(y), want_host)
+        require(rel_want <= tol, f"{what}: vs the reference {rel_want:.3e}")
+        return y, dict(max_abs_err=max_abs, rel_err_vs_plain=rel,
+                       rel_err_vs_reference=rel_want)
+
+    # ---- 10a. Laplace3D-128, sp, seg-rows, bulkvec, overlap on: R = 4, 8
+    single = SpmvOperator.from_mtx(Config(**base), mtx)
+    x_host = rng.standard_normal(mtx.n_rows)
+    xs = single.make_x(x_host)
+    ys = single.spmv(xs)
+    y_single = single.to_host(ys)
+    ops = {}
+    for R in (4, 8):
+        op, info = drive(mtx, f"Laplace3D-128 R={R}", n_shards=R)
+        x = op.make_x(x_host)
+        y, fields = check(op, x, x_host, y_single, TOL["sp"],
+                          f"Laplace3D-128 R={R}")
+        comm = info["comm"]["sp"]
+        require(comm["real"] == halo_comm_volume(mtx, op.work_sharing),
+                f"R={R}: comm volume {comm['real']}")
+        if R == 4:
+            require({k: comm[k] for k in ("real", "padded")}
+                    == LAPLACE128_R4_COMM, f"R=4 comm volume {comm}")
+        yo = torch.zeros_like(x)
+        med, samples = time_turns({
+            "sharded": lambda: graph_ms(lambda: op.spmv(x, out=yo), 50),
+            "single": lambda: graph_ms(lambda: single.spmv(xs, out=ys), 50),
+        })
+        emit("dist_laplace128", R=R, **info, **fields,
+             offsets=op.halo_plans["sp"].offsets, H=op.halo_plans["sp"].H,
+             sharded_ms=med["sharded"], single_ms=med["single"], **samples,
+             card=card)
+        ops[R] = op
+    op4 = ops.pop(4)
+    del ops
+    x4 = op4.make_x(x_host)
+    y4 = op4.to_host(op4.spmv(x4))
+
+    # overlap off (one launch per shard after the exchange) against on
+    off, off_s = build(mtx, n_shards=4, overlap_comm=False)
+    xo = off.make_x(x_host)
+    _, fields = check(off, xo, x_host, y_single, TOL["sp"], "overlap off")
+    yo, yf = torch.zeros_like(x4), torch.zeros_like(xo)
+    med, samples = time_turns({
+        "overlap_on": lambda: graph_ms(lambda: op4.spmv(x4, out=yo), 50),
+        "overlap_off": lambda: graph_ms(lambda: off.spmv(xo, out=yf), 50),
+    })
+    emit("dist_overlap", R=4, impl_on=op4.impl_name(),
+         impl_off=off.impl_name(), build_s_off=off_s, **fields,
+         on_ms=med["overlap_on"], off_ms=med["overlap_off"], **samples,
+         card=card)
+    del off, xo, yf
+
+    # the exchange kernel alone, on the R=4 plan (f32)
+    rec = exchange_record(op4, "sp", op4.make_x(x_host), card,
+                          "phase 10, Laplace3D-128 sp R=4 seg-rows, the "
+                          "plan's 98,304 halo rows, replayed CUDA graphs")
+    records[rec["entry"]] = rec
+
+    # comm_halos=0 on the same streams: halo rows stay zero, y is wrong
+    nohalo = dataclasses.replace(
+        op4, config=dataclasses.replace(op4.config, comm_halos=False))
+    y_wrong = nohalo.to_host(nohalo.spmv(nohalo.make_x(x_host)))
+    ref = mtx.to_scipy().tocsr() @ x_host.astype(np.float32).astype(
+        np.float64)
+    rel_wrong = host_rel(y_wrong, ref)
+    require(rel_wrong > 1e-2, f"comm_halos=0 gave y within {rel_wrong:.3e}")
+    emit("dist_comm_halos_0", R=4, rel_err_vs_scipy=rel_wrong, card=card)
+    del nohalo
+
+    # k=64 solves by CUDA graph, sharded against single-device (x = 0:
+    # the kernels' time does not depend on the values, and 64 products of
+    # the unscaled Laplacian would overflow f32)
+    sol = {}
+    for name, o in (("sharded", op4), ("single", single)):
+        res = bench_solve(o, 64, x=o.make_x(np.zeros(mtx.n_rows)),
+                          bench_time=0.3)
+        sol[name] = dict(impl=res.impl,
+                         us_per_iteration=res.duration_kernel_s
+                         / res.n_iterations * 1e6)
+    emit("dist_solve_k64", R=4, **sol, card=card)
+
+    # ap[dp_sp] (Laplace3D's 6.0 diagonal -> dp, the rest -> sp): the dp
+    # stream needs no halo, the sp stream's exchange runs on f64 x
+    ap, info = drive(mtx, "Laplace3D-128 R=4 ap[dp_sp]", n_shards=4,
+                     value_type="ap[dp_sp]", ap_threshold_1=2.44)
+    require(info["comm"]["dp"]["real"] == 0, f"ap: dp comm {info['comm']}")
+    xa = ap.make_x(x_host)
+    _, fields = check(ap, xa, x_host, mtx.to_scipy().tocsr() @ x_host,
+                      TOL["sp"], "ap[dp_sp] R=4")
+    # the sp stream's own x buffer takes the local rows of x every SpMV
+    copy_bytes = 2 * ap.R * ap.n_rows_padded * xa.element_size()
+    copy_ms = graph_ms(lambda: ap.x_for("sp", xa), 50)
+    emit("dist_ap_dp_sp", R=4, **info, **fields, copy_in_ms=copy_ms,
+         copy_in_bound_ms=bound(copy_bytes, 0, xa.dtype)[0], card=card)
+    rec = exchange_record(ap, "sp", ap.make_x(x_host), card,
+                          "phase 10, Laplace3D-128 ap[dp_sp] R=4: the sp "
+                          "stream's halo rows in f64 x, replayed CUDA graphs")
+    records[rec["entry"]] = rec
+    del ap, xa
+
+    # block vectors, bs=4 rowwise and colwise, against the one-vector op
+    X = rng.standard_normal((mtx.n_rows, 4))
+    cols = np.stack([op4.to_host(op4.spmv(op4.make_x(X[:, c])))
+                     for c in range(4)], axis=1)
+    for layout in ("rowwise", "colwise"):
+        bop, build_s = build(mtx, n_shards=4, block_vec_size=4,
+                             vector_layout=layout)
+        _, fields = check(bop, bop.make_x(X), X, cols, TOL["sp"],
+                          f"bs=4 {layout} R=4")
+        emit("dist_block_vectors", R=4, layout=layout, bs=4,
+             impl=bop.impl_name(), build_s=build_s, **fields, card=card)
+        del bop
+
+    # allgather: no plan, every shard reads the whole stacked x
+    ag, build_s = build(mtx, n_shards=4, comm_mode="allgather")
+    _, fields = check(ag, ag.make_x(x_host), x_host, y4, TOL["sp"],
+                      "allgather R=4")
+    emit("dist_allgather", R=4, build_s=build_s, **fields,
+         comm=ag.comm_volume_per_spmv(), card=card)
+    del ag, op4, x4, single, xs, ys
+
+    # ---- 10b. RandomImbalanced-500k, R=4, seg-nnz: packed rows and pieces
+    ri = generators.random_imbalanced(500_000, 8)
+    one = SpmvOperator.from_mtx(Config(**base), ri)
+    xr_host = rng.standard_normal(ri.n_rows)
+    y_one = one.to_host(one.spmv(one.make_x(xr_host)))
+    rop, info = drive(ri, "RandomImbalanced-500k R=4", n_rev=1,
+                      l2_judged=True, n_shards=4, seg_method="seg-nnz")
+    require("packed" in rop.impl_name() and "+pieces" in rop.impl_name(),
+            f"RandomImbalanced R=4 runs {rop.impl_name()}")
+    longest = int(np.bincount(ri.I, minlength=ri.n_rows).max())
+    xr = rop.make_x(xr_host)
+    tol = long_row_tol(xr, longest)
+    _, fields = check(rop, xr, xr_host, y_one, tol, "RandomImbalanced R=4")
+    comm = info["comm"]["sp"]
+    require(comm["real"] == halo_comm_volume(ri, rop.work_sharing),
+            f"RandomImbalanced comm volume {comm}")
+    yr, xo1 = torch.zeros_like(xr), one.make_x(xr_host)
+    yo1 = torch.zeros_like(xo1)
+    med, samples = time_turns({
+        "sharded": lambda: graph_ms(lambda: rop.spmv(xr, out=yr), 50),
+        "single": lambda: graph_ms(lambda: one.spmv(xo1, out=yo1), 50),
+    })
+    emit("dist_random_imbalanced", R=4, **info, **fields, tol=tol,
+         n_pieces=rop.n_pieces(), single_impl=one.impl_name(),
+         sharded_ms=med["sharded"], single_ms=med["single"], **samples,
+         card=card)
+    del ri, one, rop, xr, yr, xo1, yo1
+
+    # ---- 10c. the CLI, two processes at once, beside 10d (which times
+    # nothing on the card)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "uspmv_tpu_torch", "phase10_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    cli = [sys.executable, "-m", "uspmv_tpu_torch.cli"]
+    runs = {
+        "solve": cli + ["Laplace3D,128", "scs", "-c", "1024", "-sp",
+                        "-n_shards", "4", "-mode", "s", "-validate", "1",
+                        "-mtx_out", out_dir],
+        "bench": cli + ["Laplace3D,64", "scs", "-c", "1024", "-sp",
+                        "-n_shards", "4", "-mode", "b", "-print_comm_vol",
+                        "1", "-bench_time", "0.2", "-mtx_out", out_dir],
+    }
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 cwd=os.path.dirname(os.path.abspath(
+                                     __file__)))
+             for k, cmd in runs.items()}
+    try:
+        # ---- 10d. seg-metis against seg-nnz on Laplace3D-64
+        m64 = generators.laplace3d(64)
+        t0 = time.perf_counter()
+        seg_work_sharing(m64, 4, "seg-metis")
+        metis_s = time.perf_counter() - t0
+        x64 = rng.standard_normal(m64.n_rows)
+        ref64 = m64.to_scipy().tocsr() @ x64.astype(np.float32).astype(
+            np.float64)
+        vols = {}
+        for seg in ("seg-metis", "seg-nnz"):
+            o, build_s = build(m64, n_shards=4, seg_method=seg)
+            _, fields = check(o, o.make_x(x64), x64, ref64, TOL["sp"],
+                              f"Laplace3D-64 {seg}")
+            vols[seg] = o.comm_volume_per_spmv()["sp"]
+            emit("dist_seg", matrix="Laplace3D,64", seg=seg,
+                 build_s=build_s, comm=vols[seg],
+                 permuted=o.global_perm is not None, **fields, card=card)
+            del o
+        require(vols["seg-metis"]["real"] <= vols["seg-nnz"]["real"],
+                f"seg-metis moved more than seg-nnz: {vols}")
+        emit("dist_seg_metis", matrix="Laplace3D,64", partition_s=metis_s,
+             real_metis=vols["seg-metis"]["real"],
+             real_nnz=vols["seg-nnz"]["real"], card=card)
+
+        # the CLI's output (10c)
+        outs = {k: p.communicate(timeout=300) for k, p in procs.items()}
+    finally:  # no process outlives the phase
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for k, p in procs.items():
+        require(p.returncode == 0, f"CLI {k}: rc {p.returncode}: "
+                f"{outs[k][1][-2000:]}")
+    require("[OK]" in outs["solve"][0],
+            f"CLI solve: {outs['solve'][0][-2000:]}")
+    require("shard 3: nnz=" in outs["bench"][0]
+            and "comm volume:" in outs["bench"][0],
+            f"CLI bench: {outs['bench'][0][-2000:]}")
+    emit("dist_cli", solve=outs["solve"][0].strip().splitlines()[-3:],
+         bench=[ln for ln in outs["bench"][0].splitlines()
+                if "shard" in ln or "comm volume" in ln or "perf:" in ln],
+         card=card)
+    emit("phase10", seconds=time.perf_counter() - t_phase,
+         halo_exchange_launches=launches)
+    return launches, records
+
+
 def main():
     import torch
 
@@ -1977,6 +2386,9 @@ def main():
     # ---- 9. the last TPU kernels: x access, cost split, unit stream, sweeps
     probe_launches, probe_records = phase9(mtx, headline_ms, card)
 
+    # ---- 10. row-sharded execution: R shards on the card, halo exchange
+    dist_launches, dist_records = phase10(mtx, card)
+
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():
         rec = stream_records[(path, prec)]
@@ -2043,6 +2455,22 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_error": rec["library_error"],
             "timed_on": rec["timed_on"],
+        })
+    for entry, rec in dist_records.items():
+        require(dist_launches.get(entry, 0) > 0, f"{entry} never launched")
+        kernels.append({
+            "name": entry.replace("uspmv_", ""), "route": "cuda",
+            "source": EXCHANGE_SOURCE, "replaces": EXCHANGE_REPLACES,
+            "replaces_kind": "XLA hot path (jnp.take, ppermute, "
+                             ".at[].set), not a Pallas kernel",
+            "launches": dist_launches[entry],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_call": "index_select + index_copy_",
+            "library_error": rec["library_error"],
+            "timed_on": rec["timed_on"], "pairs": rec["pairs"],
+            "bound_bytes": rec["bound_bytes"],
         })
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

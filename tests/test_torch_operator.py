@@ -22,6 +22,7 @@ from uspmv_tpu_torch import cli
 from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.scs import scs_from_reference
 from uspmv_tpu_torch.io import generators as tgen
+from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
 from uspmv_tpu_torch.runtime.bench import bench_spmv
 from uspmv_tpu_torch.runtime.operator import (
     DeviceUnavailableError,
@@ -188,7 +189,6 @@ def test_cli_cuda_backend_without_a_card_exits_3(monkeypatch, capsys):
 
 
 UNPORTED = {
-    "shards": dict(n_shards=2),
     "bcoo": dict(impl="bcoo"),
     "xla": dict(impl="xla"),
     "no_pallas": dict(use_pallas=False),
@@ -202,8 +202,16 @@ def test_unported_configs_raise(name):
         SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
 
 
-# configurations of slices 2 and 5 that raised before they were ported
+def test_one_device_operator_refuses_shards():
+    cfg = Config(value_type="dp", backend="cpu", n_shards=2)
+    with pytest.raises(ValueError, match="DistributedSpmvOperator"):
+        SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
+
+
+# configurations of slices 2, 5 and 9 that raised before they were ported
+# (n_shards > 1 through the sharded operator)
 PORTED = {
+    "shards": dict(n_shards=2),
     "split": dict(split_rows_threshold=16),
     "mixed_tiles": dict(mixed_tiles=True),
     "ap": dict(value_type="ap[dp_sp]", ap_threshold_1=1.5),
@@ -219,7 +227,8 @@ PORTED = {
 def test_ported_configs_run(name):
     cfg = Config(**{"value_type": "dp", "backend": "cpu", **PORTED[name]})
     mtx = tgen.tridiag(10)
-    op = SpmvOperator.from_mtx(cfg, mtx)
+    op = (DistributedSpmvOperator if cfg.n_shards > 1
+          else SpmvOperator).from_mtx(cfg, mtx)
     x = np.arange(1.0, 11.0)
     if cfg.block_vec_size > 1:
         x = np.repeat(x[:, None], cfg.block_vec_size, axis=1)

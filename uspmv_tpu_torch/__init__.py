@@ -3,7 +3,9 @@
 The port of the ``uspmv_tpu`` JAX package to PyTorch with hand-written
 CUDA kernels for NVIDIA Hopper (H100). It computes y = A x and Y = A X
 (block vectors) in the SELL-C-sigma format of RRZE-HPC/Ultimate-SpMV, in
-dp, sp, hp or an adaptive dp/sp/hp split of A's nonzeros, on one device;
+dp, sp, hp or an adaptive dp/sp/hp split of A's nonzeros, on one device
+or split by rows into R shards on it, each with its own halo of remote x
+rows that an exchange kernel fills before the rows that read it run;
 rows far longer than the mean are split into pieces that a second kernel
 sums and folds back, and a layout that would be mostly padding runs as
 packed row groups instead. The JAX package remains the reference it is
@@ -28,12 +30,14 @@ from .formats.scs import (
     scs_from_reference,
 )
 from .io.mmio import read_mtx, write_mtx
+from .ops.halo_exchange import halo_exchange, halo_exchange_plain
 from .ops.scs_packed import spmv_packed, spmv_packed_plain
 from .ops.scs_pieces import spmv_pieces, spmv_pieces_plain
 from .ops.scs_solve import solve_scs, solve_scs_plain
 from .ops.scs_spmv import launch_count, spmv_scs, spmv_scs_plain
 from .precision.partition import partition_precisions
 from .runtime.operator import DeviceUnavailableError, SpmvOperator
+from .parallel.distributed import DistributedSpmvOperator
 
 __all__ = [
     "Config",
@@ -61,4 +65,7 @@ __all__ = [
     "partition_precisions",
     "DeviceUnavailableError",
     "SpmvOperator",
+    "DistributedSpmvOperator",
+    "halo_exchange",
+    "halo_exchange_plain",
 ]

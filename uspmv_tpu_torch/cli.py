@@ -10,11 +10,12 @@ parses; ``-backend`` takes cuda (default) or cpu. Bench mode (-mode b) and
 solve mode (-mode s, validated against scipy) run every precision (-dp,
 -sp, -hp, -ap[...], -dp_emu), block vectors (-block_vec_size, -layout),
 -equilibrate, -jacobi_scale, -dropout, -split_rows_threshold and
--mixed_tiles; solve mode runs
-``SpmvOperator.solve`` (one CUDA graph of the -rev launches on a GPU, the
-fused solve kernel when ``USPMV_FUSED_SOLVE`` is set and the operator is
-eligible, a loop on the CPU) and prints which one ran; a flag of a later
-slice raises
+-mixed_tiles, and row-sharded execution (-n_shards R > 1: R shards on the
+one device, -seg_method, -comm_mode, -comm_halos, -no_pack, -overlap,
+-print_comm_vol); solve mode runs the operator's ``solve`` (one CUDA graph
+of the -rev launches on a GPU, the fused solve kernel when
+``USPMV_FUSED_SOLVE`` is set and an unsharded operator is eligible, a loop
+on the CPU) and prints which one ran; a flag of a later slice raises
 NotImplementedError. With -backend cuda on a host without a GPU the
 CLI prints one line and exits with rc 3.
 """
@@ -255,7 +256,12 @@ def _main(argv=None) -> int:
     from .runtime.validate import validate_solve
 
     mtx = load_matrix(args.matrix)
-    op = SpmvOperator.from_mtx(cfg, mtx)
+    if cfg.n_shards > 1:
+        from .parallel.distributed import DistributedSpmvOperator
+
+        op = DistributedSpmvOperator.from_mtx(cfg, mtx)
+    else:
+        op = SpmvOperator.from_mtx(cfg, mtx)
 
     if cfg.mode == "b":
         res = bench_spmv(op)

@@ -113,6 +113,22 @@ class MtxData:
             is_sorted=False,
         )
 
+    def slice_rows(self, row_lo: int, row_hi: int) -> "MtxData":
+        """Rows [row_lo, row_hi) with local row indices and global column
+        indices (mpi_funcs.hpp:636-674, 862-877). Requires row-sorted
+        input."""
+        mask = (self.I >= row_lo) & (self.I < row_hi)
+        return MtxData(
+            n_rows=row_hi - row_lo,
+            n_cols=self.n_cols,
+            nnz=int(mask.sum()),
+            is_sorted=self.is_sorted,
+            is_symmetric=False,
+            I=(self.I[mask] - row_lo).astype(np.int32),
+            J=self.J[mask].astype(np.int32),
+            values=self.values[mask],
+        )
+
 
 def split_heavy_rows(
     mtx: MtxData, threshold: int

@@ -69,6 +69,17 @@ class ScsData:
         )
         return (chunk * self.C + offset % self.C).astype(np.int32)
 
+    def padding_mask(self) -> np.ndarray:
+        """True at the structural padding elements: running column
+        position j at or beyond the count of the element's row."""
+        if self.row_counts_new is None:
+            raise ValueError("row_counts_new not recorded for this ScsData")
+        per_chunk = self.chunk_lengths.astype(np.int64) * self.C
+        start = np.repeat(self.chunk_ptrs[:-1].astype(np.int64), per_chunk)
+        j = (np.arange(self.n_elements, dtype=np.int64) - start) // self.C
+        counts = self.row_counts_new.astype(np.int64)
+        return j >= counts[self.flat_row_idx()]
+
     def spmv_reference(self, x: np.ndarray) -> np.ndarray:
         """Trivially-correct host SpMV in *permuted* row order, in float64.
 

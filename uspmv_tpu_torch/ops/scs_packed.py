@@ -37,7 +37,13 @@ import torch
 
 from . import scs_spmv
 from .device_format import DevicePacked
-from .scs_spmv import MAX_VECTORS, book_launch, check_args, out_shape
+from .scs_spmv import (
+    MAX_VECTORS,
+    addressable,
+    book_launch,
+    check_args,
+    out_shape,
+)
 
 # (value dtype, x dtype) -> entry point of csrc/scs_packed.cu
 _ENTRY_POINTS = {
@@ -167,8 +173,9 @@ def spmv_packed(dev: DevicePacked, x: torch.Tensor, layout: str = "rowwise",
     if out is not None:
         y = out
     index_tensors = (dev.groups, dev.row_ptr, dev.col_idxs)
-    if not all(t.is_contiguous() for t in (*index_tensors, dev.values, x)) or (
-        y is not None and not y.is_contiguous()
+    if not all(t.is_contiguous() for t in (*index_tensors, dev.values)) or (
+        not addressable(x, layout)
+        or (y is not None and not addressable(y, layout))
     ):
         raise ValueError("spmv_packed needs contiguous tensors")
     if any(t.dtype != torch.int32 for t in index_tensors):
@@ -179,7 +186,7 @@ def spmv_packed(dev: DevicePacked, x: torch.Tensor, layout: str = "rowwise",
     if x.dim() == 1:
         strides, ncols, n_vec = (1, 0, 1, 0), 1, 1
     elif layout == "colwise":
-        strides, ncols, n_vec = (1, x.shape[1], 1, dev.n_rows_padded), 1, \
+        strides, ncols, n_vec = (1, x.stride(0), 1, y.stride(0)), 1, \
             x.shape[0]
         if n_vec > MAX_VECTORS:
             raise ValueError(

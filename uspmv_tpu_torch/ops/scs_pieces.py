@@ -40,7 +40,7 @@ import torch
 
 from . import scs_spmv
 from .device_format import DevicePieces
-from .scs_spmv import MAX_VECTORS, book_launch, check_args
+from .scs_spmv import MAX_VECTORS, addressable, book_launch, check_args
 
 # (value dtype, x dtype) -> entry point of csrc/scs_pieces.cu
 _ENTRY_POINTS = {
@@ -139,7 +139,8 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
     index_tensors = (dev.piece_ptr, dev.parent_ptr, dev.parent_row,
                      dev.col_idxs, dev.records, dev.longs, dev.arrivals)
     if not all(t.is_contiguous()
-               for t in (*index_tensors, dev.values, dev.slots, x, y)):
+               for t in (*index_tensors, dev.values, dev.slots)) or not (
+            addressable(x, layout) and addressable(y, layout)):
         raise ValueError("spmv_pieces needs contiguous tensors")
     if any(t.dtype != torch.int32 for t in index_tensors):
         raise TypeError("piece_ptr, parent_ptr, parent_row, col_idxs, "
@@ -147,7 +148,7 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
     if x.dim() == 1:
         x_ld, vstride, n_vec = 1, 0, 1
     elif layout == "colwise":
-        x_ld, vstride, n_vec = 1, x.shape[1], x.shape[0]
+        x_ld, vstride, n_vec = 1, x.stride(0), x.shape[0]
     else:
         x_ld, vstride, n_vec = x.shape[1], 1, x.shape[1]
     if n_vec > MAX_VECTORS:
@@ -167,7 +168,7 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
             f"int64 and ({n_vec}, {n_long}) (build_device_pieces: n_vec, "
             "acc_dtype)"
         )
-    y_vstride = dev.n_rows_padded if layout == "colwise" and x.dim() == 2 \
+    y_vstride = y.stride(0) if layout == "colwise" and x.dim() == 2 \
         else vstride
     lib = _kernel_lib()
     with torch.cuda.device(x.device):

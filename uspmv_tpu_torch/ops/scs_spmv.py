@@ -19,7 +19,8 @@ takes f32 x and runs the kernel's unit-value entry, the counterpart of the
 x layouts (ops/vectors.py): one vector [n_pad]; rowwise block vectors
 [n_pad, bs], for which one launch streams the matrix once for up to 8
 columns (bs > 8 in passes of <= 8 columns); colwise block vectors
-[bs, n_pad], one launch with one matrix pass per vector.
+[bs, n_pad], one launch with one matrix pass per vector. A colwise x or y
+may be a view whose vectors are each contiguous (``addressable``).
 """
 
 from __future__ import annotations
@@ -176,6 +177,16 @@ def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
     return (x.shape[0], dev.n_rows_padded)
 
 
+def addressable(t: torch.Tensor, layout: str) -> bool:
+    """Whether the kernels can address vector block ``t``: contiguous, or
+    colwise [bs, n] with each vector contiguous (a view into a larger
+    buffer, as one shard's part of the stacked x of a sharded operator);
+    they take the stride between vectors from ``t.stride(0)``."""
+    if t.dim() == 2 and layout == "colwise":
+        return t.stride(1) == 1
+    return t.is_contiguous()
+
+
 def check_args(dev, x: torch.Tensor, layout: str,
                y: Optional[torch.Tensor]) -> None:
     """Shapes, dtypes and devices of one product with any device stream
@@ -268,13 +279,13 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
         return spmv_scs_plain(dev, x, layout, y)
     if x.device.type != "cuda":
         raise ValueError(f"spmv_scs runs on cuda or cpu tensors, not {x.device}")
-    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values, x)
+    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values)
     accumulate = y is not None
     if out is not None:
         y = out
-    if not all(t.is_contiguous() for t in tensors) or (
-        y is not None and not y.is_contiguous()
-    ):
+    if not all(t.is_contiguous() for t in tensors) or not addressable(
+        x, layout
+    ) or (y is not None and not addressable(y, layout)):
         raise ValueError("spmv_scs needs contiguous tensors")
     if not (dev.chunk_ptrs.dtype == dev.chunk_lengths.dtype
             == dev.col_idxs.dtype == torch.int32):
@@ -296,9 +307,8 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
                     f"colwise block vectors take at most {MAX_VECTORS} "
                     f"vectors in one launch, not {bs}"
                 )
-            _launch(lib, name, dev, x.data_ptr(), 1, x.shape[1],
-                    y.data_ptr(), 1, dev.n_rows_padded, 1, bs, accumulate,
-                    stream)
+            _launch(lib, name, dev, x.data_ptr(), 1, x.stride(0),
+                    y.data_ptr(), 1, y.stride(0), 1, bs, accumulate, stream)
         else:
             bs = x.shape[1]
             for c0 in range(0, bs, MAX_COLS_PER_PASS):

@@ -17,6 +17,10 @@ around its launches; on the CPU with ``time.perf_counter``. Eager PyTorch
 launches every SpMV it is asked for and cannot hoist a loop-invariant one,
 so the JAX harness's loop-carried epsilon (its ``_make_runner``, and the
 ``eps`` of its ``bench_solve``) has no counterpart here.
+
+Both take an ``SpmvOperator`` or a sharded ``DistributedSpmvOperator``
+(parallel/distributed.py); for the latter the result also carries the halo
+elements received per SpMV, in all and per shard.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .operator import SpmvOperator
+from .operator import OperatorBase
 
 WARM_UP_REPS = 100  # reference main.cpp:22
 
@@ -64,12 +68,17 @@ class BenchResult:
     nnz_in_pieces: int = 0
     # final-batch timing samples (median is duration_kernel_s)
     timing_samples_s: Optional[list] = None
+    # sharded operators: halo elements received per SpMV (all precisions),
+    # per shard {shard, nnz, gflops, halo_elems_recv}, and per host
+    comm_volume_elems: int = 0
+    per_shard: Optional[list] = None
+    comm_volume_per_host: Optional[dict] = None
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
 
-def _time_batch(op: SpmvOperator, x: torch.Tensor, n: int,
+def _time_batch(op: OperatorBase, x: torch.Tensor, n: int,
                 call=None) -> float:
     """Seconds for n calls of ``call(x)`` (default: one SpMV), measured on
     the device's own clock."""
@@ -90,7 +99,7 @@ def _time_batch(op: SpmvOperator, x: torch.Tensor, n: int,
 
 
 def bench_spmv(
-    op: SpmvOperator,
+    op: OperatorBase,
     x: Optional[torch.Tensor] = None,
     bench_time: Optional[float] = None,
     warmup: int = WARM_UP_REPS,
@@ -118,7 +127,7 @@ def bench_spmv(
 
 
 def bench_solve(
-    op: SpmvOperator,
+    op: OperatorBase,
     n_repetitions: int,
     x: Optional[torch.Tensor] = None,
     bench_time: Optional[float] = None,
@@ -161,7 +170,7 @@ def bench_solve(
                    f"solve-{name}[{op.impl_name()}]")
 
 
-def _result(op: SpmvOperator, n_iter: int, samples: list, t_total: float,
+def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
             impl: str) -> BenchResult:
     """The record of n_iter SpMVs whose final batches took ``samples``."""
     elapsed = float(np.median(samples))
@@ -172,6 +181,17 @@ def _result(op: SpmvOperator, n_iter: int, samples: list, t_total: float,
         device_name = torch.cuda.get_device_name(op.device)
     else:
         device_name = "cpu"
+    comm_elems, per_shard, per_host = 0, None, None
+    if hasattr(op, "comm_volume_per_spmv"):
+        comm = op.comm_volume_per_spmv()
+        comm_elems = sum(v["real"] for v in comm.values())
+        halo = np.sum([v["per_shard"] for v in comm.values()], axis=0)
+        per_shard = [
+            {"shard": r, "nnz": int(nz),
+             "gflops": 2.0 * nz * bs * n_iter / elapsed / 1e9,
+             "halo_elems_recv": int(halo[r])}
+            for r, nz in enumerate(op.per_shard_nnz())]
+        per_host = op.comm_volume_per_host()
     return BenchResult(
         perf_gflops=gflops,
         effective_gbps=gbps,
@@ -197,4 +217,7 @@ def _result(op: SpmvOperator, n_iter: int, samples: list, t_total: float,
         n_pieces=op.n_pieces(),
         nnz_in_pieces=op.nnz_in_pieces(),
         timing_samples_s=[float(s) for s in samples],
+        comm_volume_elems=comm_elems,
+        per_shard=per_shard,
+        comm_volume_per_host=per_host,
     )

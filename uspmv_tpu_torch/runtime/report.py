@@ -58,12 +58,38 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
     if cfg.is_ap or cfg.dropout:
         # reference main.cpp:895-905 prints the per-precision split
         lines.append(f"  n_dropped={res.n_dropped}")
+    if res.comm_volume_elems:
+        lines.append(f"comm volume: {res.comm_volume_elems} halo elems/SpMV")
+    if cfg.comm_mode in ("singlevec", "multivec"):
+        lines.append(
+            f"note: comm_mode={cfg.comm_mode}: the shards share one device, "
+            "so the reference's message-batching modes (MPI_MODE, "
+            "Makefile:199-218) are one exchange launch per precision and "
+            "SpMV, which carries every vector of a block"
+        )
     if cfg.block_vec_size > 1 and cfg.vector_layout == "colwise":
         lines.append(
             f"note: colwise SpMMV streams the matrix once per vector "
             f"({cfg.block_vec_size} passes); -layout rowwise streams it once "
             "for up to 8 vectors"
         )
+    if cfg.comm_mode == "graphtopo":
+        lines.append(
+            "note: comm_mode=graphtopo: the reference's "
+            "MPI_Neighbor_alltoallv graph topology (Makefile:199-218) is "
+            "the static exchange plan itself (only the shard pairs that "
+            "share halo rows are in it), so this mode runs the bulkvec "
+            "exchange"
+        )
+    if res.per_shard and (cfg.verbose or cfg.print_comm_vol):
+        # reference -verbose/-print_comm_vol per-rank block
+        # (main.cpp:833-890, write_results.hpp:141-154)
+        for sh in res.per_shard:
+            lines.append(
+                f"  shard {sh['shard']}: nnz={sh['nnz']} "
+                f"gflops={sh['gflops']:.3f} "
+                f"halo_elems_recv={sh['halo_elems_recv']}"
+            )
     lines.append("")
     return "\n".join(lines)
 

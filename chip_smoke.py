@@ -151,7 +151,32 @@ nvidia-smi. Phases, each printing JSON lines:
         which run beside d;
      d. seg-metis against seg-nnz on Laplace3D-64: the partition's host
         seconds, both comm volumes (seg-metis must not move more), y
-        against scipy.
+        against scipy;
+ 11. the auxiliaries (slice 10), each driven through its entry point:
+     a. ScaMaC's Hubbard chain (n_sites=13, n_fermions=6, U=1.3: 2.9 M
+        rows, 41 M nnz) and StokesSaddle-64 (1.0 M rows, 27 M nnz),
+        generated by the port, through the main path at sp, C=1024,
+        sigma=1, default tiers (from_mtx, a solve of 1 repetition validated
+        per element, bench_spmv 0.3 s; launch counts set to 0 before and
+        read after); op.spmv against its plain version and scipy; the other
+        tier and BcooSpmvOperator (cuSPARSE) against op.spmv; op.spmv and
+        the other tier by replayed CUDA graphs and cuSPARSE by CUDA events,
+        in turns, beside the byte bound;
+     b, c. the CLI on the headline: -impl bcoo sp and hp, -impl xla sp
+        (validated solves of 5 repetitions, and bench mode), beside the
+        kernel path's bench;
+     d. the CLI's -matrix_stats, -output_sparsity (split rows; the file
+        read back equals the matrix's nonzeros as a set) and -debug 1 on a
+        small Hubbard chain, and -log_prof on the headline bench: the
+        Chrome trace must hold the spmv_scs_benchmark range and the SELL
+        kernel's own name (CUPTI records kernels launched through ctypes),
+        and the bench with and without the profiler gives its cost;
+     e. the native host library (g++, native/uspmv_host.cpp): read_mtx of
+        a written Laplace3D-64 and convert_to_scs of the headline against
+        the Python paths, bit-equal, with the seconds of each and of
+        from_mtx with the native path on and off;
+     f. the scripts check_dp_emu and validate_campaign --quick on the card
+        (every campaign run on cuda-* or cusparse-*), their rows read back.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
 GB/s, or flops over the peak of its type if larger; for the fused solve the
@@ -175,6 +200,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 TOL = {"sp": 1e-5, "dp": 1e-12}
@@ -358,13 +384,13 @@ def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
 def library_csr_call(rows, cols, vals, n, x, want, tol):
     """``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) for the n x n matrix
     of the given triples (device tensors, in the index space of x, int32
-    indices in the CSR), values widened to x's dtype unless they are bf16;
-    its result must agree with ``want``. Returns (the call, None), or
+    indices in the CSR), values widened to x's dtype (bf16 values too, the
+    rule of ops/spmv_bcoo.py: cuSPARSE takes no bf16 matrix with an f32
+    x); its result must agree with ``want``. Returns (the call, None), or
     (None, error text) where PyTorch has no CSR product for the dtypes."""
     import torch
 
-    if vals.dtype != torch.bfloat16:
-        vals = vals.to(x.dtype)
+    vals = vals.to(x.dtype)
     try:
         A = torch.sparse_coo_tensor(
             torch.stack([rows.long(), cols.long()]), vals,
@@ -2162,6 +2188,433 @@ def phase10(mtx, card):
     return launches, records
 
 
+AUX_MATRICES = ("Hubbard,n_sites=13,n_fermions=6,U=1.3", "StokesSaddle,64")
+AUX_SMALL = "Hubbard,n_sites=8,n_fermions=4,U=1.3"
+AUX_DIR = os.path.join("build", "uspmv_tpu_torch", "chip_smoke_aux")
+SELL_KERNEL = "scs_spmv_kernel"  # the SELL-C-sigma kernel of KERNEL_SOURCE
+
+
+def cli_run(argv):
+    """``uspmv_tpu_torch.cli.main(argv)`` with its standard output caught:
+    (rc, the output, the JSON object of its last line or None)."""
+    import contextlib
+    import io
+
+    from uspmv_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    text = buf.getvalue()
+    lines = text.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        last = None
+    return rc, text, last
+
+
+def cli_solve(argv, what):
+    """A validated solve through the CLI (-json): its rc must be 0 and its
+    flag OK. Returns (validation summary fields, impl)."""
+    rc, text, last = cli_run([*argv, "-mode", "s", "-validate", "1",
+                              "-json"])
+    require(rc == 0 and last is not None
+            and last["validation"]["flag"] == "OK",
+            f"{what}: rc {rc}, {text[-600:]}")
+    return last["validation"], last["impl"]
+
+
+def cli_bench(argv, what):
+    """Bench mode through the CLI (-json): the BenchResult's fields."""
+    rc, text, last = cli_run([*argv, "-mode", "b", "-json"])
+    require(rc == 0 and last is not None and last["perf_gflops"] > 0,
+            f"{what}: rc {rc}, {text[-600:]}")
+    return last
+
+
+def aux_matrix(spec, card, rng):
+    """Phase 11a: one generated matrix of the ScaMaC or Stokes class through
+    the main path at sp, C=1024, sigma=1, default tiers: driven as a user
+    would (from_mtx, a solve of 1 repetition validated per element, 0.3 s
+    of bench_spmv) with the launch counts set to 0 before and read after;
+    then op.spmv against its plain version and scipy, the other tier and
+    BcooSpmvOperator (cuSPARSE) against it, and the three timed in turns:
+    op.spmv and the other tier by replayed CUDA graphs, cuSPARSE by CUDA
+    events. Returns the record."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.config import dtype_for
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
+    from uspmv_tpu_torch.runtime.bench import bench_spmv
+
+    what = f"11a {spec}"
+    t0 = time.perf_counter()
+    mtx = generate_matrix(spec)
+    gen_s = time.perf_counter() - t0
+    counts = np.bincount(mtx.I, minlength=mtx.n_rows)
+    cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
+                 value_type="sp", backend="cuda")
+    reset_tier_launch_counts()
+    t0 = time.perf_counter()
+    op = SpmvOperator.from_mtx(cfg, mtx)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rep, rep_l2 = validated_solve(op, mtx, 1, what)
+    res = bench_spmv(op, bench_time=0.3)
+    launches = {k: v for k, v in tier_launch_counts().items() if v}
+    require(sum(launches.values()) >= res.n_iterations * len(op.devs),
+            f"{what}: {launches} launches for {res.n_iterations} iterations")
+
+    x_host = rng.standard_normal(mtx.n_rows)
+    x = op.make_x(x_host)
+    y = op.spmv(x)
+    tol = long_row_tol(x, float(counts.max()))
+    max_abs, rel = compare(y, plain_spmv(op, x), tol, what)
+    rel_scipy = vs_scipy(op, mtx, x_host, y, tol, what)
+    y_host = torch.from_numpy(op.to_host(y))
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        other = SpmvOperator.from_mtx(
+            dataclasses.replace(cfg, mixed_tiles=not op.is_packed()), mtx)
+    other_build_s = time.perf_counter() - t0
+    x_o = other.make_x(x_host)
+    compare(torch.from_numpy(other.to_host(other.spmv(x_o))), y_host, tol,
+            f"{what}: the other tier against op.spmv")
+    t0 = time.perf_counter()
+    bop = BcooSpmvOperator.from_mtx(dataclasses.replace(cfg, impl="bcoo"),
+                                    mtx)
+    torch.cuda.synchronize()
+    bcoo_build_s = time.perf_counter() - t0
+    x_b = bop.make_x(x_host)
+    compare(torch.from_numpy(bop.to_host(bop.spmv(x_b))), y_host, tol,
+            f"{what}: cuSPARSE against op.spmv")
+
+    out, out_o = torch.empty_like(x), torch.empty_like(x_o)
+    reps = 50
+    med, fields = time_turns({
+        "kernel": lambda: graph_ms(lambda: op.spmv(x, out=out), reps),
+        "other_tier": lambda: graph_ms(lambda: other.spmv(x_o, out=out_o),
+                                       reps),
+        "cusparse": lambda: time_ms(lambda: bop.spmv(x_b), reps),
+    })
+    # bound: the function's own bytes, each stored nonzero's value and
+    # int32 column, x and y once; moved: what the tier streams, padding
+    # included (bytes_per_spmv)
+    flops, nbytes = op.flops_per_spmv(), op.bytes_per_spmv()
+    val_b = torch.empty((), dtype=dtype_for(cfg.value_type)).element_size()
+    fn_bytes = (mtx.nnz * (val_b + 4)
+                + (mtx.n_rows + mtx.n_cols) * x.element_size())
+    b_ms, b_by = bound(fn_bytes, flops, x.dtype)
+    ms = med["kernel"]
+    rec = dict(
+        matrix=spec, n_rows=mtx.n_rows, nnz=mtx.nnz,
+        min_row_nnz=int(counts.min()), max_row_nnz=int(counts.max()),
+        mean_row_nnz=float(counts.mean()), generate_s=gen_s,
+        operator_build_s=build_s, tier=op.impl_name(),
+        beta=op.beta()["sp"], device_beta=op.device_beta()["sp"],
+        split_rows_threshold=op.split_threshold, n_pieces=op.n_pieces(),
+        validation=rep.summary(), validation_l2=rep_l2.summary(),
+        bench_gflops=res.perf_gflops, bench_gbps=res.effective_gbps,
+        n_iterations=res.n_iterations, main_path_launches=launches,
+        max_abs_err=max_abs, rel_err=rel, rel_err_vs_scipy=rel_scipy,
+        tol=tol, spmv_graph_ms=ms, gflops=flops / ms / 1e6,
+        gbps=nbytes / ms / 1e6, moved_bytes=nbytes, bound_bytes=fn_bytes,
+        bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+        moved_share=nbytes / HBM_BYTES_PER_S * 1e3 / ms,
+        other_tier=other.impl_name(), other_tier_build_s=other_build_s,
+        other_tier_graph_ms=med["other_tier"],
+        other_tier_bytes_per_spmv=other.bytes_per_spmv(),
+        cusparse_ms=med["cusparse"], cusparse_build_s=bcoo_build_s,
+        cusparse_impl=bop.impl_name(), **fields, card=card)
+    del op, other, bop, mtx
+    torch.cuda.empty_cache()
+    return rec
+
+
+def read_coo_set(path):
+    """The (row, col, value) triples of an .mtx file, sorted, as arrays."""
+    import numpy as np
+
+    from uspmv_tpu_torch.io.mmio import read_mtx
+
+    m = read_mtx(path, native=False)
+    order = np.lexsort((m.values, m.J, m.I))
+    return m.I[order], m.J[order], m.values[order]
+
+
+def aux_flags(card):
+    """Phase 11d: -matrix_stats, -output_sparsity (split rows: the pieces
+    folded back) and -debug 1 on a small Hubbard matrix; -log_prof on the
+    headline's bench, whose trace must hold the marker and the SELL
+    kernel's own name, with the profiler's cost against a bench without
+    it."""
+    import glob
+
+    import numpy as np
+
+    from uspmv_tpu_torch.config import host_values
+    from uspmv_tpu_torch.formats.stats import get_matrix_stats
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops import scs_spmv
+    from uspmv_tpu_torch.runtime import profiling
+
+    rec = {}
+    small = generate_matrix(AUX_SMALL)
+    rc, text, _ = cli_run([AUX_SMALL, "scs", "-matrix_stats"])
+    require(rc == 0 and text.strip() == get_matrix_stats(small).summary(),
+            f"-matrix_stats: rc {rc}, {text[-400:]}")
+    rec["matrix_stats"] = text.strip().splitlines()
+
+    out_dir = os.path.join(AUX_DIR, "sparsity")
+    os.makedirs(out_dir, exist_ok=True)
+    for f in glob.glob(os.path.join(out_dir, "*.mtx")):
+        os.remove(f)
+    rc, text, _ = cli_run([AUX_SMALL, "scs", "-c", "32", "-s", "64", "-sp",
+                           "-split_rows_threshold", "4", "-output_sparsity",
+                           "-mtx_out", out_dir])
+    path = os.path.join(out_dir, "sp_local_scs.mtx")
+    require(rc == 0 and os.path.exists(path), f"-output_sparsity: rc {rc}")
+    vals = host_values(small.values, "sp")
+    keep = vals != 0
+    order = np.lexsort((vals[keep], small.J[keep], small.I[keep]))
+    want = (small.I[keep][order], small.J[keep][order], vals[keep][order])
+    got = read_coo_set(path)
+    # the file prints the f32 values to 16 digits: equal once rounded back
+    got = (got[0], got[1], got[2].astype(np.float32))
+    require(all(np.array_equal(a, b) for a, b in zip(got, want)),
+            "-output_sparsity: the file is not the matrix's nonzeros")
+    rec["output_sparsity"] = dict(file=path, nnz=int(got[0].size),
+                                  equal_as_set=True)
+
+    rc, text, _ = cli_run([AUX_SMALL, "scs", "-c", "32", "-sp", "-mode", "s",
+                           "-rev", "2", "-debug", "1", "-mtx_out", AUX_DIR])
+    dump = os.path.join(AUX_DIR, "uspmv_debug_rank0.log")
+    require(rc == 0 and "[debug] sanity dumps" in text
+            and os.path.exists(dump), f"-debug 1: rc {rc}, {text[-400:]}")
+    with open(dump) as f:
+        lines = f.read().splitlines()
+    require(any("before_solve.x" in ln for ln in lines)
+            and any("after_solve.y" in ln for ln in lines),
+            f"-debug 1: dump {lines[:4]}")
+    rec["debug"] = dict(dump=dump, lines=len(lines), check_finite="passed")
+
+    head = ["Laplace3D,128", "scs", "-c", "1024", "-s", "1", "-sp",
+            "-bench_time", "0.2", "-mtx_out", AUX_DIR]
+    prof_dir = os.path.join(AUX_DIR, "prof")
+    off = cli_bench(head, "-log_prof off")
+    n0 = scs_spmv.launch_count()
+    on = cli_bench([*head, "-log_prof", prof_dir], "-log_prof on")
+    launched = scs_spmv.launch_count() - n0
+    trace = profiling.last_trace_path()
+    require(trace is not None and os.path.exists(trace),
+            f"-log_prof: no trace in {prof_dir}")
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    marker = [e for e in events if e.get("name") == "spmv_scs_benchmark"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and SELL_KERNEL in e.get("name", "")]
+    require(marker, "-log_prof: the trace holds no spmv_scs_benchmark range")
+    require(kernels, f"-log_prof: the trace names no {SELL_KERNEL} (CUPTI "
+            "did not record the kernel launched through ctypes)")
+    dur = [e["dur"] for e in kernels if "dur" in e]
+    rec["log_prof"] = dict(
+        trace=trace, trace_bytes=os.path.getsize(trace),
+        events=len(events), marker_ranges=len(marker),
+        sell_kernel_events=len(kernels), sell_kernel_launches=launched,
+        sell_kernel_name=kernels[0]["name"],
+        sell_kernel_median_us=float(np.median(dur)) if dur else None,
+        gflops_off=off["perf_gflops"], gflops_on=on["perf_gflops"],
+        profiler_cost=off["perf_gflops"] / on["perf_gflops"] - 1.0,
+        n_iterations_off=off["n_iterations"],
+        n_iterations_on=on["n_iterations"])
+    os.remove(trace)
+    rec["card"] = card
+    return rec
+
+
+def aux_native(mtx, card):
+    """Phase 11e: the native host library against the Python paths:
+    read_mtx of a written Laplace3D-64 and convert_to_scs of the headline,
+    bit-equal, with the seconds of each; from_mtx of the headline with the
+    native path on and off."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator, native
+    from uspmv_tpu_torch.config import host_values
+    from uspmv_tpu_torch.formats.scs import convert_to_scs
+    from uspmv_tpu_torch.io.generators import laplace3d
+    from uspmv_tpu_torch.io.mmio import read_mtx, write_mtx
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    def same(a, b, what):
+        for k, v in dataclasses.asdict(a).items():
+            w = getattr(b, k)
+            if isinstance(v, np.ndarray):
+                ok = v.dtype == w.dtype and np.array_equal(v, w)
+            else:
+                ok = v == w
+            require(ok, f"{what}: native and Python differ in {k}")
+
+    _, lib_s = timed(lambda: native.load(required=True))
+    path = os.path.join(AUX_DIR, "laplace3d_64.mtx")
+    m64 = laplace3d(64)
+    _, write_s = timed(lambda: write_mtx(path, m64))
+    a, read_native_s = timed(lambda: read_mtx(path, native=True))
+    b, read_python_s = timed(lambda: read_mtx(path, native=False))
+    same(a, b, "read_mtx")
+    os.remove(path)
+    sp = dataclasses.replace(mtx, values=host_values(mtx.values, "sp"))
+    a, conv_native_s = timed(lambda: convert_to_scs(sp, 1024, 1, native=True))
+    b, conv_python_s = timed(lambda: convert_to_scs(sp, 1024, 1,
+                                                    native=False))
+    same(a, b, "convert_to_scs")
+    del a, b
+    cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
+                 value_type="sp", backend="cuda")
+    build = {}
+    for label in ("native", "python", "native_again"):
+        if label == "python":
+            os.environ["USPMV_DISABLE_NATIVE"] = "1"
+        try:
+            def run():
+                op = SpmvOperator.from_mtx(cfg, mtx)
+                torch.cuda.synchronize()
+                return op
+            _, build[label] = timed(run)
+        finally:
+            os.environ.pop("USPMV_DISABLE_NATIVE", None)
+    torch.cuda.empty_cache()
+    return dict(library=str(native.library_path()), load_s=lib_s,
+                mtx_rows=m64.n_rows, mtx_nnz=m64.nnz, write_mtx_s=write_s,
+                read_native_s=read_native_s, read_python_s=read_python_s,
+                convert_native_s=conv_native_s,
+                convert_python_s=conv_python_s,
+                from_mtx_native_s=build["native"],
+                from_mtx_python_s=build["python"],
+                from_mtx_native_again_s=build["native_again"],
+                bit_equal=True, card=card)
+
+
+def aux_scripts(card):
+    """Phase 11f: check_dp_emu and validate_campaign --quick on the card,
+    through their entry points, their rows read back."""
+    from uspmv_tpu_torch.scripts import check_dp_emu, validate_campaign
+
+    rec = {}
+    for name, mod, argv in (
+            ("check_dp_emu", check_dp_emu, ["--bench_time", "0.3"]),
+            ("validate_campaign", validate_campaign, ["--quick"])):
+        out = os.path.join(AUX_DIR, f"{name}.jsonl")
+        if os.path.exists(out):
+            os.remove(out)
+        t0 = time.perf_counter()
+        rc, text = _script_run(mod, [*argv, "--backend", "cuda",
+                                     "--out", out])
+        seconds = time.perf_counter() - t0
+        with open(out) as f:
+            rows = [json.loads(ln) for ln in f]
+        require(rc == 0 and rows, f"{name}: rc {rc}, {text[-800:]}")
+        rec[name] = dict(seconds=seconds, rows=len(rows))
+        if name == "check_dp_emu":
+            rec[name]["results"] = rows
+        else:
+            rec[name]["failures"] = sum(r["rc"] != 0 for r in rows)
+            require(rec[name]["failures"] == 0, f"{name}: failures")
+            # every run on the card: the kernels or the vendor comparison
+            on_card = [r for r in rows if r["impl"] and (
+                "[cuda-" in r["impl"] or "[cusparse-" in r["impl"])]
+            require(len(on_card) == len(rows),
+                    f"{name}: {len(rows) - len(on_card)} runs off the card")
+            rec[name]["impls"] = sorted({r["impl"] for r in rows})
+    rec["card"] = card
+    return rec
+
+
+def _script_run(mod, argv):
+    """An entry point's main(argv) with its standard output caught."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(argv)
+    return rc, buf.getvalue()
+
+
+def phase11(mtx, card):
+    """Phase 11: the auxiliaries on the card. ``mtx`` is the headline's
+    Laplace3D-128. Returns the SpMV wrappers' launches of the driven runs
+    of 11a."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    os.makedirs(AUX_DIR, exist_ok=True)
+    rng = np.random.default_rng(11)
+    launches = {}
+    # a. ScaMaC's Hubbard and the Stokes saddle point through the main path
+    for spec in AUX_MATRICES:
+        rec = aux_matrix(spec, card, rng)
+        for k, v in rec["main_path_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        emit("aux_matrix", **rec)
+    # b, c. -impl bcoo (cuSPARSE) and -impl xla (the plain path) through
+    # the CLI on the headline, beside the kernel path
+    head = ["Laplace3D,128", "scs", "-c", "1024", "-s", "1", "-mtx_out",
+            AUX_DIR]
+    rows = []
+    for label, flags in (("kernels", ["-sp"]),
+                         ("bcoo sp", ["-sp", "-impl", "bcoo"]),
+                         ("bcoo hp", ["-hp", "-impl", "bcoo"]),
+                         ("xla sp", ["-sp", "-impl", "xla"])):
+        row = dict(run=label)
+        if label != "kernels":
+            val, impl = cli_solve([*head, *flags, "-rev", "5"],
+                                  f"11b/c {label} solve")
+            row.update(solve_impl=impl, validation=val["flag"],
+                       max_rel=val["max_rel_diff"])
+        res = cli_bench([*head, *flags, "-bench_time", "0.3"],
+                        f"11b/c {label} bench")
+        row.update(impl=res["impl"], gflops=res["perf_gflops"],
+                   gbps=res["effective_gbps"],
+                   bytes_per_spmv=res["memory_footprint_bytes"],
+                   ms_per_spmv=res["duration_kernel_s"]
+                   / res["n_iterations"] * 1e3)
+        rows.append(row)
+    want = {"kernels": "cuda-scs-sp", "bcoo sp": "cusparse-csr-sp",
+            "bcoo hp": "cusparse-csr-hp", "xla sp": "torch-plain-scs-sp"}
+    for row in rows:
+        require(row["impl"] == want[row["run"]],
+                f"11b/c {row['run']}: ran {row['impl']}")
+    emit("aux_impls", matrix="Laplace3D,128", runs=rows, card=card)
+    torch.cuda.empty_cache()
+    # d. the flags
+    emit("aux_flags", **aux_flags(card))
+    # e. the native host library
+    emit("aux_native", **aux_native(mtx, card))
+    # f. the scripts
+    emit("aux_scripts", **aux_scripts(card))
+    emit("phase11", seconds=time.perf_counter() - t_phase,
+         main_path_launches=launches)
+    return launches
+
+
 def main():
     import torch
 
@@ -2171,7 +2624,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
-    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch import Config, SpmvOperator, native
     from uspmv_tpu_torch.io.generators import (
         generate_matrix,
         laplace3d,
@@ -2197,11 +2650,18 @@ def main():
          nvcc=nvcc_version, device=kind,
          device_count=torch.cuda.device_count(), card=card)
 
+    # the native host library (g++) builds while nvcc builds the kernels;
+    # whether the default ingest runs native is part of every set-up time
+    host_lib = threading.Thread(target=native.available)
+    host_lib.start()
     lib = _build.load_library()
+    host_lib.join()
     emit("build", seconds=lib.build_seconds, built=lib.built,
          library=str(lib.path),
          ptxas=[ln.strip() for ln in lib.log.splitlines()
-                if "registers" in ln or "Compiling entry" in ln])
+                if "registers" in ln or "Compiling entry" in ln],
+         native_host_library=native.available(),
+         native_error=native._error)
     # registers and local memory (spills) of the row-sum kernels
     resources = [r for r in _build.kernel_resources(lib.path)
                  if any(k in r["function"] for k in ROW_SUM_KERNELS)]
@@ -2388,6 +2848,9 @@ def main():
 
     # ---- 10. row-sharded execution: R shards on the card, halo exchange
     dist_launches, dist_records = phase10(mtx, card)
+
+    # ---- 11. the auxiliaries: ScaMaC/Stokes, bcoo, xla, flags, native
+    phase11(mtx, card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():

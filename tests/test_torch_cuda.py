@@ -1013,3 +1013,90 @@ def test_sharded_backend_cuda_without_a_gpu_raises(cuda, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailableError):
         sharded(laplace2d(16), cuda)
+
+
+# ------------------------------------------------ slice 10: the auxiliaries
+
+@pytest.mark.parametrize("value_type", ["sp", "hp"])
+def test_bcoo_matches_the_kernel_path(cuda, value_type):
+    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
+
+    mtx = random_banded(20_000, 40, 9)
+    kw = dict(kernel_format="scs", chunk_size=32, sigma=64,
+              value_type=value_type, backend="cuda")
+    op = SpmvOperator.from_mtx(Config(**kw), mtx)
+    bop = BcooSpmvOperator.from_mtx(Config(impl="bcoo", **kw), mtx)
+    assert bop.impl_name() == f"cusparse-csr-{value_type}"
+    assert bop.devs[value_type].mat.device.type == "cuda"
+    x = np.random.default_rng(6).standard_normal(mtx.n_rows)
+    y = op.to_host(op.spmv(op.make_x(x)))
+    yb = bop.to_host(bop.spmv(bop.make_x(x)))
+    # the same stored values (hp: bf16-rounded, widened), f32 sums
+    assert np.abs(yb - y).max() <= 1e-5 * np.abs(y).max()
+    _, ys = bop.solve(bop.make_x(x * 0.01), 3)
+    assert torch.isfinite(ys).all()
+
+
+def test_xla_route_runs_the_plain_path_on_the_card(cuda):
+    mtx = laplace2d(120)
+    kw = dict(kernel_format="scs", chunk_size=32, sigma=1, value_type="sp",
+              backend="cuda")
+    op = SpmvOperator.from_mtx(Config(impl="xla", **kw), mtx)
+    ref = SpmvOperator.from_mtx(Config(**kw), mtx)
+    assert op.impl_name() == "torch-plain-scs-sp"
+    assert ref.impl_name() == "cuda-scs-sp"
+    x = op.make_x(np.random.default_rng(7).standard_normal(mtx.n_rows))
+    assert x.device.type == "cuda"
+    n0 = launch_count()
+    y = op.spmv(x)
+    torch.cuda.synchronize()
+    assert launch_count() == n0  # no kernel of this package launched
+    y_ref = ref.spmv(x)
+    assert (y - y_ref).abs().max().item() <= 1e-5 * y_ref.abs().max().item()
+    # solve: the default on the card is one CUDA graph of the plain ops
+    assert op.solve_impl_name(4) == "graph"
+    xs = x * 0.1
+    _, y_graph = op.solve(xs, 4)
+    _, y_loop = op.solve(xs, 4, impl="loop")
+    assert (y_graph - y_loop).abs().max().item() <= \
+        1e-5 * y_loop.abs().max().item()
+
+
+def test_log_prof_trace_names_the_sell_kernel(cuda, tmp_path, capsys):
+    import json
+
+    from uspmv_tpu_torch import cli
+    from uspmv_tpu_torch.runtime import profiling
+
+    rc = cli.main(["Laplace3D,32", "scs", "-c", "1024", "-s", "1", "-sp",
+                   "-mixed_tiles", "0", "-mode", "b", "-bench_time", "0.01",
+                   "-log_prof", str(tmp_path / "prof"),
+                   "-mtx_out", str(tmp_path)])
+    assert rc == 0
+    path = profiling.last_trace_path()
+    assert path.startswith(str(tmp_path / "prof"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "spmv_scs_benchmark" for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert any("scs_spmv_kernel" in e.get("name", "") for e in kernels)
+
+
+def test_hubbard_through_the_default_tiers_matches_scipy(cuda):
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces
+
+    mtx = generate_matrix("Hubbard,n_sites=8,n_fermions=4,U=1.3")
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=1024, sigma=1,
+               value_type="sp", backend="cuda"), mtx)
+    assert op.impl_name().startswith("cuda-")
+    x = np.random.default_rng(8).standard_normal(mtx.n_rows)
+    n0 = (launch_count() + scs_packed.launch_count()
+          + scs_pieces.launch_count())
+    y = op.to_host(op.spmv(op.make_x(x)))
+    torch.cuda.synchronize()
+    assert (launch_count() + scs_packed.launch_count()
+            + scs_pieces.launch_count()) > n0
+    ref = mtx.to_scipy().tocsr() @ x.astype(np.float32).astype(np.float64)
+    assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()

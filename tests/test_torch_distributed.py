@@ -353,7 +353,7 @@ def test_cli_runs_sharded_solve_and_bench(tmp_path, capsys):
 
 def test_sharded_configs_are_no_longer_refused(monkeypatch):
     cfg = Config(backend="cpu", n_shards=4)
-    top.check_slice(cfg)
+    assert top.uses_kernels(cfg)
     _, tm = both("laplace2d(16)")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(top.DeviceUnavailableError):

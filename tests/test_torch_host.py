@@ -81,8 +81,8 @@ def test_generate_matrix_spec_bit_equal(spec):
 
 
 def test_generate_matrix_unported_name_raises():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tgen.generate_matrix("StokesSaddle,5")
+    with pytest.raises(ValueError, match="unknown generator 'NoSuchModel'"):
+        tgen.generate_matrix("NoSuchModel,5")
 
 
 def test_mtx_io_bit_equal(tmp_path):

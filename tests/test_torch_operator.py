@@ -188,29 +188,19 @@ def test_cli_cuda_backend_without_a_card_exits_3(monkeypatch, capsys):
     assert len(err) == 1 and err[0].startswith("ERROR:")
 
 
-UNPORTED = {
-    "bcoo": dict(impl="bcoo"),
-    "xla": dict(impl="xla"),
-    "no_pallas": dict(use_pallas=False),
-}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_configs_raise(name):
-    cfg = Config(**{"value_type": "dp", "backend": "cpu", **UNPORTED[name]})
-    with pytest.raises(NotImplementedError, match="not port"):
-        SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
-
-
 def test_one_device_operator_refuses_shards():
     cfg = Config(value_type="dp", backend="cpu", n_shards=2)
     with pytest.raises(ValueError, match="DistributedSpmvOperator"):
         SpmvOperator.from_mtx(cfg, tgen.tridiag(10))
 
 
-# configurations of slices 2, 5 and 9 that raised before they were ported
-# (n_shards > 1 through the sharded operator)
+# configurations of slices 2, 5, 9 and 10 that raised before they were
+# ported (n_shards > 1 through the sharded operator; impl='bcoo', 'xla' and
+# use_pallas=False through the plain route on this operator, as in JAX)
 PORTED = {
+    "bcoo": dict(impl="bcoo"),
+    "xla": dict(impl="xla"),
+    "no_pallas": dict(use_pallas=False),
     "shards": dict(n_shards=2),
     "split": dict(split_rows_threshold=16),
     "mixed_tiles": dict(mixed_tiles=True),
@@ -295,10 +285,33 @@ def test_scs_explosion_guard_matches_jax(heavy):
     assert np.abs(y - ref).max() <= 1e-12 * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("flags", [["-matrix_stats"], ["-n_processes", "2"]])
+@pytest.mark.parametrize("flags", [
+    ["-n_processes", "2"], ["-coordinator", "localhost:1234"],
+    ["-process_id", "0"], ["-local_devices", "2"]])
 def test_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="not port"):
+    with pytest.raises(NotImplementedError, match="multi-host"):
         cli.main(["Tridiag,10", "crs", "-backend", "cpu", *flags])
+
+
+# CLI flags of slice 10 that raised before they were ported
+PORTED_FLAGS = {
+    "-matrix_stats": (["-matrix_stats"], "matrix: 10 x 10, nnz 28"),
+    "-output_sparsity": (["-output_sparsity"], "dp_local_scs.mtx"),
+    "-debug": (["-debug", "1", "-mode", "s"], "[debug] sanity dumps"),
+    "-log_prof": (["-log_prof", "PROF", "-bench_time", "0.001"],
+                  "[log_prof] trace ->"),
+    "-impl bcoo": (["-impl", "bcoo", "-mode", "s"], "torch-csr-dp"),
+    "-impl xla": (["-impl", "xla", "-mode", "s"], "torch-plain-scs-dp"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PORTED_FLAGS))
+def test_cli_ported_flags_run(name, tmp_path, capsys):
+    flags, expect = PORTED_FLAGS[name]
+    flags = [str(tmp_path / "prof") if f == "PROF" else f for f in flags]
+    assert cli.main(["Tridiag,10", "crs", "-backend", "cpu", "-mtx_out",
+                     str(tmp_path), *flags]) == 0
+    assert expect in capsys.readouterr().out
 
 
 def test_package_never_imports_jax():

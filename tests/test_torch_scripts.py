@@ -21,11 +21,15 @@ from uspmv_tpu_torch.ops import _build
 from uspmv_tpu_torch.scripts import (
     _common,
     ap_bench,
+    check_dp_emu,
     gather_probe,
     kernel_ab,
     microbench,
     perf_sweep,
+    sparsity_pattern,
     tile_cost,
+    validate_campaign,
+    value_histogram,
 )
 
 REPO = Path(__file__).resolve().parents[1]
@@ -35,6 +39,8 @@ SCRIPTS = {
     "tile_cost": tile_cost,
     "perf_sweep": perf_sweep,
     "ap_bench": ap_bench,
+    "check_dp_emu": check_dp_emu,
+    "validate_campaign": validate_campaign,
 }
 # tiny arguments that run each entry point in seconds on the CPU
 TINY = {
@@ -44,6 +50,8 @@ TINY = {
     "tile_cost": ["8", "--reps", "1"],
     "perf_sweep": ["Laplace3D,6", "--quick", "--bench_time", "0.0001"],
     "ap_bench": ["Laplace3D,6", "--bench_time", "0.0001"],
+    "check_dp_emu": ["Laplace3D,6", "--bench_time", "0.0001"],
+    "validate_campaign": ["--quick", "--matrices", "Laplace2D,6"],
 }
 # the keys of the JAX scripts' JSON rows (scripts/perf_sweep.py:81-93,
 # scripts/ap_bench.py:124-132); the other three print text, whose fields
@@ -277,3 +285,80 @@ def test_kernel_resources_reads_cuobjdump(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     assert [r["function"] for r in _build.kernel_resources(Path("x"))] \
         == ["_Z6kernAPf", "_Z6kernBPd"]
+
+
+def test_check_dp_emu_rows(tmp_path):
+    rows = check_dp_emu.run(check_dp_emu.build_parser().parse_args(
+        ["Laplace3D,8", "--bench_time", "0.0001", "--backend", "cpu",
+         "--out", str(tmp_path / "d.jsonl")]))
+    by = {r["variant"]: r for r in rows}
+    assert list(by) == ["dp_emu", "dp", "scipy"]
+    assert by["dp_emu"]["max_rel_err"] < check_dp_emu.MAX_REL_ERR
+    assert by["dp"]["max_rel_err"] < check_dp_emu.MAX_REL_ERR
+    assert by["dp_emu"]["impl"] == by["dp"]["impl"]
+    assert by["dp"]["impl"].startswith("torch-plain-")
+    # one kernel, timed once
+    assert by["dp_emu"]["gflops"] is None
+    assert by["dp_emu"]["same_kernel_as"] == "dp"
+    assert by["dp"]["gflops"] > 0 and by["scipy"]["gflops"] > 0
+    assert check_dp_emu.build_parser().parse_args([]).matrix == "Laplace3D,96"
+
+
+def test_validate_campaign_sweep_is_the_jax_scripts(tmp_path, monkeypatch):
+    """scripts/validate_campaign.py:72-75: the quick and full sets."""
+    monkeypatch.setenv("USPMV_CAMPAIGN_DIR", str(tmp_path))
+    for flags, per_matrix in ((["--quick"], 4 * 3 * 2 * 2),
+                              ([], 9 * 9 * 4 * 2)):
+        args = validate_campaign.build_parser().parse_args(
+            [*flags, "--matrices", "A,1", "B,2", "--backend", "cpu"])
+        runs = validate_campaign.sweep(args)
+        assert len(runs) == 2 * per_matrix + 3 + 3
+        assert all(argv[argv.index("-mtx_out") + 1] == str(tmp_path)
+                   for _, argv in runs)
+    args = validate_campaign.build_parser().parse_args(["--shards", "4"])
+    runs = validate_campaign.sweep(args)
+    assert {m for m, _ in runs[:-6]} == set(validate_campaign.DEFAULT_MATRICES)
+    assert all(argv[argv.index("-n_shards") + 1] == "4"
+               for _, argv in runs[:-6])
+
+
+def test_validate_campaign_runs_sharded_and_counts_failures(tmp_path,
+                                                            monkeypatch):
+    monkeypatch.setenv("USPMV_CAMPAIGN_DIR", str(tmp_path))
+    out = tmp_path / "v.jsonl"
+    assert validate_campaign.main(
+        ["--quick", "--matrices", "Laplace2D,8", "--shards", "2",
+         "--backend", "cpu", "--out", str(out)]) == 0
+    rows = read_rows(out)
+    assert len(rows) == 48 + 6 and all(r["rc"] == 0 for r in rows)
+    assert {r["impl"].split("[")[1].split("-")[0] for r in rows} == {
+        "torch"}  # torch-plain-... and the CSR comparison torch-csr-...
+    # a failing run is counted, and the campaign exits 1
+    monkeypatch.setattr(validate_campaign, "sweep", lambda args: [
+        ("NoSuchModel,4", ["NoSuchModel,4", "crs", "-mode", "s",
+                           "-backend", "cpu"])])
+    assert validate_campaign.main(["--backend", "cpu", "--out",
+                                   str(tmp_path / "f.jsonl")]) == 1
+    assert read_rows(tmp_path / "f.jsonl")[0]["rc"] == 3
+
+
+@pytest.mark.parametrize("spec", ["Laplace2D,12", "StokesSaddle,3",
+                                  "Hubbard,n_sites=6,n_fermions=3,U=1.3"])
+def test_sparsity_pattern_and_value_histogram(spec, tmp_path, capsys):
+    jax_pattern = jax_script("sparsity_pattern")
+    tm = tgen.generate_matrix(spec)
+    jm = jgen.generate_matrix(spec)
+    for bins in (4, 64, 512):
+        assert np.array_equal(sparsity_pattern.density_grid(tm, bins),
+                              jax_pattern.density_grid(jm, bins))
+    pgm = tmp_path / "p.pgm"
+    assert sparsity_pattern.main([spec, "-o", str(pgm), "-b", "16"]) == 0
+    assert capsys.readouterr().out.strip() == f"wrote {pgm}"
+    assert pgm.read_bytes().startswith(b"P5\n16 16\n255\n")
+    out = tmp_path / "v.png"
+    assert value_histogram.main([spec, "-o", str(out), "-b", "8"]) == 0
+    text = capsys.readouterr().out
+    assert text.startswith(f"matrix: {tm.n_rows} x {tm.n_cols}")
+    vc, vn, lengths, rn = value_histogram.histograms(tm, 8)
+    assert vn.sum() == int((tm.values != 0).sum())
+    assert rn.sum() == tm.n_rows

@@ -15,9 +15,15 @@ one device, -seg_method, -comm_mode, -comm_halos, -no_pack, -overlap,
 -print_comm_vol); solve mode runs the operator's ``solve`` (one CUDA graph
 of the -rev launches on a GPU, the fused solve kernel when
 ``USPMV_FUSED_SOLVE`` is set and an unsharded operator is eligible, a loop
-on the CPU) and prints which one ran; a flag of a later slice raises
-NotImplementedError. With -backend cuda on a host without a GPU the
-CLI prints one line and exits with rc 3.
+on the CPU) and prints which one ran. -impl bcoo runs the vendor
+comparison (ops/spmv_bcoo.py: cuSPARSE CSR on the card), -impl xla the
+plain PyTorch path on the chosen device; -matrix_stats prints the matrix
+statistics and exits, -output_sparsity dumps each precision's matrix as
+.mtx into -mtx_out and exits, -debug 1 writes the sanity checker's solve
+dumps there, and -log_prof DIR writes a torch.profiler Chrome trace of the
+bench loop into DIR. The multi-host flags raise NotImplementedError. With
+-backend cuda on a host without a GPU the CLI prints one line and exits
+with rc 3.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import sys
 import numpy as np
 
 from .config import Config
+from .formats.stats import get_matrix_stats
 from .io.generators import generate_matrix
 from .io.mmio import read_mtx
 
@@ -207,21 +214,14 @@ def translate_reference_flags(argv):
 
 
 def _check_cli_slice(args) -> None:
-    """Driver-level flags of later slices (the operator checks the rest)."""
-    unported = [
-        (args.matrix_stats, "-matrix_stats (slice 8)"),
-        (args.output_sparsity, "-output_sparsity (slice 8)"),
-        (args.debug, "-debug sanity dumps (slice 8)"),
-        (args.log_prof is not None, "-log_prof profiling (slice 8)"),
-        (args.coordinator is not None or args.n_processes is not None
-         or args.process_id is not None or args.local_devices is not None,
-         "multi-host execution (slice 7)"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"uspmv_tpu_torch does not port {what} yet"
-            )
+    """The CLI flags of a later slice: multi-host execution."""
+    if (args.coordinator is not None or args.n_processes is not None
+            or args.process_id is not None or args.local_devices is not None):
+        raise NotImplementedError(
+            "uspmv_tpu_torch does not port multi-host execution "
+            "(-coordinator, -n_processes, -process_id, -local_devices; "
+            "slice 11) yet"
+        )
 
 
 def main(argv=None) -> int:
@@ -245,6 +245,11 @@ def _main(argv=None) -> int:
     cfg.validate()
     _check_cli_slice(args)
 
+    mtx = load_matrix(args.matrix)
+    if args.matrix_stats:
+        print(get_matrix_stats(mtx).summary())
+        return 0
+
     from .runtime.bench import bench_spmv
     from .runtime.operator import SpmvOperator
     from .runtime.report import (
@@ -255,16 +260,33 @@ def _main(argv=None) -> int:
     )
     from .runtime.validate import validate_solve
 
-    mtx = load_matrix(args.matrix)
-    if cfg.n_shards > 1:
+    if cfg.impl == "bcoo":
+        from .ops.spmv_bcoo import BcooSpmvOperator
+
+        op = BcooSpmvOperator.from_mtx(cfg, mtx)
+    elif cfg.n_shards > 1:
         from .parallel.distributed import DistributedSpmvOperator
 
         op = DistributedSpmvOperator.from_mtx(cfg, mtx)
     else:
         op = SpmvOperator.from_mtx(cfg, mtx)
 
+    if args.output_sparsity:
+        # reference OUTPUT_SPARSITY: dump per-precision SCS and exit
+        for path in op.dump_sparsity(cfg.output_dir):
+            print(f"wrote {path}")
+        return 0
+
     if cfg.mode == "b":
-        res = bench_spmv(op)
+        from .runtime import profiling
+
+        on = args.log_prof is not None
+        with profiling.trace(args.log_prof, enabled=on):
+            with profiling.marker(profiling.kernel_marker_name(cfg),
+                                  enabled=on):
+                res = bench_spmv(op)
+        if on:
+            print(f"[log_prof] trace -> {profiling.last_trace_path()}")
         write_bench_to_file(cfg, res)
         if args.json:
             print(json.dumps(res.to_dict()))
@@ -275,11 +297,28 @@ def _main(argv=None) -> int:
     # solve mode
     from .ops.vectors import init_x_host
 
+    checker = None
+    if cfg.debug_mode:
+        from .runtime.sanity import SanityChecker
+
+        checker = SanityChecker(cfg.output_dir)
+        for s in getattr(op, "scs", {}).values():
+            # distributed operators hold per-shard lists
+            for si in (s if isinstance(s, list) else [s]):
+                checker.check_scs_padding(si)
+
     x0 = init_x_host(cfg, op.n_rows, op.matrix_stats, dtype=np.float64)
     solve_impl = (f"solve-{op.solve_impl_name(cfg.n_repetitions)}"
                   f"[{op.impl_name()}]")
-    _, y = op.solve(op.make_x(x0), cfg.n_repetitions)
+    xd = op.make_x(x0)
+    if checker:
+        checker.dump_stage("before_solve", x=op.to_host(xd))
+    _, y = op.solve(xd, cfg.n_repetitions)
     y_host = op.to_host(y)
+    if checker:
+        checker.dump_stage("after_solve", y=y_host)
+        checker.check_finite("solve result", y_host)
+        print(f"[debug] sanity dumps -> {checker.path}")
     if cfg.validate_result:
         # the oracle sees the same preprocessed operator: the reference
         # equilibrates total_mtx before the MKL compare (main.cpp:1753-1754)

@@ -3,8 +3,9 @@
 Port of ``uspmv_tpu/formats/scs.py`` (reference ``ScsData`` +
 ``convert_to_scs``, classes_structs.hpp:1313-1470, utilities.hpp:1842-2104):
 sigma-window descending-nnz row sort, chunk padding, column-major element
-layout within a chunk, and an optional fixed permutation. Host-side numpy;
-every array comes out bit-equal to the JAX package's numpy path.
+layout within a chunk, and an optional fixed permutation. Host-side numpy,
+or the C++ converter of ``native/uspmv_host.cpp`` (``uspmv_tpu_torch
+.native``); every array comes out bit-equal to the JAX package's.
 
 The JAX package's ``CompactScs`` and ``convert_to_scs_retiled`` are TPU
 lane-tile packing artefacts and are not ported: the CUDA kernel reads this
@@ -94,6 +95,35 @@ class ScsData:
         np.add.at(y, self.flat_row_idx(), contrib)
         return y
 
+    def to_mtx(self, col_unperm=None) -> MtxData:
+        """The stored nonzeros as COO in original row order, explicit
+        padding dropped (``write_to_mtx_file``'s entries, in its order).
+
+        ``col_unperm`` (new->old) inverts a prior symmetric column
+        permutation (permute_scs_cols) so the columns are original indices.
+        Padding elements hold value 0 and real zeros cannot be told from
+        them, so (like the reference, which writes only the nonzeros it
+        finds) exact zeros are dropped.
+        """
+        rows = self.flat_row_idx()
+        keep = self.values.astype(np.float64) != 0.0
+        keep &= self.new_to_old_idx[rows] >= 0
+        orig_rows = self.new_to_old_idx[rows[keep]]
+        cols = self.col_idxs[keep]
+        if col_unperm is not None:
+            cols = np.asarray(col_unperm, dtype=np.int32)[cols]
+        return MtxData.from_arrays(orig_rows, cols, self.values[keep],
+                                   n_rows=self.n_rows, n_cols=self.n_cols)
+
+    def write_to_mtx_file(self, path: str, col_unperm=None) -> None:
+        """Dump the (padded) SCS structure back to MatrixMarket, original row
+        order, dropping explicit padding (reference OUTPUT_SPARSITY /
+        ScsData::write_to_mtx_file, classes_structs.hpp:1758-1790): the
+        JAX package's file byte for byte (``to_mtx`` for ``col_unperm``)."""
+        from ..io.mmio import write_mtx
+
+        write_mtx(path, self.to_mtx(col_unperm))
+
 
 def scs_from_reference(fields: dict) -> ScsData:
     """The port's ``ScsData`` from the JAX package's, given as
@@ -113,8 +143,14 @@ def convert_to_scs(
     sigma: int,
     dtype=None,
     fixed_permutation: Optional[np.ndarray] = None,
+    native: Optional[bool] = None,
 ) -> ScsData:
     """COO -> SELL-C-sigma (reference convert_to_scs, utilities.hpp:1842-2104).
+
+    ``native=None`` takes the C++ converter (``uspmv_tpu_torch.native``,
+    built at first use) when the library can be built, else the numpy path
+    below; True requires it (NativeUnavailableError); False forces numpy.
+    Both give the same arrays.
 
     Steps:
       1. n_chunks = ceil(n_rows/C); pad rows to n_rows_padded = n_chunks*C
@@ -130,6 +166,14 @@ def convert_to_scs(
     """
     if C < 1 or sigma < 1:
         raise ValueError("C and sigma must be >= 1")
+    if native is not False:
+        from ..native import convert_to_scs_native
+
+        out = convert_to_scs_native(mtx, C, sigma, dtype=dtype,
+                                    fixed_permutation=fixed_permutation,
+                                    required=bool(native))
+        if out is not None:
+            return out
     n_rows = mtx.n_rows
     n_chunks = (n_rows + C - 1) // C
     n_rows_padded = n_chunks * C

@@ -1,8 +1,10 @@
 """Scalable synthetic matrix generators.
 
-Port of the structured generators of ``uspmv_tpu/io/generators.py`` (the
-stand-in for the reference's ScaMaC bridge, utilities.hpp:1585-1752). Each
-produces a matrix bit-equal to the JAX package's for the same arguments.
+Port of ``uspmv_tpu/io/generators.py`` (the stand-in for the reference's
+ScaMaC bridge, utilities.hpp:1585-1752): the structured generators, and
+through ``generate_matrix`` the ScaMaC-style models of ``io/scamac.py``.
+Each produces a matrix bit-equal to the JAX package's for the same
+arguments.
 """
 
 from __future__ import annotations
@@ -243,6 +245,70 @@ def wide_spectrum(nx: int, decades: float = 8.0, dofs: int = 3,
     return m
 
 
+def stokes_saddle(nx: int, eps: float = 1e-3, seed: int = 7) -> MtxData:
+    """Saddle-point structure (SuiteSparse vas_stokes / StocF class):
+
+        [ A   B ]   A: 3x3-dense-block 7-point operator on cell velocities
+        [ B^T -eps*I ]   B: velocity<->pressure gradient coupling
+
+    over an nx^3 cell grid — 4 unknowns per cell (u,v,w,p), velocity rows
+    ~24-27 nnz, pressure rows ~22, and the near-zero pressure block gives
+    the strongly-mixed row-length profile SELL-C-sigma's sigma-sorting was
+    built for. Unsymmetric in values (B vs B^T signs), symmetric pattern.
+
+    nx=64 -> ~1.05M rows, ~25M nnz (vas_stokes_1M-class).
+    """
+    n = nx ** 3
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n, dtype=np.int64)
+    ix = idx % nx
+    iy = (idx // nx) % nx
+    iz = idx // (nx * nx)
+    nv = 3 * n  # velocity dofs, then pressures at [nv, nv + n)
+
+    stencil = [(0, 0, 0), (-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0),
+               (0, 0, -1), (0, 0, 1)]
+    cI, cJ = [], []  # cell-graph edges incl. self
+    for dx, dy, dz in stencil:
+        m = np.ones(n, dtype=bool)
+        if dx:
+            m &= (ix + dx >= 0) & (ix + dx < nx)
+        if dy:
+            m &= (iy + dy >= 0) & (iy + dy < nx)
+        if dz:
+            m &= (iz + dz >= 0) & (iz + dz < nx)
+        cI.append(idx[m])
+        cJ.append(idx[m] + dx + dy * nx + dz * nx * nx)
+    cI = np.concatenate(cI)
+    cJ = np.concatenate(cJ)
+    ne = cI.size
+
+    # A: 3x3 dense blocks on the cell graph (velocity-velocity)
+    p3 = np.arange(3, dtype=np.int64)
+    aI = (cI[:, None] * 3 + np.repeat(p3, 3)[None, :]).reshape(-1)
+    aJ = (cJ[:, None] * 3 + np.tile(p3, 3)[None, :]).reshape(-1)
+    aV = rng.standard_normal(ne * 9) * 0.1
+    aV[aI == aJ] = 6.0  # dominant velocity diagonal
+
+    # B: velocity row (cell, component) <- pressure of the stencil cells
+    bI = (cI[:, None] * 3 + p3[None, :]).reshape(-1)
+    bJ = np.repeat(nv + cJ, 3)
+    bV = np.repeat(np.where(cI == cJ, 3.0, -0.5), 3)
+    # B^T: pressure row <- velocities (divergence), opposite sign
+    tI = np.repeat(nv + cI, 3)
+    tJ = (cJ[:, None] * 3 + p3[None, :]).reshape(-1)
+    tV = -np.repeat(np.where(cI == cJ, 3.0, -0.5), 3)
+
+    # pressure stabilization diagonal
+    pI = nv + idx
+    return MtxData.from_arrays(
+        np.concatenate([aI, bI, tI, pI]),
+        np.concatenate([aJ, bJ, tJ, pI]),
+        np.concatenate([aV, bV, tV, np.full(n, -eps)]),
+        n_rows=nv + n, n_cols=nv + n,
+    ).sort_by_row()
+
+
 def tridiag(n: int, diag: float = 2.0, off: float = -1.0) -> MtxData:
     idx = np.arange(n, dtype=np.int64)
     rows = np.concatenate([idx, idx[1:], idx[:-1]])
@@ -262,6 +328,7 @@ _GENERATORS = {
     "PowerLawCols": powerlaw_cols,
     "FemTet3D": fem_tet3d,
     "WideSpectrum": wide_spectrum,
+    "StokesSaddle": stokes_saddle,
     "Tridiag": tridiag,
 }
 
@@ -269,13 +336,20 @@ _GENERATORS = {
 def generate_matrix(spec: str) -> MtxData:
     """Generate a matrix from a spec string ``Name,arg1,arg2,...``
     (analogue of the reference's ScaMaC argument string,
-    utilities.hpp:1585-1752)."""
+    utilities.hpp:1585-1752). ScaMaC-style quantum models (Anderson,
+    Hubbard, ... with key=value options, any case) route to io.scamac; an
+    unknown name raises ValueError."""
     parts = spec.split(",")
     name = parts[0]
     if name not in _GENERATORS:
-        raise NotImplementedError(
-            f"generator {name!r} is not ported yet; available: "
-            f"{sorted(_GENERATORS)}"
+        from .scamac import scamac_generate, scamac_models
+
+        if name.lower() in scamac_models():
+            # genuine model errors (bad options, size limits) propagate
+            return scamac_generate(spec)
+        raise ValueError(
+            f"unknown generator {name!r}; available: "
+            f"{sorted(_GENERATORS)} + ScaMaC models {sorted(scamac_models())}"
         )
     args = [float(a) if "." in a else int(a) for a in parts[1:]]
     return _GENERATORS[name](*args)

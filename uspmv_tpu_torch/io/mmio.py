@@ -1,7 +1,8 @@
 """MatrixMarket I/O.
 
-Port of the pure-Python path of ``uspmv_tpu/io/mmio.py`` (reference
-mmio.h/mmio.cpp + read_mtx at utilities.hpp:2148-2309). Behavior:
+Port of ``uspmv_tpu/io/mmio.py`` (reference mmio.h/mmio.cpp + read_mtx at
+utilities.hpp:2148-2309): the Python reader, and the C++ one of
+``native/uspmv_host.cpp`` through ``uspmv_tpu_torch.native``. Behavior:
 
 * accepts sparse (coordinate) real / integer / pattern, general,
   symmetric or skew-symmetric; complex and hermitian are rejected;
@@ -14,6 +15,8 @@ mmio.h/mmio.cpp + read_mtx at utilities.hpp:2148-2309). Behavior:
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
@@ -38,8 +41,20 @@ def _parse_banner(line: str):
     return fmt, field, sym
 
 
-def read_mtx(path: str, require_square: bool = True) -> MtxData:
-    """Read a MatrixMarket file into a row-sorted COO ``MtxData`` (float64)."""
+def read_mtx(path: str, require_square: bool = True,
+             native: Optional[bool] = None) -> MtxData:
+    """Read a MatrixMarket file into a row-sorted COO ``MtxData`` (float64).
+
+    ``native=None`` takes the C++ reader (``uspmv_tpu_torch.native``, built
+    at first use) when the library can be built, else this Python path;
+    True requires it (NativeUnavailableError); False forces Python. Both
+    give the same arrays."""
+    if native is not False:
+        from ..native import read_mtx_native
+
+        out = read_mtx_native(path, require_square, required=bool(native))
+        if out is not None:
+            return out
     with open(path, "rb") as f:
         data = f.read()
     text = data.decode("ascii", errors="replace")

@@ -42,6 +42,9 @@ add. ``comm_halos=False`` skips the exchange (halo rows stay zero: wrong
 results on purpose); ``no_pack`` sends each sender's first rows in place
 of the packed ones (the reference's -no_pack, wrong on purpose too).
 
+impl='xla' (or use_pallas=False) runs every launch's plain PyTorch version,
+the exchange's too, on the chosen device, in one stream.
+
 Not ported, as the ROADMAP lists: lane tiles and re-tiling, the
 transpose-stream tier, the ±1 fold matrix and its prefix sums (the pieces
 kernel folds), the df64 pairs (``-dp_emu`` runs native f64). Unlike the
@@ -52,6 +55,7 @@ whole matrix.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Union
 
 import numpy as np
@@ -79,21 +83,21 @@ from ..ops.halo_exchange import (
     DeviceExchange,
     build_device_exchange,
     halo_exchange,
+    halo_exchange_plain,
 )
-from ..ops.scs_packed import spmv_packed
-from ..ops.scs_pieces import spmv_pieces
-from ..ops.scs_spmv import spmv_scs
 from ..ops.vectors import init_x_host
 from ..precision.partition import partition_precisions
 from ..runtime.operator import (
     OperatorBase,
     SOLVE_IMPLS,
-    check_slice,
     guard_scs_explosion,
     packed_tier,
     real_rows,
     resolve_device,
+    run_pieces,
+    run_rows,
     split_threshold,
+    write_sparsity,
 )
 from .halo import (
     HaloPlan,
@@ -137,15 +141,6 @@ class ShardStreams:
     main: Stream  # the interior part when overlapped, else every row
     halo: Optional[Stream] = None  # the halo-column part, when overlapped
     pieces: Optional[DevicePieces] = None  # its split heavy rows
-
-
-def _launch(dev: Stream, x: torch.Tensor, layout: str, y: torch.Tensor,
-            accumulate: bool) -> None:
-    run = spmv_packed if isinstance(dev, DevicePacked) else spmv_scs
-    if accumulate:
-        run(dev, x, layout, y=y)
-    else:
-        run(dev, x, layout, out=y)
 
 
 def _allgather_cols(cols: np.ndarray, ws: np.ndarray,
@@ -207,7 +202,6 @@ class DistributedSpmvOperator(OperatorBase):
     def from_mtx(cls, config: Config, mtx: MtxData
                  ) -> "DistributedSpmvOperator":
         config.validate()
-        check_slice(config)
         device = resolve_device(config)
         R = config.n_shards
         mtx = mtx.copy()
@@ -445,9 +439,11 @@ class DistributedSpmvOperator(OperatorBase):
             xr = self.whole(xp) if allgather else self.shard_view(xp, r)
             yr = self.shard_view(y, r, dev.n_rows_padded)
             if part == "pieces":
-                spmv_pieces(dev, xr, layout, yr)
+                run_pieces(dev, xr, layout, yr, self.plain)
+            elif accumulate:
+                run_rows(dev, xr, layout, self.plain, y=yr)
             else:
-                _launch(dev, xr, layout, yr, accumulate)
+                run_rows(dev, xr, layout, self.plain, out=yr)
 
     def spmv(self, x: torch.Tensor,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -470,6 +466,7 @@ class DistributedSpmvOperator(OperatorBase):
             raise ValueError("out must not be x: rows read x while others "
                              "write")
         layout = self.config.vector_layout
+        exchange = halo_exchange_plain if self.plain else halo_exchange
         written = False
         for p in self.precisions:
             xp = self.x_for(p, x)
@@ -477,24 +474,25 @@ class DistributedSpmvOperator(OperatorBase):
             if ex is not None and ex.n == 0:
                 ex = None
             if self.overlap:
-                if ex is not None and xp.device.type == "cuda":
+                if ex is not None and xp.device.type == "cuda" \
+                        and not self.plain:
                     # the interior launches read local rows only: the
                     # exchange runs beside them on the second stream
                     cur = torch.cuda.current_stream(xp.device)
                     comm = self._comm()
                     comm.wait_stream(cur)
                     with torch.cuda.stream(comm):
-                        halo_exchange(ex, xp, layout)
+                        exchange(ex, xp, layout)
                     self._rows(p, "main", xp, out, written)
                     cur.wait_stream(comm)
                 else:
                     if ex is not None:
-                        halo_exchange(ex, xp, layout)
+                        exchange(ex, xp, layout)
                     self._rows(p, "main", xp, out, written)
                 self._rows(p, "halo", xp, out, True)
             else:
                 if ex is not None:
-                    halo_exchange(ex, xp, layout)
+                    exchange(ex, xp, layout)
                 self._rows(p, "main", xp, out, written)
             self._rows(p, "pieces", xp, out, True)
             written = True
@@ -621,7 +619,8 @@ class DistributedSpmvOperator(OperatorBase):
         """cuda-dist<R>-<tiers>-<value type>: the tiers of the shards'
         streams (scs, packed or both, +pieces), on the CPU
         torch-plain-dist<R>-..."""
-        where = "cuda" if self.device.type == "cuda" else "torch-plain"
+        where = ("cuda" if self.device.type == "cuda" and not self.plain
+                 else "torch-plain")
         kinds = {isinstance(d, DevicePacked)
                  for p in self.precisions for d in self._devs(p)}
         tier = "+".join(name for packed, name in ((False, "scs"),
@@ -669,3 +668,17 @@ class DistributedSpmvOperator(OperatorBase):
 
     def nnz_in_pieces(self) -> int:
         return sum(pc.nnz for p in self.precisions for pc in self._pieces(p))
+
+    def dump_sparsity(self, outdir: str) -> list:
+        """-output_sparsity: per precision and shard the JAX operator's
+        ``<precision>_local_scs_rank<r>.mtx`` (distributed.py:1252), the
+        shard's nonzeros by its original local row, columns in its x
+        numbering (local rows, then halo); the shard's heavy-row pieces
+        folded back into their parents' rows (``write_sparsity``)."""
+        paths = []
+        for p in self.precisions:
+            for r, (s, sh) in enumerate(zip(self.scs[p], self.streams[p])):
+                path = os.path.join(outdir, f"{p}_local_scs_rank{r}.mtx")
+                write_sparsity(path, s, sh.pieces)
+                paths.append(path)
+        return paths

@@ -30,8 +30,9 @@ rows are split under it too. Solve mode (k repetitions of y = A x with a swap) r
 as a Python loop of launches, as one CUDA graph of those launches (the
 counterpart of the JAX operator's jitted ``lax.scan``) or as one launch of
 the fused solve kernel (ops/scs_solve.py, the counterpart of its opt-in
-``solve_lane_tiles``). Everything outside the ported slices raises
-``NotImplementedError`` naming the later slice that ports it.
+``solve_lane_tiles``). impl='xla' or use_pallas=False runs the plain
+PyTorch version of every stream on the chosen device (the counterpart of
+the JAX package's ops/spmv_xla.py); impl='auto' never does on the card.
 """
 
 from __future__ import annotations
@@ -62,10 +63,10 @@ from ..ops.device_format import (
     build_device_pieces,
     build_device_scs,
 )
-from ..ops.scs_packed import spmv_packed
-from ..ops.scs_pieces import spmv_pieces
+from ..ops.scs_packed import spmv_packed, spmv_packed_plain
+from ..ops.scs_pieces import spmv_pieces, spmv_pieces_plain
 from ..ops.scs_solve import solve_fits, solve_scs
-from ..ops.scs_spmv import record_captured_launches, spmv_scs
+from ..ops.scs_spmv import record_captured_launches, spmv_scs, spmv_scs_plain
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
 from ..precision.partition import partition_precisions
 
@@ -89,19 +90,66 @@ def resolve_device(config: Config) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def check_slice(config: Config) -> None:
-    """Raise NotImplementedError for configurations this port does not run
-    yet, naming the slice of ROADMAP.md queue 1 that ports them."""
-    unported = [
-        (config.impl == "bcoo", "the vendor comparison impl='bcoo' (slice 8)"),
-        (config.impl == "xla" or not config.use_pallas,
-         "impl='xla' (the port has one kernel path; impl='auto')"),
-    ]
-    for hit, what in unported:
-        if hit:
-            raise NotImplementedError(
-                f"uspmv_tpu_torch does not port {what} yet"
-            )
+def uses_kernels(config: Config) -> bool:
+    """Whether the operator launches the hand-written kernels (impl='auto'
+    with use_pallas, the default) or runs their plain PyTorch versions on
+    the device ``config.backend`` names: impl='xla' or use_pallas=False,
+    the user's explicit choice of the JAX package's XLA path
+    (uspmv_tpu/runtime/operator.py:86, ops/spmv_xla.py), and impl='bcoo'
+    on this operator, which the JAX operator runs there too (the CLI
+    builds ``ops.spmv_bcoo.BcooSpmvOperator`` for it)."""
+    return config.use_pallas and config.impl == "auto"
+
+
+def run_rows(dev, x: torch.Tensor, layout: str, plain: bool,
+             y: Optional[torch.Tensor] = None,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One SELL-C-sigma or packed stream: y = A x, y += A x with ``y``,
+    written into ``out`` with ``out``; through its kernel, or with
+    ``plain`` through its plain PyTorch version on x's device."""
+    packed = isinstance(dev, DevicePacked)
+    if not plain:
+        run = spmv_packed if packed else spmv_scs
+        return run(dev, x, layout, y=y, out=out)
+    run = spmv_packed_plain if packed else spmv_scs_plain
+    if out is not None:
+        return out.copy_(run(dev, x, layout))
+    return run(dev, x, layout, y)
+
+
+def run_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
+               y: torch.Tensor, plain: bool) -> torch.Tensor:
+    """y += the heavy-row pieces' products, by kernel or plain version."""
+    return (spmv_pieces_plain if plain else spmv_pieces)(dev, x, layout, y)
+
+
+def write_sparsity(path: str, scs: ScsData,
+                   pieces: Optional[DevicePieces] = None,
+                   col_unperm=None) -> None:
+    """One precision's -output_sparsity file: ``scs`` as
+    ``ScsData.write_to_mtx_file`` writes it; with the heavy-row pieces of
+    that precision, their nonzeros folded back into their parents' rows
+    (in the SCS's row and column numbering, then through its
+    ``new_to_old_idx`` and ``col_unperm``) and the whole sorted by row."""
+    if pieces is None:
+        scs.write_to_mtx_file(path, col_unperm=col_unperm)
+        return
+    from ..io.mmio import write_mtx
+
+    m = scs.to_mtx(col_unperm)
+    rows = pieces.piece_rows.cpu().numpy()[pieces.piece_idxs.cpu().numpy()]
+    cols = pieces.col_idxs.cpu().numpy()
+    vals = pieces.values.to(torch.float64).cpu().numpy().astype(
+        scs.values.dtype)
+    keep = vals != 0.0
+    cols = cols[keep]
+    if col_unperm is not None:
+        cols = np.asarray(col_unperm, dtype=np.int32)[cols]
+    write_mtx(path, MtxData.from_arrays(
+        np.concatenate([m.I, scs.new_to_old_idx[rows[keep]]]),
+        np.concatenate([m.J, cols]),
+        np.concatenate([m.values, vals[keep]]),
+        n_rows=m.n_rows, n_cols=m.n_cols).sort_by_row())
 
 
 def check_one_shard(config: Config) -> None:
@@ -234,6 +282,12 @@ class OperatorBase:
     def working_dtype(self) -> torch.dtype:
         return self.config.working_dtype()
 
+    @property
+    def plain(self) -> bool:
+        """Whether every stream runs its plain PyTorch version (impl='xla'
+        or use_pallas=False; ``uses_kernels``), on the CPU or the card."""
+        return not uses_kernels(self.config)
+
     def flops_per_spmv(self) -> int:
         """Useful flops only, padding excluded (reference main.cpp:521-526)."""
         return 2 * self.nnz * self.config.block_vec_size
@@ -327,7 +381,6 @@ class SpmvOperator(OperatorBase):
     @classmethod
     def from_mtx(cls, config: Config, mtx: MtxData) -> "SpmvOperator":
         config.validate()
-        check_slice(config)
         check_one_shard(config)
         device = resolve_device(config)
         mtx = mtx.copy()
@@ -435,7 +488,6 @@ class SpmvOperator(OperatorBase):
         PACKED_BETA_CUTOFF and every row fits a group; adaptive-precision
         streams stay SELL-C-sigma, as in the JAX operator."""
         config.validate()
-        check_slice(config)
         check_one_shard(config)
         if device is None:
             device = resolve_device(config)
@@ -485,15 +537,15 @@ class SpmvOperator(OperatorBase):
         into their parents' rows. With ``out`` given, y is written into
         that buffer (not x itself) instead of a new tensor."""
         layout = self.config.vector_layout
+        plain = self.plain
         y = None
         for p, dev in self.devs.items():
-            run = spmv_packed if isinstance(dev, DevicePacked) else spmv_scs
             if y is None:
-                y = run(dev, x, layout, out=out)
+                y = run_rows(dev, x, layout, plain, out=out)
             else:
-                run(dev, x, layout, y)
+                run_rows(dev, x, layout, plain, y=y)
             if p in self.pieces:
-                spmv_pieces(self.pieces[p], x, layout, y)
+                run_pieces(self.pieces[p], x, layout, y, plain)
         return y
 
     def is_packed(self) -> bool:
@@ -509,7 +561,8 @@ class SpmvOperator(OperatorBase):
         the JAX operator's ``_fused_solve_eligible`` without its VMEM and
         df64 limits; the opt-in (``USPMV_FUSED_SOLVE``) is read by
         ``solve_impl_name``, not here."""
-        if len(self.devs) != 1 or self.pieces or self.is_packed():
+        if (len(self.devs) != 1 or self.pieces or self.is_packed()
+                or self.plain):
             return False
         (dev,) = self.devs.values()
         bs = self.config.block_vec_size
@@ -648,9 +701,25 @@ class SpmvOperator(OperatorBase):
     def impl_name(self) -> str:
         """Which implementation executes, by tier and value type:
         cuda-scs, cuda-scs+pieces, cuda-packed or cuda-packed+pieces (the
-        CUDA kernels) or, on the CPU, torch-plain-... (their plain PyTorch
-        versions)."""
-        where = "cuda" if self.device.type == "cuda" else "torch-plain"
+        CUDA kernels) or torch-plain-... (their plain PyTorch versions: on
+        the CPU, and on the card for impl='xla')."""
+        where = ("cuda" if self.device.type == "cuda" and not self.plain
+                 else "torch-plain")
         tier = ("packed" if self.is_packed() else "scs") + (
             "+pieces" if self.pieces else "")
         return f"{where}-{tier}-{self.config.value_type}"
+
+    def dump_sparsity(self, outdir: str) -> list:
+        """-output_sparsity (reference OUTPUT_SPARSITY, main.cpp:1225-1254):
+        each precision's nonzeros in original row and column indices, into
+        ``<precision>_local_scs.mtx``; its heavy-row pieces, which this
+        port keeps out of the SCS, are folded back as entries of their
+        parents' rows (``write_sparsity``). Without pieces the JAX
+        operator's files byte for byte."""
+        unperm = next(iter(self.scs.values())).new_to_old_idx
+        paths = []
+        for p, s in self.scs.items():
+            path = os.path.join(outdir, f"{p}_local_scs.mtx")
+            write_sparsity(path, s, self.pieces.get(p), col_unperm=unperm)
+            paths.append(path)
+        return paths

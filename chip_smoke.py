@@ -176,14 +176,44 @@ nvidia-smi. Phases, each printing JSON lines:
         the Python paths, bit-equal, with the seconds of each and of
         from_mtx with the native path on and off;
      f. the scripts check_dp_emu and validate_campaign --quick on the card
-        (every campaign run on cuda-* or cusparse-*), their rows read back.
+        (every campaign run on cuda-* or cusparse-*), their rows read back;
+ 12. the sharded operator over processes (slice 11: parallel/multihost.py,
+     the pack and unpack kernels of csrc/halo_exchange.cu). Its runs start
+     worker processes of this script (``--phase12-worker SPEC``), each of
+     which joins the run, sets the launch counts to 0, builds the operator,
+     drives it and reads the counts; no process outlives the phase:
+     a. the pack and unpack kernels on process 0's rows of the R=4 plan of
+        Laplace3D-128 split over 2 processes, f32 and f64: bit-equal to
+        their plain versions, then kernel, plain version and
+        index_select / index_copy_ timed by replayed graphs in turns;
+     b. the headline (Laplace3D-128, scs -c 1024 -sp, 4 shards) as 2
+        processes x 2 shards on cuda:0 (CUDA_VISIBLE_DEVICES=0: gloo
+        through pinned host buffers): y bit-equal to the one-process R=4
+        operator's; the SpMV by a loop of launches beside the one-process
+        R=4 and single-device operators (in turns, in this process), the
+        pack, copy out, gloo all-to-all, copy in and unpack; then the CLI
+        on 2 processes: a validated solve ([OK] on process 0 alone) and
+        bench mode with -print_comm_vol (host0=/host1= and shard lines);
+     c. crs -dp -rand_x 1 on Laplace3D-64 as 4 processes x 1 shard (every
+        exchange crosses a process), validated against scipy to < 1e-13
+        (the f64 pack and unpack), beside the CLI runs of b;
+     d. with two or more cards, b over NCCL, one process per card (and 4 x
+        1 shard with four cards): y bit-equal, the SpMV and the all-to-all
+        timed; on one card a line says it did not run and why;
+     e. solve_diag on Laplace3D-128 sp and FemTet3D-9: t(k) = a + b k for
+        the loop, graph and fused solves.
+     ``python3 chip_smoke.py --only 12`` runs phases 1, 2 and 12 alone,
+     ``--only 12d`` phases 1, 2, the references of 12b and 12d.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
-GB/s, or flops over the peak of its type if larger; for the fused solve the
-matrix stream once per iteration, x0 in and two vectors out once) and ``library_ms``, the
+GB/s, or flops over the peak of its type if larger) and ``library_ms``, the
 time of ``torch.sparse_csr_tensor(...) @ x`` on the same matrix in the
 original row order: a yardstick only, the port never calls it (null with
-the error text where PyTorch has no CSR product for the dtypes).
+the error text where PyTorch has no CSR product for the dtypes). The bytes
+of a bound are the function's own: each stored nonzero's value and int32
+column, x read and y written once (for the fused solve the matrix's once
+per iteration, x0 in and two vectors out once); what the layout streams,
+padding and chunk or row-group metadata included, is ``moved_bytes``.
 
 Tolerances, max|kernel - plain| / max|plain|: 1e-5 where the sums are in
 f32 (sp, hp, ap[sp_hp]) and 1e-12 where they are in f64 (dp and every
@@ -333,6 +363,17 @@ def bound(nbytes, flops, x_dtype):
     t_ops = flops / PEAK_FLOPS[str(x_dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def own_bytes(dev, n_rows, x, bs=1, passes=1):
+    """The bytes of the function y = A x of stream ``dev`` itself: each
+    stored nonzero's value and int32 column read once (``passes`` times: a
+    solve of k iterations streams the matrix k times), and x read and y
+    written once over the ``n_rows`` real rows, ``bs`` values a row.
+    Padding and chunk or row-group metadata are the layout's, not the
+    function's: they count in the moved bytes (``stream_bytes``)."""
+    return (passes * dev.nnz * (dev.values.element_size() + 4)
+            + 2 * n_rows * bs * x.element_size())
 
 
 def unit_row_sums(mtx):
@@ -692,9 +733,12 @@ def run_path(name, spec, mtx, fields, rng):
         s_abs, s_rel = compare(spmv_scs(dev, x, layout),
                                spmv_scs_plain(dev, x, layout), acc_tol(x),
                                f"{name} {p} stream")
+        # moved: the stored stream, padding included, once per pass;
+        # bound: the function's own bytes
         s_bytes = (op.matrix_passes() * dev.stream_bytes()
                    + 2 * op.n_rows_padded * bs * x.element_size())
-        b_ms, b_by = bound(s_bytes, 2 * dev.nnz * bs, x.dtype)
+        fn_bytes = own_bytes(dev, op.n_rows, x, bs)
+        b_ms, b_by = bound(fn_bytes, 2 * dev.nnz * bs, x.dtype)
         lib_ms, lib_err = (None, "colwise block vectors: not timed")
         if layout == "rowwise" or bs == 1:
             lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x,
@@ -703,6 +747,7 @@ def run_path(name, spec, mtx, fields, rng):
             entry=entry_point(dev.values.dtype, wd), nnz=dev.nnz,
             n_elements=dev.n_elements, ms=s_ms, plain_ms=s_plain_ms,
             gbps=s_bytes / s_ms / 1e6, plain_gbps=s_bytes / s_plain_ms / 1e6,
+            moved_bytes=s_bytes, bound_bytes=fn_bytes,
             max_abs_err=s_abs, rel_err=s_rel, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, library_error=lib_err)
     emit("path", path=name, matrix=spec, C=1024, sigma=1,
@@ -1045,17 +1090,21 @@ def fused_record(mtx, unscaled, value_type, card):
     ms, plain_ms, samples = time_pair(
         lambda: scs_solve.solve_scs(dev, x, k),
         lambda: scs_solve.solve_scs_plain(dev, x, k), reps=3)
-    # the bytes A^k x0 must move: the matrix stream once per iteration (at
-    # 117-176 MB it exceeds the 50 MB L2), x0 read once, the two returned
-    # vectors written once; the iterates between may stay in L2
-    nbytes = k * dev.stream_bytes() + 3 * x.numel() * x.element_size()
+    # the bytes A^k x0 must move: the matrix's own bytes once per iteration
+    # (at 117-176 MB it exceeds the 50 MB L2), x0 read once, the two
+    # returned vectors written once; the iterates between may stay in L2.
+    # Moved: the stored stream, padding included, once per iteration
+    nbytes = own_bytes(dev, op.n_rows, x, passes=k) \
+        + op.n_rows * x.element_size()
+    moved = k * dev.stream_bytes() + 3 * x.numel() * x.element_size()
     b_ms, b_by = bound(nbytes, k * op.flops_per_spmv(), x.dtype)
     rec = dict(max_abs_err=max_abs, rel_err=rel, ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library_error="no single PyTorch call computes A^k x",
                k=k, us_per_iteration=ms / k * 1e3,
                bound_us_per_iteration=b_ms / k * 1e3, bound_bytes=nbytes,
-               gbps_of_bound_bytes=nbytes / ms / 1e6, **samples)
+               moved_bytes=moved, gbps_of_bound_bytes=nbytes / ms / 1e6,
+               **samples)
     emit("fused_solve_kernel", entry=entry, matrix="Laplace3D,128",
          value_type=value_type, card=card, **rec)
     return entry, rec, main
@@ -1313,7 +1362,10 @@ def tier_stream_records(op, x, reps, tol, with_library):
         max_abs, rel = compare(y, plain(dev, x, layout), tol,
                                f"{entry} vs plain")
         plain_ms = time_ms(lambda: plain(dev, x, layout), reps)
-        nbytes = op.matrix_passes() * dev.stream_bytes() + xy_bytes
+        # bound: the function's own bytes; moved: the stored stream with
+        # its row-group records (or padding) once per pass
+        moved = op.matrix_passes() * dev.stream_bytes() + xy_bytes
+        nbytes = own_bytes(dev, op.n_rows, x, bs)
         b_ms, b_by = bound(nbytes, 2 * dev.nnz * bs, x.dtype)
         call, lib_err = None, "block vectors: not timed"
         if with_library and x.dim() == 1:
@@ -1332,8 +1384,8 @@ def tier_stream_records(op, x, reps, tol, with_library):
             stream=p, kind="packed" if packed else "scs", nnz=dev.nnz,
             n_elements=dev.nnz if packed else dev.n_elements,
             ms=med["kernel"], plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, bound_bytes=nbytes, max_abs_err=max_abs,
-            rel_err=rel, library_ms=med.get("library"),
+            bound_by=b_by, bound_bytes=nbytes, moved_bytes=moved,
+            max_abs_err=max_abs, rel_err=rel, library_ms=med.get("library"),
             library_error=lib_err, **turns)
         if packed:
             n_vec = x.shape[0] if x.dim() == 2 and layout == "colwise" else 1
@@ -1691,6 +1743,7 @@ def phase9(mtx, headline_ms, card):
         perf_sweep,
         tile_cost,
     )
+    from uspmv_tpu_torch.scripts.microbench import take_mul
 
     launches, records = {}, {}
     t0 = time.perf_counter()
@@ -1717,6 +1770,31 @@ def phase9(mtx, headline_ms, card):
             timed_on=f"gather_probe sweep, {key[0]} {key[1]}, x "
                      f"{4 * key[2] / 1e6:.1f} MB, {r['elements']} elements, "
                      "by a replayed CUDA graph")
+    # x_gather_fma in turns with microbench's take_mul (the gather and the
+    # product in one PyTorch expression; no one call computes the
+    # per-thread sums) on the sweep row's shape, by replayed graphs
+    mode, pattern, n_x = X_ACCESS["uspmv_x_gather_fma"][1]
+    n = sweep[(mode, pattern, n_x)]["elements"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = torch.randn(n, generator=gen, device="cuda")
+    xf = torch.randn(n_x, generator=gen, device="cuda")
+    idx = gather_probe.sweep_index(pattern, n, n_x, gen,
+                                   torch.device("cuda", 0))
+    part = torch.empty(x_access.fma_threads(n), device="cuda")
+    med, turns = time_turns({
+        "kernel": lambda: graph_ms(
+            lambda: x_access.gather_fma(xf, idx, v, part), 20),
+        "library": lambda: graph_ms(lambda: take_mul(v, xf, idx), 20)})
+    records["uspmv_x_gather_fma"].update(
+        ms=med["kernel"], library_ms=med["library"], library_error=None,
+        library_call="microbench take_mul: v * torch.index_select(x, 0, "
+                     "idx)",
+        timed_on=records["uspmv_x_gather_fma"]["timed_on"]
+        + ", in turns with take_mul (kernel, library, library, kernel)")
+    emit("x_gather_fma_vs_take_mul", elements=n, x_elems=n_x,
+         kernel_ms=med["kernel"], take_mul_ms=med["library"], **turns,
+         card=card)
+    del v, xf, idx, part
     # the kernels at a small, ragged size against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(9)
     n = 1000
@@ -2615,9 +2693,568 @@ def phase11(mtx, card):
     return launches
 
 
+# ----------------------------------------------------------------- phase 12
+
+PACK_REPLACES = "uspmv_tpu/parallel/distributed.py:940"  # jnp.take pack
+UNPACK_REPLACES = "uspmv_tpu/parallel/distributed.py:943"  # .at[].set
+PHASE12_DIR = os.path.join("build", "uspmv_tpu_torch", "phase12")
+HEADLINE_R4 = dict(kernel_format="scs", chunk_size=1024, sigma=1,
+                   value_type="sp", n_shards=4)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def worker_main(spec_json):
+    """One process of a phase 12 run (``chip_smoke.py --phase12-worker
+    SPEC``): join the run, build the sharded operator of ``matrix`` and
+    ``config`` with the launch counts set to 0, one op.spmv and to_host of
+    x from ``x_seed``, then (``rev``) a solve of rev repetitions from the
+    configuration's x validated against scipy on process 0, then (``reps``)
+    the SpMV by a loop of launches and the transfer's parts timed; the
+    counts read after. Process 0 saves y; every process writes its JSON
+    record to ``out``.<pid>.json."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from uspmv_tpu_torch import Config
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+    from uspmv_tpu_torch.ops.vectors import init_x_host
+    from uspmv_tpu_torch.parallel import multihost
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime.validate import validate_solve
+
+    spec = json.loads(spec_json)
+    pid = spec["pid"]
+    info = multihost.initialize(spec["coordinator"], spec["n"], pid,
+                                spec["local_devices"], backend="cuda")
+    rec = dict(process=pid, multihost=info)
+    try:
+        wrappers = (scs_spmv, scs_packed, scs_pieces, hx)
+        for w in wrappers:
+            w.reset_launch_count()
+        mtx = generate_matrix(spec["matrix"])
+        t0 = time.perf_counter()
+        cfg = Config(backend="cuda", **spec["config"])
+        op = DistributedSpmvOperator.from_mtx(cfg, mtx)
+        torch.cuda.synchronize()
+        rec.update(build_s=time.perf_counter() - t0, impl=op.impl_name(),
+                   shards=[op.shards.start, op.shards.stop],
+                   per_host=op.comm_volume_per_host(),
+                   solve_impl=op.solve_impl_name(5))
+        x_host = np.random.default_rng(spec["x_seed"]).standard_normal(
+            mtx.n_rows)
+        x = op.make_x(x_host)
+        y_host = op.to_host(op.spmv(x))
+        if pid == 0:
+            np.save(spec["out"] + ".y.npy", y_host)
+        if spec.get("rev"):
+            x0 = init_x_host(cfg, op.n_rows, op.matrix_stats,
+                             dtype=np.float64)
+            _, ys = op.solve(op.make_x(x0), spec["rev"])
+            got = op.to_host(ys)
+            if pid == 0:
+                np.save(spec["out"] + ".ys.npy", got)
+                rep = validate_solve(mtx, x0, np.asarray(got, np.float64),
+                                     spec["rev"], value_type=cfg.value_type,
+                                     hp_nnz_fraction=op.hp_nnz_fraction())
+                rec.update(flag=rep.flag, max_rel_diff=rep.max_rel_diff,
+                           rel_l2=rep.rel_l2, validation=rep.summary())
+        launches = {}
+        for w in wrappers:
+            launches.update({k: n for k, n in w.launch_counts().items()
+                             if n})
+        rec["main_path_launches"] = launches
+        if spec.get("reps"):
+            rec.update(time_worker(op, x, spec["reps"]))
+    finally:
+        multihost.shutdown()
+    with open(f"{spec['out']}.{pid}.json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def time_worker(op, x, reps):
+    """The SpMV by a loop of ``reps`` launches (CUDA events, the largest
+    of the processes), and the parts of precision sp's transfer, each
+    ``reps`` times: the pack kernel and the unpack kernel (events), and
+    under gloo the copy out (to the pinned buffer, the host waiting on it),
+    the gloo all-to-all and the copy in (host clock); under NCCL the
+    all-to-all on the card's buffers (events); then the whole transfer
+    (pack, move, unpack) by the host clock."""
+    import torch
+    import torch.distributed as dist
+
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.parallel import multihost
+
+    def events(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        multihost.agree_max(0.0)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return multihost.agree_max(start.elapsed_time(end) / reps)
+
+    def host(fn):
+        torch.cuda.synchronize()
+        multihost.agree_max(0.0)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return multihost.agree_max((time.perf_counter() - t0) / reps * 1e3)
+
+    y = torch.zeros_like(x)
+    for _ in range(10):
+        op.spmv(x, out=y)
+    out = dict(spmv_loop_ms=events(lambda: op.spmv(x, out=y)),
+               spmv_loop_host_ms=host(lambda: op.spmv(x, out=y)))
+    tr, b = op.transfers["sp"], op._tbufs["sp"]
+    layout = op.config.vector_layout
+    out["pack_ms"] = events(lambda: hx.halo_pack(tr, x, b["send"], layout))
+    out["unpack_ms"] = events(lambda: hx.halo_unpack(tr, b["recv"], x,
+                                                     layout))
+
+    def move():
+        dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
+                               tr.send_counts)
+
+    if "host_send" in b:
+        def copy_out():
+            b["host_send"].copy_(b["send"], non_blocking=True)
+            b["copied_out"].record()
+            b["copied_out"].synchronize()
+
+        def gloo():
+            dist.all_to_all_single(b["host_recv"], b["host_send"],
+                                   tr.recv_counts, tr.send_counts)
+
+        out.update(copy_out_ms=host(copy_out), gloo_ms=host(gloo),
+                   copy_in_ms=host(lambda: b["recv"].copy_(
+                       b["host_recv"], non_blocking=True)))
+    else:
+        out["nccl_ms"] = events(move)
+    out["transfer_ms"] = host(lambda: op._receive("sp", x, op._send("sp", x)))
+    out.update(n_send=tr.n_send, n_recv=tr.n_recv,
+               transport=multihost.transport())
+    return out
+
+
+def run_workers(spec, n, local_devices, one_card):
+    """Start n worker processes of ``spec`` (``one_card``: all on cuda:0,
+    the card shared through gloo). Returns (the processes, the path prefix
+    of their files) for ``worker_records``."""
+    os.makedirs(PHASE12_DIR, exist_ok=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(here, PHASE12_DIR, spec["name"])
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    if one_card:
+        env["CUDA_VISIBLE_DEVICES"] = "0"
+    procs = []
+    for pid in range(n):
+        job = dict(spec, pid=pid, n=n, local_devices=local_devices,
+                   coordinator=f"127.0.0.1:{port}", out=out)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--phase12-worker", json.dumps(job)], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, out
+
+
+def wait_all(procs, timeout=300):
+    """The outputs of ``procs``; every one is killed when one outlives
+    ``timeout`` or after the wait, so no process outlives the phase."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def worker_records(procs_out, what):
+    """Wait for the workers of ``run_workers``: (their records, process 0's
+    y, the path prefix of their files); raises where one failed."""
+    import numpy as np
+
+    procs, out = procs_out
+    rcs, outs = wait_all(procs)
+    require(rcs == [0] * len(procs),
+            f"{what}: worker rcs {rcs}: {[o[-1500:] for o in outs]}")
+    recs = []
+    for pid in range(len(procs)):
+        with open(f"{out}.{pid}.json") as f:
+            recs.append(json.load(f))
+    return recs, np.load(out + ".y.npy"), out
+
+
+def cli_processes(argv, n, local_devices):
+    """The CLI line on n processes sharing cuda:0 (gloo through pinned
+    host buffers)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="0")
+    return [subprocess.Popen(
+        [sys.executable, "-m", "uspmv_tpu_torch.cli", *argv,
+         "-coordinator", f"127.0.0.1:{port}", "-n_processes", str(n),
+         "-process_id", str(pid), "-local_devices", str(local_devices)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for pid in range(n)]
+
+
+def transfer_record(op, dtype, card):
+    """Phase 12a: process 0's pack and unpack of ``op``'s sp plan split
+    over 2 processes of 2 shards, on x of ``dtype``: each bit-equal to its
+    plain version, then the kernel, the plain version and the library call
+    (index_select for the pack, index_copy_ for the unpack) timed by
+    replayed CUDA graphs in turns. Returns {entry point: record}."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.parallel.halo import split_exchange_rows
+
+    L = op.lengths["sp"]
+    _, _, send, recv = split_exchange_rows(op.halo_plans["sp"], L,
+                                           np.array([0, 0, 1, 1]), 0)
+    cuda = torch.device("cuda", 0)
+    tr = hx.build_device_transfer(send, recv, 2, L, True, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, L), generator=gen, device=cuda).to(dtype)
+    flat = x.view(-1)
+    buf = torch.zeros(tr.n_send, dtype=dtype, device=cuda)
+    inc = torch.randn(tr.n_recv, generator=gen, device=cuda).to(dtype)
+    recv64 = tr.recv.long()
+    got = hx.halo_pack(tr, x, buf.clone())
+    want = hx.halo_pack_plain(tr, x, buf.clone())
+    got_u = hx.halo_unpack(tr, inc, x.clone())
+    want_u = hx.halo_unpack_plain(tr, inc, x.clone())
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"pack {dtype} != its plain version")
+    require(torch.equal(got_u, want_u),
+            f"unpack {dtype} != its plain version")
+    require(not torch.equal(got_u, x), f"unpack {dtype} wrote nothing")
+    xu = x.clone()
+    flat_u = xu.view(-1)
+    recs = {}
+    for kind, n, kernel, plain, library, err in (
+            ("pack", tr.n_send,
+             lambda: hx.halo_pack(tr, x, buf),
+             lambda: hx.halo_pack_plain(tr, x, buf),
+             lambda: torch.index_select(flat, 0, tr.send, out=buf),
+             (got - want).abs().max().item()),
+            ("unpack", tr.n_recv,
+             lambda: hx.halo_unpack(tr, inc, xu),
+             lambda: hx.halo_unpack_plain(tr, inc, xu),
+             lambda: flat_u.index_copy_(0, recv64, inc),
+             (got_u - want_u).abs().max().item())):
+        med, samples = time_turns({
+            "kernel": lambda: graph_ms(kernel, 200),
+            "plain": lambda: graph_ms(plain, 200),
+            "library": lambda: graph_ms(library, 200)})
+        nbytes = tr.bound_bytes(x.element_size(), pack=kind == "pack")
+        b_ms, b_by = bound(nbytes, 0, x.dtype)
+        table = (hx.PACK_ENTRY_POINTS if kind == "pack"
+                 else hx.UNPACK_ENTRY_POINTS)
+        rec = dict(entry=table[dtype], kind=kind, rows=n, max_abs_err=err,
+                   ms=med["kernel"], plain_ms=med["plain"],
+                   library_ms=med["library"], library_error=None,
+                   library_call=("torch.index_select" if kind == "pack"
+                                 else "Tensor.index_copy_"),
+                   bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                   timed_on="phase 12a, Laplace3D-128 sp R=4 seg-rows, "
+                            "process 0 of 2 (shards 0-1): its rows to "
+                            "send or receive, replayed CUDA graphs")
+        emit("halo_transfer_kernel", card=card, **rec, **samples)
+        recs[rec["entry"]] = rec
+    return recs
+
+
+def transfer_kernels(launches, records):
+    """The kernels line's entries of the pack and unpack kernels."""
+    out = []
+    for entry, rec in records.items():
+        require(launches.get(entry, 0) > 0, f"{entry} never launched")
+        out.append({
+            "name": entry.replace("uspmv_", ""), "route": "cuda",
+            "source": EXCHANGE_SOURCE,
+            "replaces": (PACK_REPLACES if rec["kind"] == "pack"
+                         else UNPACK_REPLACES),
+            "replaces_kind": "XLA hot path (jnp.take / .at[].set around a "
+                             "ppermute that crosses a process), not a "
+                             "Pallas kernel",
+            "launches": launches[entry],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_call": rec["library_call"],
+            "library_error": rec["library_error"],
+            "timed_on": rec["timed_on"], "rows": rec["rows"],
+            "bound_bytes": rec["bound_bytes"],
+        })
+    return out
+
+
+def nccl_runs(b_spec, y4, mtx, card, ref_ms):
+    """Phase 12d: the run of 12b over NCCL, one process per card, 2 x 2
+    shards and, with four cards, 4 x 1: y bit-equal to the one-process
+    R=4 operator's (``y4``), the SpMV by a loop of launches beside
+    ``ref_ms`` (the one-process R=4 and single-device loops) and the
+    transfer's parts. On one card a line says why it did not run. Returns
+    the workers' records."""
+    import numpy as np
+    import torch
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        emit("multiprocess_nccl", skipped=True, device_count=n_cards,
+             reason="one card: NCCL refuses two ranks on one device "
+                    "(Duplicate GPU detected), so the processes of 12b and "
+                    "12c share it over gloo; NCCL needs a card per process",
+             card=card)
+        return []
+    out = []
+    for n, D in ((2, 2), (4, 1)):
+        if n > n_cards:
+            continue
+        recs, y, _ = worker_records(
+            run_workers(dict(b_spec, name=f"12d-{n}"), n, D,
+                        one_card=False), f"12d {n}")
+        require(np.array_equal(y, y4),
+                f"12d: y of {n} processes over NCCL != one process")
+        r0 = recs[0]
+        require(r0["transport"] == "nccl", f"12d: {r0['transport']}")
+        emit("multiprocess_nccl", skipped=False, processes=n,
+             shards_per_process=D, device_count=n_cards,
+             bit_equal_to_one_process=True, impl=r0["impl"],
+             devices=[r["multihost"]["device"] for r in recs],
+             spmv_loop_ms=r0["spmv_loop_ms"],
+             spmv_loop_host_ms=r0["spmv_loop_host_ms"],
+             gflops=2 * mtx.nnz / r0["spmv_loop_ms"] / 1e6,
+             one_process_r4_loop_ms=ref_ms["one_process_r4"],
+             single_device_loop_ms=ref_ms["single_device"],
+             pack_ms=r0["pack_ms"], unpack_ms=r0["unpack_ms"],
+             nccl_ms=r0["nccl_ms"], transfer_ms=r0["transfer_ms"],
+             rows_sent=[r["n_send"] for r in recs],
+             main_path_launches=[r["main_path_launches"] for r in recs],
+             card=card)
+        out += recs
+    return out
+
+
+def references(mtx, x_seed):
+    """The one-process R=4 and single-device operators of the headline, y4
+    of the R=4 one from the seeded x, and both SpMVs by a loop of 200
+    launches in turns: (op4, y4, {name: median ms}, samples)."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+
+    op4 = DistributedSpmvOperator.from_mtx(
+        Config(backend="cuda", **HEADLINE_R4), mtx)
+    single = SpmvOperator.from_mtx(Config(
+        backend="cuda", **{k: v for k, v in HEADLINE_R4.items()
+                           if k != "n_shards"}), mtx)
+    x_host = np.random.default_rng(x_seed).standard_normal(mtx.n_rows)
+    x4, xs = op4.make_x(x_host), single.make_x(x_host)
+    y4 = op4.to_host(op4.spmv(x4))
+    yo4, yos = torch.zeros_like(x4), torch.zeros_like(xs)
+    med, samples = time_turns({
+        "one_process_r4": lambda: time_ms(
+            lambda: op4.spmv(x4, out=yo4), 200),
+        "single_device": lambda: time_ms(
+            lambda: single.spmv(xs, out=yos), 200)})
+    return op4, y4, med, samples
+
+
+def phase12_nccl_only(mtx, card):
+    """``--only 12d``: the references of 12b and the NCCL runs alone."""
+    _, y4, med, _ = references(mtx, 12)
+    b_spec = dict(name="12b", matrix="Laplace3D,128", config=HEADLINE_R4,
+                  x_seed=12, reps=200)
+    nccl_runs(b_spec, y4, mtx, card, med)
+
+
+def phase12(mtx, card):
+    """Phase 12: the sharded operator over processes (parallel/multihost.py)
+    on the card. ``mtx`` is the headline's Laplace3D-128. Returns (the pack
+    and unpack launches of the workers' main path, per entry point, {entry
+    point: its record for the kernels line})."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops.vectors import init_x_host
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime.validate import validate_solve
+    from uspmv_tpu_torch.scripts import solve_diag
+
+    t_phase = time.perf_counter()
+    launches, records = {}, {}
+
+    def add_launches(recs):
+        for r in recs:
+            for k, n in r["main_path_launches"].items():
+                if k.startswith(("uspmv_halo_pack", "uspmv_halo_unpack")):
+                    launches[k] = launches.get(k, 0) + n
+
+    # ---- 12a. pack and unpack against their plain versions; and the
+    # references of 12b: the one-process R=4 and single-device operators
+    # by a loop of launches (before the workers start: nothing else runs
+    # on the card while they are timed)
+    x_seed = 12
+    op4, y4, med, samples = references(mtx, x_seed)
+    for dtype in (torch.float32, torch.float64):
+        records.update(transfer_record(op4, dtype, card))
+
+    # ---- 12b. the headline as 2 processes x 2 shards on cuda:0 (gloo)
+    b_spec = dict(name="12b", matrix="Laplace3D,128", config=HEADLINE_R4,
+                  x_seed=x_seed, reps=200)
+    recs, y, _ = worker_records(run_workers(b_spec, 2, 2, one_card=True),
+                                "12b")
+    require(np.array_equal(y, y4),
+            "12b: y of 2 processes != the one-process R=4 operator's")
+    add_launches(recs)
+    require(all(any(k.startswith("uspmv_halo_pack") for k in
+                    r["main_path_launches"]) for r in recs),
+            f"12b: a process never packed: {recs}")
+    r0 = recs[0]
+    emit("multiprocess_headline", matrix="Laplace3D,128", processes=2,
+         shards_per_process=2, transport=r0["transport"],
+         impl=r0["impl"], solve_impl=r0["solve_impl"],
+         bit_equal_to_one_process=True,
+         build_s=[r["build_s"] for r in recs],
+         spmv_loop_ms=r0["spmv_loop_ms"],
+         spmv_loop_host_ms=r0["spmv_loop_host_ms"],
+         gflops=2 * mtx.nnz / r0["spmv_loop_ms"] / 1e6,
+         one_process_r4_loop_ms=med["one_process_r4"],
+         single_device_loop_ms=med["single_device"], **samples,
+         pack_ms=r0["pack_ms"], unpack_ms=r0["unpack_ms"],
+         copy_out_ms=r0["copy_out_ms"], gloo_ms=r0["gloo_ms"],
+         copy_in_ms=r0["copy_in_ms"], transfer_ms=r0["transfer_ms"],
+         rows_sent=[r["n_send"] for r in recs],
+         per_host=r0["per_host"],
+         main_path_launches=[r["main_path_launches"] for r in recs],
+         card=card)
+
+    # ---- 12b (the CLI) and 12c, at once
+    out_dir = os.path.abspath(os.path.join(PHASE12_DIR, "cli"))
+    os.makedirs(out_dir, exist_ok=True)
+    head = ["Laplace3D,128", "scs", "-c", "1024", "-sp", "-n_shards", "4",
+            "-mtx_out", out_dir]
+    clis = {
+        "solve": cli_processes([*head, "-mode", "s", "-validate", "1",
+                                "-verbose", "1"], 2, 2),
+        "bench": cli_processes([*head, "-mode", "b", "-bench_time", "0.3",
+                                "-print_comm_vol", "1", "-verbose", "1"],
+                               2, 2),
+    }
+    c_spec = dict(name="12c", matrix="Laplace3D,64", x_seed=13, rev=2,
+                  config=dict(kernel_format="crs", chunk_size=1, sigma=1,
+                              value_type="dp", random_init_x=True,
+                              n_shards=4))
+    c_workers = run_workers(c_spec, 4, 1, one_card=True)
+    try:
+        cli_out = {k: wait_all(p) for k, p in clis.items()}
+    finally:
+        for p in [q for ps in clis.values() for q in ps]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    c_recs, c_y, c_out = worker_records(c_workers, "12c")
+    for k, (rcs, outs) in cli_out.items():
+        require(rcs == [0, 0], f"12b CLI {k}: rcs {rcs}: {outs[0][-2000:]}")
+    solve_out, bench_out = cli_out["solve"][1][0], cli_out["bench"][1][0]
+    require("[OK]" in solve_out and "gloo-staged" in solve_out,
+            f"12b CLI solve: {solve_out[-2000:]}")
+    require("[OK]" not in cli_out["solve"][1][1], "12b: process 1 printed")
+    require("host0=" in bench_out and "host1=" in bench_out
+            and "shard 3:" in bench_out, f"12b CLI bench: {bench_out[-2000:]}")
+    emit("multiprocess_cli", solve=[ln for ln in solve_out.splitlines()
+                                    if "impl:" in ln or "[OK]" in ln
+                                    or "[multihost]" in ln],
+         bench=[ln for ln in bench_out.splitlines()
+                if "per host" in ln or "shard" in ln or "perf:" in ln
+                or "comm volume" in ln], card=card)
+    c0 = c_recs[0]
+    # the same run in one process: the process count must change no bit.
+    # Per element, dp CRS on Laplace3D-64 from a random x is 1e-12 off
+    # scipy in one process as well (rows whose sum nearly cancels), so the
+    # reference's dp unit tolerance 1e-13 holds the relative L2 norm
+    m64 = generate_matrix(c_spec["matrix"])
+    one_cfg = Config(backend="cuda", **c_spec["config"])
+    one = DistributedSpmvOperator.from_mtx(one_cfg, m64)
+    x0 = init_x_host(one_cfg, one.n_rows, one.matrix_stats,
+                     dtype=np.float64)
+    y1 = one.to_host(one.spmv(one.make_x(np.random.default_rng(
+        c_spec["x_seed"]).standard_normal(m64.n_rows))))
+    ys1 = one.to_host(one.solve(one.make_x(x0), c_spec["rev"])[1])
+    rep1 = validate_solve(m64, x0, ys1, c_spec["rev"], value_type="dp")
+    require(np.array_equal(c_y, y1)
+            and np.array_equal(np.load(c_out + ".ys.npy"), ys1),
+            "12c: y of 4 processes != the one-process operator's")
+    require(c0["flag"] == "OK" and c0["rel_l2"] < 1e-13
+            and c0["max_rel_diff"] == rep1.max_rel_diff,
+            f"12c: {c0.get('validation')} (one process: {rep1.summary()})")
+    require(c0["impl"] == "cuda-dist4-scs-dp", f"12c runs {c0['impl']}")
+    add_launches(c_recs)
+    emit("multiprocess_one_shard_each", matrix="Laplace3D,64", processes=4,
+         impl=c0["impl"], transport=c0["multihost"]["transport"],
+         validation=c0["validation"], max_rel_diff=c0["max_rel_diff"],
+         rel_l2=c0["rel_l2"], one_process_validation=rep1.summary(),
+         bit_equal_to_one_process=True,
+         main_path_launches=[r["main_path_launches"] for r in c_recs],
+         card=card)
+    del one, m64
+
+    # ---- 12d. NCCL, one process per card
+    add_launches(nccl_runs(b_spec, y4, mtx, card, med))
+    del op4
+    torch.cuda.empty_cache()
+
+    # ---- 12e. solve_diag: launch cost against per-iteration cost
+    rows = solve_diag.run(solve_diag.build_parser().parse_args(
+        ["Laplace3D,128", "FemTet3D,9", "--out",
+         os.path.join(PHASE12_DIR, "solve_diag.jsonl")]))
+    modes = {(r["matrix"], r["mode"]) for r in rows}
+    require({(m, k) for m in ("Laplace3D,128", "FemTet3D,9")
+             for k in ("loop", "graph", "fused")} <= modes,
+            f"12e: solve_diag ran {sorted(modes)}")
+    for r in rows:
+        emit("solve_diag", card=card, **r)
+    for k in ("uspmv_halo_pack_f32", "uspmv_halo_unpack_f32",
+              "uspmv_halo_pack_f64", "uspmv_halo_unpack_f64"):
+        require(launches.get(k, 0) > 0, f"phase 12: {k} never launched")
+    emit("phase12", seconds=time.perf_counter() - t_phase,
+         transfer_launches=launches)
+    return launches, records
+
+
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--phase12-worker"]:
+        return worker_main(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 2
@@ -2670,6 +3307,22 @@ def main():
             == set(ROW_SUM_KERNELS),
             f"cuobjdump: row-sum kernels missing from {resources}")
     emit("kernel_resources", kernels=resources)
+
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:3] in (["12"], ["12d"]):
+        # phase 12 alone, or its NCCL runs alone (on a host with several
+        # cards); the kernels line holds the pack and unpack entries
+        if sys.argv[2] == "12d":
+            phase12_nccl_only(laplace3d(128), card)
+            kernels = []
+        else:
+            kernels = transfer_kernels(*phase12(laplace3d(128), card))
+        emit("done", seconds_total=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     rng = np.random.default_rng(0)
 
@@ -2732,8 +3385,11 @@ def main():
     x = op.make_x(x_host)
     y, max_abs, rel = kernel_vs_plain(dev, x, TOL["sp"], "headline")
     rel_scipy = vs_scipy(op, mtx, x_host, y, TOL["sp"], "headline")
+    # bound: the function's own bytes; moved: bytes_per_spmv, the stored
+    # stream with its padding and chunk metadata
     flops, nbytes = op.flops_per_spmv(), op.bytes_per_spmv()
-    b_ms, b_by = bound(nbytes, flops, x.dtype)
+    fn_bytes = own_bytes(dev, op.n_rows, x)
+    b_ms, b_by = bound(fn_bytes, flops, x.dtype)
     lib_ms, lib_err, samples = sell_vs_library(dev, op, x, y, 200)
     ms, plain_ms = samples.pop("kernel_ms"), samples.pop("plain_ms")
     emit("headline", matrix="Laplace3D,128", C=1024, sigma=1,
@@ -2748,7 +3404,8 @@ def main():
          kernel_gbps=nbytes / ms / 1e6,
          plain_ms=plain_ms, plain_gflops=flops / plain_ms / 1e6,
          plain_gbps=nbytes / plain_ms / 1e6, **samples,
-         bytes_per_spmv=nbytes, max_abs_err=max_abs, rel_err=rel,
+         bytes_per_spmv=nbytes, moved_bytes=nbytes, bound_bytes=fn_bytes,
+         max_abs_err=max_abs, rel_err=rel,
          rel_err_vs_scipy=rel_scipy, bound_ms=b_ms, bound_by=b_by,
          library_ms=lib_ms, library_error=lib_err, card=card)
     headline_ms = ms
@@ -2767,13 +3424,15 @@ def main():
     y, max_abs, rel = kernel_vs_plain(dev, x, TOL["sp"], "large x")
     rel_scipy = vs_scipy(op, big, x_host, y, TOL["sp"], "large x")
     rep, _ = validated_solve(op, big, 1, "large-x solve")
-    b_ms, b_by = bound(op.bytes_per_spmv(), op.flops_per_spmv(), x.dtype)
+    fn_bytes = own_bytes(dev, op.n_rows, x)
+    b_ms, b_by = bound(fn_bytes, op.flops_per_spmv(), x.dtype)
     lib_ms, lib_err, samples = sell_vs_library(dev, op, x, y, 100)
     ms, plain_ms = samples.pop("kernel_ms"), samples.pop("plain_ms")
     emit("large_x", matrix="Laplace3D,160", n_rows=op.n_rows, nnz=op.nnz,
          x_bytes=op.n_rows_padded * 4, max_abs_err=max_abs, rel_err=rel,
          rel_err_vs_scipy=rel_scipy, validation=rep.summary(),
          kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+         bound_bytes=fn_bytes, moved_bytes=op.bytes_per_spmv(),
          library_ms=lib_ms, library_error=lib_err, **samples, card=card)
     del op, dev, x, y, big
     torch.cuda.empty_cache()
@@ -2851,6 +3510,9 @@ def main():
 
     # ---- 11. the auxiliaries: ScaMaC/Stokes, bcoo, xla, flags, native
     phase11(mtx, card)
+
+    # ---- 12. the sharded operator over processes: pack, transfer, unpack
+    mh_launches, mh_records = phase12(mtx, card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():
@@ -2935,6 +3597,7 @@ def main():
             "timed_on": rec["timed_on"], "pairs": rec["pairs"],
             "bound_bytes": rec["bound_bytes"],
         })
+    kernels += transfer_kernels(mh_launches, mh_records)
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

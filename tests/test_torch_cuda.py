@@ -939,6 +939,79 @@ def test_halo_exchange_bit_equal_to_plain(cuda, dtype, layout, bs):
     assert not torch.equal(got, x)
 
 
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
+                                       ("colwise", 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_halo_pack_and_unpack_bit_equal_to_plain(cuda, dtype, layout, bs):
+    """Process 0's side of a run of 2 processes of 2 shards each: its rows
+    to send, packed, and its rows to receive, unpacked, each one launch
+    bit-equal to the plain version (index_select / index_copy_)."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.parallel.halo import split_exchange_rows
+
+    op = sharded(laplace2d(64), cuda, block_vec_size=bs, vector_layout=layout,
+                 seg_method="seg-nnz")
+    L = op.lengths["sp"]
+    _, _, send, recv = split_exchange_rows(op.halo_plans["sp"], L,
+                                           np.array([0, 0, 1, 1]), 0)
+    tr = hx.build_device_transfer(send, recv, 2, L, True, cuda)
+    assert tr.n_send == tr.n_recv == 64
+    gen = torch.Generator(device=cuda).manual_seed(bs)
+    shape = ((2, L) if bs == 1 else (bs, 2, L) if layout == "colwise"
+             else (2, L, bs))
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    buf = torch.zeros(tr.buffer_shape(tr.n_send, bs), dtype=dtype,
+                      device=cuda)
+    pack, unpack = hx.PACK_ENTRY_POINTS[dtype], hx.UNPACK_ENTRY_POINTS[dtype]
+    before = hx.launch_counts()
+    hx.halo_pack(tr, x, buf, layout)
+    inc = torch.randn(tr.buffer_shape(tr.n_recv, bs), generator=gen,
+                      device=cuda).to(dtype)
+    got = hx.halo_unpack(tr, inc, x.clone(), layout)
+    torch.cuda.synchronize()
+    after = hx.launch_counts()
+    assert after[pack] == before[pack] + 1
+    assert after[unpack] == before[unpack] + 1
+    assert torch.equal(buf, hx.halo_pack_plain(tr, x, torch.empty_like(buf),
+                                               layout))
+    assert torch.equal(got, hx.halo_unpack_plain(tr, inc, x.clone(), layout))
+    assert not torch.equal(got, x)
+
+
+def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
+    """Two processes of the CLI on one card: NCCL refuses two ranks on one
+    device, so the transport is gloo through pinned host buffers; the
+    solve validates on process 0."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "uspmv_tpu_torch.cli", "Laplace2D,64", "scs",
+         "-c", "32", "-sp", "-n_shards", "4", "-mode", "s", "-rev", "3",
+         "-validate", "1", "-verbose", "1", "-mtx_out", str(tmp_path),
+         "-coordinator", f"127.0.0.1:{port}", "-n_processes", "2",
+         "-process_id", str(pid), "-local_devices", "2"],
+        cwd=repo, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "'transport': 'gloo-staged'" in outs[0], outs[0]
+    assert "impl: solve-loop[cuda-dist4-" in outs[0] and "[OK]" in outs[0]
+    assert "[OK]" not in outs[1]
+
+
 SHARDED_CASES = {
     "sp-overlap": dict(),
     "sp-no-overlap": dict(overlap_comm=False),

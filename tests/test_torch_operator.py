@@ -288,9 +288,23 @@ def test_scs_explosion_guard_matches_jax(heavy):
 @pytest.mark.parametrize("flags", [
     ["-n_processes", "2"], ["-coordinator", "localhost:1234"],
     ["-process_id", "0"], ["-local_devices", "2"]])
-def test_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        cli.main(["Tridiag,10", "crs", "-backend", "cpu", *flags])
+def test_cli_unported_flags_raise(flags, monkeypatch, tmp_path):
+    """The multi-host flags are ported (slice 11). Without their partners
+    they raise the JAX package's ValueError before any process group
+    starts (a process count or id needs a coordinator, a coordinator
+    needs both); -local_devices alone runs the one process."""
+    import torch.distributed as dist
+
+    for var in ("USPMV_COORDINATOR", "USPMV_N_PROCESSES", "USPMV_PROCESS_ID"):
+        monkeypatch.delenv(var, raising=False)
+    argv = ["Tridiag,10", "crs", "-backend", "cpu", "-mode", "s",
+            "-mtx_out", str(tmp_path), *flags]
+    if flags[0] == "-local_devices":
+        assert cli.main(argv) == 0
+    else:
+        with pytest.raises(ValueError, match="-coordinator"):
+            cli.main(argv)
+    assert not dist.is_initialized()
 
 
 # CLI flags of slice 10 that raised before they were ported

@@ -12,7 +12,13 @@ solve mode (-mode s, validated against scipy) run every precision (-dp,
 -equilibrate, -jacobi_scale, -dropout, -split_rows_threshold and
 -mixed_tiles, and row-sharded execution (-n_shards R > 1: R shards on the
 one device, -seg_method, -comm_mode, -comm_halos, -no_pack, -overlap,
--print_comm_vol); solve mode runs the operator's ``solve`` (one CUDA graph
+-print_comm_vol), also across processes (-coordinator HOST:PORT
+-n_processes P -process_id p, or their USPMV_* environment variables, or
+torchrun's: every process runs the same line; -local_devices D shards per
+process, default ceil(R / P); NCCL where each process has a card of its
+own, gloo through host buffers where processes share one, gloo with
+-backend cpu; process 0 alone prints and writes the result, -verbose 1
+prints the run as a [multihost] line); solve mode runs the operator's ``solve`` (one CUDA graph
 of the -rev launches on a GPU, the fused solve kernel when
 ``USPMV_FUSED_SOLVE`` is set and an unsharded operator is eligible, a loop
 on the CPU) and prints which one ran. -impl bcoo runs the vendor
@@ -21,9 +27,8 @@ plain PyTorch path on the chosen device; -matrix_stats prints the matrix
 statistics and exits, -output_sparsity dumps each precision's matrix as
 .mtx into -mtx_out and exits, -debug 1 writes the sanity checker's solve
 dumps there, and -log_prof DIR writes a torch.profiler Chrome trace of the
-bench loop into DIR. The multi-host flags raise NotImplementedError. With
--backend cuda on a host without a GPU the CLI prints one line and exits
-with rc 3.
+bench loop into DIR. With -backend cuda on a host without a GPU the CLI
+prints one line and exits with rc 3.
 """
 
 from __future__ import annotations
@@ -213,17 +218,6 @@ def translate_reference_flags(argv):
     return out
 
 
-def _check_cli_slice(args) -> None:
-    """The CLI flags of a later slice: multi-host execution."""
-    if (args.coordinator is not None or args.n_processes is not None
-            or args.process_id is not None or args.local_devices is not None):
-        raise NotImplementedError(
-            "uspmv_tpu_torch does not port multi-host execution "
-            "(-coordinator, -n_processes, -process_id, -local_devices; "
-            "slice 11) yet"
-        )
-
-
 def main(argv=None) -> int:
     from .runtime.operator import DeviceUnavailableError
 
@@ -243,11 +237,34 @@ def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     cfg.validate()
-    _check_cli_slice(args)
 
+    import os
+
+    from .parallel import multihost
+
+    if (args.coordinator or args.n_processes is not None
+            or args.process_id is not None
+            or os.environ.get("USPMV_COORDINATOR")):
+        info = multihost.initialize(
+            args.coordinator, args.n_processes, args.process_id,
+            local_devices=args.local_devices, backend=cfg.backend)
+        try:
+            return _run(args, cfg, info["process_id"] == 0, info)
+        finally:
+            multihost.shutdown()
+    return _run(args, cfg, True)
+
+
+def _run(args, cfg: Config, primary: bool, info=None) -> int:
+    """The CLI after the bootstrap. ``primary``: process 0 of a run of
+    processes (or the one process), which alone prints the result and
+    writes its files."""
+    if cfg.verbose and primary and info is not None:
+        print(f"[multihost] {info}")
     mtx = load_matrix(args.matrix)
     if args.matrix_stats:
-        print(get_matrix_stats(mtx).summary())
+        if primary:
+            print(get_matrix_stats(mtx).summary())
         return 0
 
     from .runtime.bench import bench_spmv
@@ -272,33 +289,36 @@ def _main(argv=None) -> int:
         op = SpmvOperator.from_mtx(cfg, mtx)
 
     if args.output_sparsity:
-        # reference OUTPUT_SPARSITY: dump per-precision SCS and exit
-        for path in op.dump_sparsity(cfg.output_dir):
-            print(f"wrote {path}")
+        # reference OUTPUT_SPARSITY: dump per-precision SCS and exit; an
+        # operator spread over processes writes each process's own shards
+        if primary or getattr(op, "n_processes", 1) > 1:
+            for path in op.dump_sparsity(cfg.output_dir):
+                print(f"wrote {path}")
         return 0
 
     if cfg.mode == "b":
         from .runtime import profiling
 
-        on = args.log_prof is not None
+        on = args.log_prof is not None and primary
         with profiling.trace(args.log_prof, enabled=on):
             with profiling.marker(profiling.kernel_marker_name(cfg),
                                   enabled=on):
                 res = bench_spmv(op)
         if on:
             print(f"[log_prof] trace -> {profiling.last_trace_path()}")
-        write_bench_to_file(cfg, res)
-        if args.json:
-            print(json.dumps(res.to_dict()))
-        else:
-            print(format_bench_block(cfg, res))
+        if primary:  # reference: rank 0 writes (main.cpp:1772-1800)
+            write_bench_to_file(cfg, res)
+            if args.json:
+                print(json.dumps(res.to_dict()))
+            else:
+                print(format_bench_block(cfg, res))
         return 0
 
     # solve mode
     from .ops.vectors import init_x_host
 
     checker = None
-    if cfg.debug_mode:
+    if cfg.debug_mode and primary:
         from .runtime.sanity import SanityChecker
 
         checker = SanityChecker(cfg.output_dir)
@@ -311,8 +331,10 @@ def _main(argv=None) -> int:
     solve_impl = (f"solve-{op.solve_impl_name(cfg.n_repetitions)}"
                   f"[{op.impl_name()}]")
     xd = op.make_x(x0)
-    if checker:
-        checker.dump_stage("before_solve", x=op.to_host(xd))
+    if cfg.debug_mode:
+        x_dump = op.to_host(xd)  # a collective across processes
+        if checker:
+            checker.dump_stage("before_solve", x=x_dump)
     _, y = op.solve(xd, cfg.n_repetitions)
     y_host = op.to_host(y)
     if checker:
@@ -336,15 +358,18 @@ def _main(argv=None) -> int:
             cfg.n_repetitions, value_type=cfg.value_type,
             hp_nnz_fraction=op.hp_nnz_fraction(),
         )
-        write_result_to_file(cfg, rep, cfg.n_repetitions, impl=solve_impl)
-        if args.json:
-            print(json.dumps({"validation": dataclasses.asdict(rep),
-                              "impl": solve_impl}))
-        else:
-            print(format_result_block(cfg, rep, cfg.n_repetitions,
-                                      solve_impl))
+        if primary:
+            write_result_to_file(cfg, rep, cfg.n_repetitions,
+                                 impl=solve_impl)
+            if args.json:
+                print(json.dumps({"validation": dataclasses.asdict(rep),
+                                  "impl": solve_impl}))
+            else:
+                print(format_result_block(cfg, rep, cfg.n_repetitions,
+                                          solve_impl))
         return 0 if rep.ok else 1
-    print(f"solve completed (validation disabled), impl: {solve_impl}")
+    if primary:
+        print(f"solve completed (validation disabled), impl: {solve_impl}")
     return 0
 
 

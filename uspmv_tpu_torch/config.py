@@ -3,8 +3,7 @@
 Port of ``uspmv_tpu/config.py``: one runtime dataclass holding every knob
 of the reference CLI (reference classes_structs.hpp:47-153,
 utilities.hpp:1047-1545). All fields are kept so that the CLI parser ports
-whole; the operator raises ``NotImplementedError`` for values outside the
-ported slices (runtime/operator.py). Device dtypes are torch dtypes.
+whole, and every value is ported. Device dtypes are torch dtypes.
 
 hp on the host: numpy has no bfloat16, so host hp values are float32
 arrays that carry bf16-rounded values (``host_values``), rounded by torch

@@ -205,6 +205,21 @@ def apply_permutation(vec: np.ndarray, perm: np.ndarray) -> np.ndarray:
     return np.asarray(vec)[np.asarray(perm)]
 
 
+def apply_strided_permutation(
+    vec: np.ndarray, perm: np.ndarray, stride: int
+) -> np.ndarray:
+    """Permute a row-major block vector of row-stride ``stride``: its first
+    ``perm.size`` rows of ``stride`` values go to row order ``perm``, the
+    rest stay (reference apply_strided_permutation,
+    utilities.hpp:1783-1799)."""
+    vec = np.asarray(vec)
+    n = perm.size
+    out = vec.copy()
+    rows = vec[: n * stride].reshape(n, stride)
+    out[: n * stride] = rows[np.asarray(perm)].reshape(-1)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Equilibration and Jacobi scaling (reference utilities.hpp:2605-2684)
 # ---------------------------------------------------------------------------

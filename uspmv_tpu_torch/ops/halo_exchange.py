@@ -18,13 +18,23 @@ kernel of ``csrc/halo_exchange.cu`` covers every offset, shard and vector;
 for CPU tensors it runs ``halo_exchange_plain``,
 ``index_copy_(index_select)``. A failure to build or launch raises.
 Sources and destinations never share a row, so both give the same bits.
+
+When the shards are spread over processes (parallel/multihost.py), that
+copy covers the pairs inside one process; the rows that cross go through a
+buffer of rows (``DeviceTransfer``): ``halo_pack`` gathers the rows a
+process sends, ``halo_unpack`` scatters the rows it receives, each one
+launch of its kernel in ``csrc/halo_exchange.cu`` for CUDA tensors and
+``halo_pack_plain`` (``index_select``) / ``halo_unpack_plain``
+(``index_copy_``) for CPU tensors. A buffer row holds every value of its x
+row: ``[n]`` for one vector, ``[n, bs]`` for block vectors of either
+layout, so the transfer splits it by rows.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -36,10 +46,21 @@ _ENTRY_POINTS = {
     torch.float32: "uspmv_halo_exchange_f32",
     torch.float64: "uspmv_halo_exchange_f64",
 }
+PACK_ENTRY_POINTS = {
+    torch.float32: "uspmv_halo_pack_f32",
+    torch.float64: "uspmv_halo_pack_f64",
+}
+UNPACK_ENTRY_POINTS = {
+    torch.float32: "uspmv_halo_unpack_f32",
+    torch.float64: "uspmv_halo_unpack_f64",
+}
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
              + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
 
-_launches: Dict[str, int] = {name: 0 for name in _ENTRY_POINTS.values()}
+# one count per entry point: the exchange, the pack and the unpack
+_launches: Dict[str, int] = {
+    name: 0 for table in (_ENTRY_POINTS, PACK_ENTRY_POINTS,
+                          UNPACK_ENTRY_POINTS) for name in table.values()}
 _lib = None
 
 
@@ -126,7 +147,7 @@ def _kernel_lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = scs_spmv._kernel_lib()  # one library; binds the error string
-        for name in _ENTRY_POINTS.values():
+        for name in _launches:
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
@@ -156,19 +177,171 @@ def halo_exchange(ex: DeviceExchange, x: torch.Tensor,
             f"halo_exchange runs on cuda or cpu tensors, not {x.device}")
     if not x.is_contiguous():
         raise ValueError("halo_exchange needs a contiguous buffer")
+    _launch(name, x, ex.src, ex.dst, ex.n, _geometry(flat, dim))
+    return x
+
+
+def _geometry(flat: torch.Tensor, dim: int) -> tuple:
+    """(ld, ncols, vstride, n_vec) of the kernels' layout for the flat view
+    of a stacked buffer whose rows lie along ``dim``."""
     if dim == 1:
-        ld, ncols, vstride, n_vec = 1, 1, flat.shape[1], flat.shape[0]
+        geo = (1, 1, flat.shape[1], flat.shape[0])
     else:
         ncols = 1 if flat.dim() == 1 else flat.shape[1]
-        ld, vstride, n_vec = ncols, 0, 1
-    if n_vec > MAX_VECTORS:
+        geo = (ncols, ncols, 0, 1)
+    if geo[3] > MAX_VECTORS:
         raise ValueError(f"colwise block vectors take at most {MAX_VECTORS} "
-                         f"vectors in one launch, not {n_vec}")
+                         f"vectors in one launch, not {geo[3]}")
+    return geo
+
+
+def _launch(name: str, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            n: int, geo: tuple) -> None:
+    """One launch of entry point ``name`` on x's device and current stream,
+    booked in its count."""
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
-            x.data_ptr(), ex.src.data_ptr(), ex.dst.data_ptr(), ex.n, ld,
-            ncols, vstride, n_vec,
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), n, *geo,
             torch.cuda.current_stream(x.device).cuda_stream)
     book_launch(lib, rc, name, _launches)
+
+
+# ------------------------------------------------- rows that cross processes
+
+
+@dataclasses.dataclass
+class DeviceTransfer:
+    """One process's rows of one precision's exchange that cross processes:
+    the local rows it sends, grouped by destination process, and the halo
+    rows it receives, grouped by source process, as rows of its stacked x
+    (``n_shards`` shards of ``length`` rows); per process, the counts of
+    both. ``active`` is whether any process of the run sends a row: the
+    transfer is a collective, so every process takes part or none."""
+
+    send: torch.Tensor  # int32 [n_send]
+    recv: torch.Tensor  # int32 [n_recv]
+    send_counts: List[int]  # per destination process
+    recv_counts: List[int]  # per source process
+    n_shards: int
+    length: int
+    active: bool
+
+    @property
+    def n_send(self) -> int:
+        return int(self.send.shape[0])
+
+    @property
+    def n_recv(self) -> int:
+        return int(self.recv.shape[0])
+
+    def buffer_shape(self, n: int, n_values: int) -> tuple:
+        """The buffer of n rows of ``n_values`` values (bs of a block)."""
+        return (n,) if n_values == 1 else (n, n_values)
+
+    def bound_bytes(self, x_itemsize: int, n_values: int = 1,
+                    pack: bool = True) -> int:
+        """Bytes of the pack (or unpack) per call: the index of each row
+        read once, its values read once and written once."""
+        n = self.n_send if pack else self.n_recv
+        return n * (4 + 2 * x_itemsize * n_values)
+
+
+def build_device_transfer(send: List[np.ndarray], recv: List[np.ndarray],
+                          n_shards: int, length: int, active: bool,
+                          device: torch.device) -> DeviceTransfer:
+    """The host's per-process row lists (``parallel.halo.split_exchange_rows``)
+    on ``device``, concatenated in process order as int32."""
+    rows = n_shards * length
+    if rows > np.iinfo(np.int32).max:
+        raise OverflowError(f"{rows} stacked rows exceed int32 indices")
+
+    def put(parts):
+        a = (np.concatenate(parts) if parts else np.zeros(0, np.int64))
+        if a.size and not (0 <= a.min() and a.max() < rows):
+            raise ValueError("a transfer row lies outside the stacked buffer")
+        return torch.from_numpy(a.astype(np.int32)).to(device)
+
+    return DeviceTransfer(
+        send=put(send), recv=put(recv),
+        send_counts=[int(a.size) for a in send],
+        recv_counts=[int(a.size) for a in recv],
+        n_shards=n_shards, length=length, active=active)
+
+
+def _check_buffer(tr: DeviceTransfer, x: torch.Tensor, buf: torch.Tensor,
+                  n: int, layout: str) -> tuple:
+    flat, dim = flat_view(tr, x, layout)
+    n_val = x.numel() // (tr.n_shards * tr.length)
+    if tuple(buf.shape) != tr.buffer_shape(n, n_val) or buf.dtype != x.dtype \
+            or buf.device != x.device or not buf.is_contiguous():
+        raise ValueError(
+            f"the buffer must be contiguous {x.dtype} "
+            f"{tr.buffer_shape(n, n_val)} on {x.device}; got {buf.dtype} "
+            f"{tuple(buf.shape)} on {buf.device}")
+    return flat, dim
+
+
+def halo_pack_plain(tr: DeviceTransfer, x: torch.Tensor, buf: torch.Tensor,
+                    layout: str = "rowwise") -> torch.Tensor:
+    """Plain PyTorch version of the pack: buffer row i takes the row
+    ``tr.send[i]`` of the stacked x. Returns buf."""
+    flat, dim = _check_buffer(tr, x, buf, tr.n_send, layout)
+    rows = flat.index_select(dim, tr.send)
+    return buf.copy_(rows.t() if dim == 1 else rows)
+
+
+def halo_unpack_plain(tr: DeviceTransfer, buf: torch.Tensor, x: torch.Tensor,
+                      layout: str = "rowwise") -> torch.Tensor:
+    """Plain PyTorch version of the unpack: row ``tr.recv[i]`` of the
+    stacked x takes buffer row i. Returns x."""
+    flat, dim = _check_buffer(tr, x, buf, tr.n_recv, layout)
+    flat.index_copy_(dim, tr.recv.long(), buf.t() if dim == 1 else buf)
+    return x
+
+
+def _buffer_kernel(table: dict, tr: DeviceTransfer, x: torch.Tensor,
+                   buf: torch.Tensor, rows: torch.Tensor, layout: str,
+                   plain) -> None:
+    try:
+        name = table[x.dtype]
+    except KeyError:
+        raise TypeError(f"the halo pack and unpack take float32 or float64 "
+                        f"x, not {x.dtype}") from None
+    n = int(rows.shape[0])
+    flat, dim = _check_buffer(tr, x, buf, n, layout)
+    if rows.device != x.device:
+        raise ValueError(f"x is on {x.device}, the transfer on "
+                         f"{rows.device}")
+    if n == 0:
+        return
+    if x.device.type == "cpu":
+        plain()
+        return
+    if x.device.type != "cuda":
+        raise ValueError(f"the halo pack and unpack run on cuda or cpu "
+                         f"tensors, not {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("the halo pack and unpack need a contiguous x")
+    _launch(name, x, buf, rows, n, _geometry(flat, dim))
+
+
+def halo_pack(tr: DeviceTransfer, x: torch.Tensor, buf: torch.Tensor,
+              layout: str = "rowwise") -> torch.Tensor:
+    """Gather the rows this process sends into ``buf`` (``[n_send]`` or
+    ``[n_send, bs]``): one launch of the pack kernel for CUDA tensors, the
+    plain version for CPU tensors; nothing to send launches nothing.
+    Returns buf."""
+    _buffer_kernel(PACK_ENTRY_POINTS, tr, x, buf, tr.send, layout,
+                   lambda: halo_pack_plain(tr, x, buf, layout))
+    return buf
+
+
+def halo_unpack(tr: DeviceTransfer, buf: torch.Tensor, x: torch.Tensor,
+                layout: str = "rowwise") -> torch.Tensor:
+    """Scatter the received rows of ``buf`` into the halo rows of the
+    stacked x, in place: one launch of the unpack kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns x."""
+    _buffer_kernel(UNPACK_ENTRY_POINTS, tr, x, buf, tr.recv, layout,
+                   lambda: halo_unpack_plain(tr, buf, x, layout))
     return x

@@ -45,6 +45,27 @@ of the packed ones (the reference's -no_pack, wrong on purpose too).
 impl='xla' (or use_pallas=False) runs every launch's plain PyTorch version,
 the exchange's too, on the chosen device, in one stream.
 
+Across processes (parallel/multihost.py): shard r lives in process
+``r // D`` (D = ``local_devices``, default ceil(R / P)), as the JAX mesh
+takes the first R devices of the global list. Every process plans every
+shard on the host (partition, splits, precisions, SCS, halo plans: the same
+bits everywhere) and builds device structs for its own shards only, so its
+stacked x holds its own n_local shards. Each precision's exchange splits
+into the pairs inside the process (the one-launch copy above, rows
+renumbered into the local stack), the rows it sends, packed by destination
+process (the pack kernel), and the rows it receives, unpacked by source
+process (the unpack kernel), with one ``all_to_all_single`` between them:
+on the card's tensors under NCCL; under gloo through pinned host buffers,
+copied out after the pack and in before the unpack, the host waiting on the
+copy out before the transfer. With the overlap the interior launches are
+enqueued before the transfer; the halo parts and the pieces run after the
+unpack. In allgather mode every process all-gathers the local rows into
+the whole stacked x. ``to_host`` gathers every shard (a collective: every
+process calls it and returns the whole y). A solve runs the loop: a
+transfer through the host cannot be captured in a CUDA graph. The metrics
+of the shards a process does not hold come from the others' summaries,
+gathered once at build.
+
 Not ported, as the ROADMAP lists: lane tiles and re-tiling, the
 transpose-stream tier, the ±1 fold matrix and its prefix sums (the pieces
 kernel folds), the df64 pairs (``-dp_emu`` runs native f64). Unlike the
@@ -81,9 +102,15 @@ from ..ops.device_format import (
 )
 from ..ops.halo_exchange import (
     DeviceExchange,
+    DeviceTransfer,
     build_device_exchange,
+    build_device_transfer,
     halo_exchange,
     halo_exchange_plain,
+    halo_pack,
+    halo_pack_plain,
+    halo_unpack,
+    halo_unpack_plain,
 )
 from ..ops.vectors import init_x_host
 from ..precision.partition import partition_precisions
@@ -99,11 +126,13 @@ from ..runtime.operator import (
     split_threshold,
     write_sparsity,
 )
+from . import multihost
 from .halo import (
     HaloPlan,
     build_allgather_col_map,
     build_halo_plan,
     exchange_rows,
+    split_exchange_rows,
 )
 from .partition import seg_work_sharing
 
@@ -143,6 +172,56 @@ class ShardStreams:
     pieces: Optional[DevicePieces] = None  # its split heavy rows
 
 
+@dataclasses.dataclass
+class StreamSummary:
+    """What the metrics read of one shard's streams of one precision. A
+    process holds one for every shard: its own shards' from their device
+    structs, the others' gathered from their processes at build."""
+
+    packed: tuple  # per row stream (main, halo): packed row groups?
+    nnz: int  # stored nonzeros of the row streams
+    streamed: int  # elements they stream (packed: nnz; SELL: n_elements)
+    stream_bytes: int
+    pieces_nnz: int = 0
+    n_pieces: int = 0
+    pieces_bytes: int = 0
+
+    @classmethod
+    def of(cls, sh: ShardStreams) -> "StreamSummary":
+        devs = [d for d in (sh.main, sh.halo) if d is not None]
+        pc = sh.pieces
+        return cls(
+            packed=tuple(isinstance(d, DevicePacked) for d in devs),
+            nnz=sum(d.nnz for d in devs),
+            streamed=sum(d.nnz if isinstance(d, DevicePacked)
+                         else d.n_elements for d in devs),
+            stream_bytes=sum(d.stream_bytes() for d in devs),
+            pieces_nnz=pc.nnz if pc else 0,
+            n_pieces=pc.n_pieces if pc else 0,
+            pieces_bytes=pc.stream_bytes() if pc else 0)
+
+
+def shard_owners(R: int) -> tuple:
+    """(owner of each shard, this process's shards) for R shards over the
+    processes of the run (parallel/multihost.py): shard r to process
+    r // D, D = local_devices or ceil(R / P); one process holds them all
+    outside a run of processes. Raises where P * D < R (JAX: "need R
+    devices") or a process would hold no shard."""
+    P, me = multihost.process_count(), multihost.process_index()
+    mh = multihost.info()
+    D = (mh or {}).get("n_local_devices") or -(-R // P)
+    if R > P * D:
+        raise ValueError(
+            f"need {R} devices (shards), have {P * D}: {P} processes x "
+            f"{D} (-local_devices)")
+    owner = np.arange(R, dtype=np.int64) // D
+    if int(owner[-1]) + 1 < P:
+        raise ValueError(
+            f"{R} shards at {D} per process leave processes "
+            f"{int(owner[-1]) + 1}..{P - 1} without a shard")
+    return owner, range(me * D, min((me + 1) * D, R))
+
+
 def _allgather_cols(cols: np.ndarray, ws: np.ndarray,
                     perms: List[np.ndarray], stride: int) -> np.ndarray:
     """Global columns -> rows of the stacked x in allgather mode, as
@@ -152,6 +231,25 @@ def _allgather_cols(cols: np.ndarray, ws: np.ndarray,
     for o in np.unique(owners):
         m = owners == o
         out[m] = o * stride + perms[o][cols[m] - ws[o]]
+    return out
+
+
+def _gather_summaries(own: Dict[str, Dict[int, StreamSummary]], R: int,
+                      n_proc: int) -> Dict[str, List[StreamSummary]]:
+    """Per precision, every shard's summary: this process's own ``own``,
+    merged with every other process's (all_gather_object) in a run of
+    several."""
+    parts = [own]
+    if n_proc > 1:
+        import torch.distributed as dist
+
+        parts = [None] * n_proc
+        dist.all_gather_object(parts, own)
+    out = {p: [None] * R for p in own}
+    for part in parts:
+        for p, by_shard in part.items():
+            for r, summ in by_shard.items():
+                out[p][r] = summ
     return out
 
 
@@ -176,8 +274,10 @@ class DistributedSpmvOperator(OperatorBase):
     work_sharing: np.ndarray  # [R + 1] global row boundaries
     # per precision, per shard: the host SCS, columns renumbered
     scs: Dict[str, List[ScsData]]
+    # per precision, per shard of this process (in ``shards`` order)
     streams: Dict[str, List[ShardStreams]]
     halo_plans: Dict[str, Optional[HaloPlan]]  # None in allgather mode
+    # the pairs inside this process, per precision
     exchanges: Dict[str, Optional[DeviceExchange]]
     lengths: Dict[str, int]  # L: rows of one shard's x buffer
     shard_perms: List[np.ndarray]  # per shard, old_to_new of its real rows
@@ -185,6 +285,16 @@ class DistributedSpmvOperator(OperatorBase):
     matrix_stats: tuple
     nnz: int
     device: torch.device
+    # per precision, per shard: what the metrics read of its streams
+    summaries: Dict[str, List[StreamSummary]] = dataclasses.field(
+        default_factory=dict)
+    # across processes: the process of each shard, this process's shards
+    # (None: one process holds all R), and per precision the rows that
+    # cross processes
+    owner: Optional[np.ndarray] = None
+    shards: Optional[range] = None
+    transfers: Dict[str, Optional[DeviceTransfer]] = dataclasses.field(
+        default_factory=dict)
     overlap: bool = False
     split_threshold: int = 0
     n_dropped: int = 0
@@ -192,6 +302,8 @@ class DistributedSpmvOperator(OperatorBase):
     equilib: Optional[tuple] = None
     # x buffers of the precisions after the first (halo mode)
     _xbufs: dict = dataclasses.field(default_factory=dict, repr=False)
+    # per precision: the transfer's send and receive buffers
+    _tbufs: dict = dataclasses.field(default_factory=dict, repr=False)
     _comm_stream: Optional[object] = dataclasses.field(default=None,
                                                        repr=False)
     _solve_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -204,6 +316,8 @@ class DistributedSpmvOperator(OperatorBase):
         config.validate()
         device = resolve_device(config)
         R = config.n_shards
+        owner, shards = shard_owners(R)
+        n_proc = int(owner[-1]) + 1
         mtx = mtx.copy()
         if not mtx.is_sorted:
             mtx = mtx.sort_by_row()
@@ -287,7 +401,9 @@ class DistributedSpmvOperator(OperatorBase):
         halo_plans: Dict[str, Optional[HaloPlan]] = {}
         lengths: Dict[str, int] = {}
         exchanges: Dict[str, Optional[DeviceExchange]] = {}
+        transfers: Dict[str, Optional[DeviceTransfer]] = {}
         for p in precs:
+            transfers[p] = None
             if allgather:
                 build_allgather_col_map(scs[p], ws, stride=n_loc)
                 halo_plans[p], lengths[p], exchanges[p] = None, n_loc, None
@@ -307,9 +423,22 @@ class DistributedSpmvOperator(OperatorBase):
                     pc[1], int(ws[r]), int(ws[r + 1]), shard_perms[r],
                     scs[p][r].n_rows_padded, hp.halo_cols[r]), pc[2])
                 for r, pc in enumerate(pieces[p])]
-            src, dst = exchange_rows(hp, lengths[p], no_pack=config.no_pack)
-            exchanges[p] = build_device_exchange(src, dst, R, lengths[p],
-                                                 device)
+            if n_proc == 1:
+                src, dst = exchange_rows(hp, lengths[p],
+                                         no_pack=config.no_pack)
+                exchanges[p] = build_device_exchange(src, dst, R, lengths[p],
+                                                     device)
+                continue
+            me = multihost.process_index()
+            src, dst, send, recv = split_exchange_rows(
+                hp, lengths[p], owner, me, no_pack=config.no_pack)
+            exchanges[p] = build_device_exchange(
+                src, dst, len(shards), lengths[p], device)
+            # the same answer in every process: the plan is global
+            crossing = owner[:, None] != owner[None, :]
+            transfers[p] = build_device_transfer(
+                send, recv, len(shards), lengths[p],
+                bool(hp.recv_counts[crossing].any()), device)
 
         # --- device streams, the tier chosen per struct
         overlap = config.overlap_comm and not allgather
@@ -324,7 +453,8 @@ class DistributedSpmvOperator(OperatorBase):
                 return build(s, device, dt)
 
             streams[p] = []
-            for r, s in enumerate(scs[p]):
+            for r in shards:
+                s = scs[p][r]
                 if overlap:
                     interior, halo = split_scs_for_overlap(s)
                     sh = ShardStreams(
@@ -341,6 +471,9 @@ class DistributedSpmvOperator(OperatorBase):
                 streams[p].append(sh)
         overlap = overlap and any(sh.halo is not None
                                   for lst in streams.values() for sh in lst)
+        summaries = _gather_summaries(
+            {p: {r: StreamSummary.of(sh) for r, sh in zip(shards, lst)}
+             for p, lst in streams.items()}, R, n_proc)
 
         op = cls(
             config=config,
@@ -357,6 +490,10 @@ class DistributedSpmvOperator(OperatorBase):
             matrix_stats=stats,
             nnz=nnz,
             device=device,
+            summaries=summaries,
+            owner=owner,
+            shards=shards,
+            transfers=transfers,
             overlap=overlap,
             split_threshold=th,
             n_dropped=n_dropped,
@@ -368,6 +505,9 @@ class DistributedSpmvOperator(OperatorBase):
                 op._xbufs[p] = torch.zeros(op.x_shape(p),
                                            dtype=op.working_dtype,
                                            device=device)
+        for p, tr in transfers.items():
+            if tr is not None and tr.active:
+                op._tbufs[p] = op._transfer_buffers(tr)
         return op
 
     # ------------------------------------------------------------- execution
@@ -375,6 +515,20 @@ class DistributedSpmvOperator(OperatorBase):
     @property
     def R(self) -> int:
         return self.config.n_shards
+
+    @property
+    def n_local(self) -> int:
+        """The shards this process holds: the leading dimension of its
+        stacked x."""
+        return len(self.shards)
+
+    @property
+    def n_processes(self) -> int:
+        return int(self.owner[-1]) + 1
+
+    def shard_counts(self) -> List[int]:
+        """Shards per process."""
+        return np.bincount(self.owner, minlength=self.n_processes).tolist()
 
     @property
     def precisions(self) -> tuple:
@@ -386,23 +540,24 @@ class DistributedSpmvOperator(OperatorBase):
         L = self.lengths[precision or self.precisions[0]]
         bs = self.config.block_vec_size
         if bs == 1:
-            return (self.R, L)
+            return (self.n_local, L)
         if self.config.vector_layout == "colwise":
-            return (bs, self.R, L)
-        return (self.R, L, bs)
+            return (bs, self.n_local, L)
+        return (self.n_local, L, bs)
 
     def shard_view(self, t: torch.Tensor, r: int,
                     rows: Optional[int] = None) -> torch.Tensor:
-        """Shard r's part of a stacked tensor, its first ``rows`` rows: the
-        x or y a shard's launches take."""
+        """The part of a stacked tensor at slot r (the process's r-th
+        shard), its first ``rows`` rows: the x or y a shard's launches
+        take."""
         if self.config.block_vec_size > 1 and \
                 self.config.vector_layout == "colwise":
             return t[:, r, :rows]
         return t[r, :rows]
 
     def whole(self, t: torch.Tensor) -> torch.Tensor:
-        """The stacked x as one vector block, which every shard reads in
-        allgather mode."""
+        """The stacked x of all R shards as one vector block, which every
+        shard reads in allgather mode."""
         if t.dim() == 2:
             return t.view(-1)
         if self.config.vector_layout == "colwise":
@@ -427,16 +582,86 @@ class DistributedSpmvOperator(OperatorBase):
             self._comm_stream = torch.cuda.Stream(device=self.device)
         return self._comm_stream
 
-    def _rows(self, p: str, part: str, xp: torch.Tensor, y: torch.Tensor,
-              accumulate: bool) -> None:
-        """Launch ``part`` (main, halo or pieces) of every shard of p."""
+    def _transfer_buffers(self, tr: DeviceTransfer) -> dict:
+        """The send and receive buffers of a transfer in the working dtype
+        on the device; under gloo from the card, their pinned host twins
+        and the event the host waits on before the transfer reads them."""
+        bs = self.config.block_vec_size
+        bufs = {}
+        for name, n in (("send", tr.n_send), ("recv", tr.n_recv)):
+            shape = tr.buffer_shape(n, bs)
+            bufs[name] = torch.zeros(shape, dtype=self.working_dtype,
+                                     device=self.device)
+            if self.device.type == "cuda" and \
+                    multihost.transport() != "nccl":
+                bufs["host_" + name] = torch.zeros(
+                    shape, dtype=self.working_dtype, pin_memory=True)
+        if "host_send" in bufs:
+            bufs["copied_out"] = torch.cuda.Event()
+        return bufs
+
+    def _send(self, p: str, xp: torch.Tensor):
+        """Start precision p's transfer: pack the rows this process sends;
+        under gloo from the card, copy them out to the pinned host buffer
+        (the host waits on it in ``_receive``); under NCCL, start the
+        all-to-all on the card's buffers. Returns the NCCL work or None."""
+        import torch.distributed as dist
+
+        tr, b = self.transfers[p], self._tbufs[p]
         layout = self.config.vector_layout
-        allgather = self.halo_plans[p] is None
+        (halo_pack_plain if self.plain else halo_pack)(tr, xp, b["send"],
+                                                        layout)
+        if "host_send" in b:
+            b["host_send"].copy_(b["send"], non_blocking=True)
+            b["copied_out"].record()
+            return None
+        if multihost.transport() == "nccl":
+            return dist.all_to_all_single(
+                b["recv"], b["send"], tr.recv_counts, tr.send_counts,
+                async_op=True)
+        return None
+
+    def _receive(self, p: str, xp: torch.Tensor, work) -> None:
+        """Finish precision p's transfer: move the rows (or wait for the
+        NCCL all-to-all), copy them in under gloo from the card, and
+        unpack them into the halo rows of xp."""
+        import torch.distributed as dist
+
+        tr, b = self.transfers[p], self._tbufs[p]
+        if work is not None:
+            work.wait()
+        elif "host_send" in b:
+            b["copied_out"].synchronize()
+            dist.all_to_all_single(b["host_recv"], b["host_send"],
+                                   tr.recv_counts, tr.send_counts)
+            b["recv"].copy_(b["host_recv"], non_blocking=True)
+        else:
+            dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
+                                   tr.send_counts)
+        layout = self.config.vector_layout
+        (halo_unpack_plain if self.plain else halo_unpack)(tr, b["recv"], xp,
+                                                            layout)
+
+    def _whole_x(self, x: torch.Tensor) -> torch.Tensor:
+        """Allgather mode: the stacked x of all R shards as one vector
+        block; across processes, every process's local rows all-gathered
+        first."""
+        if self.n_processes > 1:
+            colwise = x.dim() == 3 and self.config.vector_layout == "colwise"
+            x = multihost.all_gather_blocks(x, 1 if colwise else 0,
+                                            self.shard_counts())
+        return self.whole(x)
+
+    def _rows(self, p: str, part: str, xp: torch.Tensor, y: torch.Tensor,
+              accumulate: bool, xw: Optional[torch.Tensor] = None) -> None:
+        """Launch ``part`` (main, halo or pieces) of every shard of p held
+        here; ``xw``: the whole x of allgather mode."""
+        layout = self.config.vector_layout
         for r, sh in enumerate(self.streams[p]):
             dev = getattr(sh, part)
             if dev is None:
                 continue
-            xr = self.whole(xp) if allgather else self.shard_view(xp, r)
+            xr = xw if xw is not None else self.shard_view(xp, r)
             yr = self.shard_view(y, r, dev.n_rows_padded)
             if part == "pieces":
                 run_pieces(dev, xr, layout, yr, self.plain)
@@ -468,11 +693,18 @@ class DistributedSpmvOperator(OperatorBase):
         layout = self.config.vector_layout
         exchange = halo_exchange_plain if self.plain else halo_exchange
         written = False
+        xw = None
         for p in self.precisions:
             xp = self.x_for(p, x)
+            if self.halo_plans[p] is None and xw is None:
+                xw = self._whole_x(x)
             ex = self.exchanges[p] if self.config.comm_halos else None
             if ex is not None and ex.n == 0:
                 ex = None
+            # the rows that cross processes: packed (and, under NCCL, on
+            # their way) before the interior launches
+            crossing = p in self._tbufs and self.config.comm_halos
+            work = self._send(p, xp) if crossing else None
             if self.overlap:
                 if ex is not None and xp.device.type == "cuda" \
                         and not self.plain:
@@ -483,18 +715,22 @@ class DistributedSpmvOperator(OperatorBase):
                     comm.wait_stream(cur)
                     with torch.cuda.stream(comm):
                         exchange(ex, xp, layout)
-                    self._rows(p, "main", xp, out, written)
+                    self._rows(p, "main", xp, out, written, xw)
                     cur.wait_stream(comm)
                 else:
                     if ex is not None:
                         exchange(ex, xp, layout)
-                    self._rows(p, "main", xp, out, written)
-                self._rows(p, "halo", xp, out, True)
+                    self._rows(p, "main", xp, out, written, xw)
+                if crossing:
+                    self._receive(p, xp, work)
+                self._rows(p, "halo", xp, out, True, xw)
             else:
                 if ex is not None:
                     exchange(ex, xp, layout)
-                self._rows(p, "main", xp, out, written)
-            self._rows(p, "pieces", xp, out, True)
+                if crossing:
+                    self._receive(p, xp, work)
+                self._rows(p, "main", xp, out, written, xw)
+            self._rows(p, "pieces", xp, out, True, xw)
             written = True
         return out
 
@@ -502,7 +738,9 @@ class DistributedSpmvOperator(OperatorBase):
                         impl: Optional[str] = None) -> str:
         """"graph" (one CUDA graph of the k SpMVs) on a CUDA device for
         more than one repetition, else "loop"; the fused solve kernel runs
-        one SELL-C-sigma stream and takes no sharded operator."""
+        one SELL-C-sigma stream and takes no sharded operator, and an
+        operator spread over processes runs the loop (its transfer is a
+        collective outside any graph)."""
         if impl is not None:
             if impl not in SOLVE_IMPLS:
                 raise ValueError(
@@ -511,8 +749,14 @@ class DistributedSpmvOperator(OperatorBase):
                 raise ValueError(
                     "the fused solve kernel takes one SELL-C-sigma stream; "
                     "a sharded operator solves by impl='graph' or 'loop'")
+            if impl == "graph" and self.n_processes > 1:
+                raise ValueError(
+                    "an operator spread over processes solves by "
+                    "impl='loop': its transfer cannot be captured in a "
+                    "CUDA graph")
             return impl
-        if self.device.type == "cuda" and n_repetitions > 1:
+        if self.device.type == "cuda" and n_repetitions > 1 \
+                and self.n_processes == 1:
             return "graph"
         return "loop"
 
@@ -534,7 +778,7 @@ class DistributedSpmvOperator(OperatorBase):
     def make_x(self, x_in: Optional[np.ndarray] = None) -> torch.Tensor:
         """The stacked x (``x_shape()``) in the working dtype: each shard's
         rows of the (seg-metis permuted) x at its permuted local rows, the
-        halo and padding rows zero."""
+        halo and padding rows zero; the shards of this process only."""
         host = init_x_host(self.config, self.n_rows, self.matrix_stats,
                            x_in=x_in, dtype=numpy_dtype(self.working_dtype))
         if self.global_perm is not None:
@@ -545,16 +789,20 @@ class DistributedSpmvOperator(OperatorBase):
         stacked = shape[1:] + shape[:1] if colwise else shape
         out = np.zeros(stacked, dtype=host.dtype)
         ws = self.work_sharing
-        for r in range(self.R):
-            out[r][self.shard_perms[r]] = host[ws[r]:ws[r + 1]]
+        for i, r in enumerate(self.shards):
+            out[i][self.shard_perms[r]] = host[ws[r]:ws[r + 1]]
         if colwise:
             out = np.ascontiguousarray(np.moveaxis(out, -1, 0))
         return torch.from_numpy(out).to(self.device)
 
     def to_host(self, y: torch.Tensor) -> np.ndarray:
-        """The stacked y -> [n_rows(, bs)] in the original row order."""
-        y = y.detach().cpu().numpy()
-        if y.ndim == 3 and self.config.vector_layout == "colwise":
+        """The stacked y -> [n_rows(, bs)] in the original row order. Across
+        processes every process's shards are gathered first (a collective:
+        every process calls it, and every process gets the whole y)."""
+        colwise = y.dim() == 3 and self.config.vector_layout == "colwise"
+        y = multihost.fetch_global(y, 1 if colwise else 0,
+                                   self.shard_counts())
+        if colwise:
             y = np.moveaxis(y, 0, -1)  # [R, L, bs]
         out = np.zeros((self.n_rows,) + y.shape[2:], dtype=y.dtype)
         ws = self.work_sharing
@@ -582,8 +830,8 @@ class DistributedSpmvOperator(OperatorBase):
         total = 0
         for p in self.precisions:
             total += self.matrix_passes() * sum(
-                d.stream_bytes() for d in self._devs(p))
-            total += bs * sum(pc.stream_bytes() for pc in self._pieces(p))
+                sm.stream_bytes for sm in self.summaries[p])
+            total += bs * sum(sm.pieces_bytes for sm in self.summaries[p])
         xw = torch.empty((), dtype=self.working_dtype).element_size()
         return total + self.R * self.n_rows_padded * bs * xw * 2
 
@@ -606,14 +854,23 @@ class DistributedSpmvOperator(OperatorBase):
         return out
 
     def comm_volume_per_host(self) -> dict:
-        """Halo elements received per host and SpMV; all shards of this
-        operator live in one process, host 0."""
-        return {p: {0: int(sum(hp.halo_counts))}
-                for p, hp in self.halo_plans.items() if hp is not None}
+        """Halo elements received per host (process) and SpMV: the shards'
+        halo counts grouped by the process that holds them, as the JAX
+        operator groups its mesh positions (distributed.py:1196-1208)."""
+        out = {}
+        for p, hp in self.halo_plans.items():
+            if hp is None:
+                continue
+            acc: dict = {}
+            for r, h in enumerate(hp.halo_counts):
+                q = int(self.owner[r])
+                acc[q] = acc.get(q, 0) + int(h)
+            out[p] = acc
+        return out
 
     def is_packed(self) -> bool:
-        return any(isinstance(d, DevicePacked)
-                   for p in self.precisions for d in self._devs(p))
+        return any(any(sm.packed) for p in self.precisions
+                   for sm in self.summaries[p])
 
     def impl_name(self) -> str:
         """cuda-dist<R>-<tiers>-<value type>: the tiers of the shards'
@@ -621,8 +878,8 @@ class DistributedSpmvOperator(OperatorBase):
         torch-plain-dist<R>-..."""
         where = ("cuda" if self.device.type == "cuda" and not self.plain
                  else "torch-plain")
-        kinds = {isinstance(d, DevicePacked)
-                 for p in self.precisions for d in self._devs(p)}
+        kinds = {k for p in self.precisions for sm in self.summaries[p]
+                 for k in sm.packed}
         tier = "+".join(name for packed, name in ((False, "scs"),
                                                   (True, "packed"))
                         if packed in kinds)
@@ -634,8 +891,9 @@ class DistributedSpmvOperator(OperatorBase):
         """Nonzeros per shard (reference per-rank perf, main.cpp:833-890)."""
         out = [0] * self.R
         for p in self.precisions:
-            for r, (s, sh) in enumerate(zip(self.scs[p], self.streams[p])):
-                out[r] += s.nnz + (sh.pieces.nnz if sh.pieces else 0)
+            for r, (s, sm) in enumerate(zip(self.scs[p],
+                                            self.summaries[p])):
+                out[r] += s.nnz + sm.pieces_nnz
         return out
 
     def beta(self) -> Dict[str, float]:
@@ -649,35 +907,38 @@ class DistributedSpmvOperator(OperatorBase):
         streams and pieces together."""
         out = {}
         for p in self.precisions:
-            nz = sum(d.nnz for d in self._devs(p)) + sum(
-                pc.nnz for pc in self._pieces(p))
-            streamed = sum(d.nnz if isinstance(d, DevicePacked)
-                           else d.n_elements for d in self._devs(p)) + sum(
-                pc.nnz for pc in self._pieces(p))
+            sms = self.summaries[p]
+            pieces = sum(sm.pieces_nnz for sm in sms)
+            nz = sum(sm.nnz for sm in sms) + pieces
+            streamed = sum(sm.streamed for sm in sms) + pieces
             out[p] = nz / streamed if streamed else 1.0
         return out
 
     def nnz_per_precision(self) -> Dict[str, int]:
         return {p: sum(s.nnz for s in self.scs[p])
-                + sum(pc.nnz for pc in self._pieces(p))
+                + sum(sm.pieces_nnz for sm in self.summaries[p])
                 for p in self.precisions}
 
     def n_pieces(self) -> int:
-        return sum(pc.n_pieces for p in self.precisions
-                   for pc in self._pieces(p))
+        return sum(sm.n_pieces for p in self.precisions
+                   for sm in self.summaries[p])
 
     def nnz_in_pieces(self) -> int:
-        return sum(pc.nnz for p in self.precisions for pc in self._pieces(p))
+        return sum(sm.pieces_nnz for p in self.precisions
+                   for sm in self.summaries[p])
 
     def dump_sparsity(self, outdir: str) -> list:
         """-output_sparsity: per precision and shard the JAX operator's
         ``<precision>_local_scs_rank<r>.mtx`` (distributed.py:1252), the
         shard's nonzeros by its original local row, columns in its x
         numbering (local rows, then halo); the shard's heavy-row pieces
-        folded back into their parents' rows (``write_sparsity``)."""
+        folded back into their parents' rows (``write_sparsity``). Across
+        processes each writes the files of its own shards, as each rank of
+        the reference writes its own."""
         paths = []
         for p in self.precisions:
-            for r, (s, sh) in enumerate(zip(self.scs[p], self.streams[p])):
+            for r, sh in zip(self.shards, self.streams[p]):
+                s = self.scs[p][r]
                 path = os.path.join(outdir, f"{p}_local_scs_rank{r}.mtx")
                 write_sparsity(path, s, sh.pieces)
                 paths.append(path)

@@ -17,7 +17,9 @@ region (reference Irecv into &local_x[halo offset],
 classes_structs.hpp:876-926), padded to the largest count of the offset;
 padding lanes scatter into a dump slot at index H. The port runs the
 exchange as one device-side copy of the real lanes
-(ops/halo_exchange.py, parallel/distributed.py).
+(ops/halo_exchange.py, parallel/distributed.py); across processes, the
+lanes between two processes go through a packed buffer
+(``split_exchange_rows``).
 
 Halo columns are numbered in ascending global column order, which is
 owner-grouped because work_sharing is sorted (the reference numbers them in
@@ -209,6 +211,35 @@ def build_allgather_col_map(
         scs.col_idxs = new_cols
 
 
+def _exchange_pairs(plan: HaloPlan, no_pack: bool = False):
+    """The real lanes of the plan, in one fixed order: for every active
+    offset d and receiving shard r, (s = (r - d) % R, r, the rows of s's
+    buffer it sends, the rows of r's buffer they land in). ``no_pack``
+    sends s's rows 0..count-1 in place of its gather indices."""
+    R = plan.n_shards
+    for d in plan.offsets:
+        gather = plan.send_gather_idx[d]
+        scatter = plan.recv_scatter_idx[d]
+        for r in range(R):
+            s = (r - d) % R
+            n = int(plan.real_counts[d][s])
+            if n == 0:
+                continue
+            rows = (np.arange(n, dtype=np.int64) if no_pack
+                    else gather[s, :n].astype(np.int64))
+            yield s, r, rows, scatter[r, :n].astype(np.int64)
+
+
+def _check_length(plan: HaloPlan, length: int) -> None:
+    if length <= plan.H:
+        raise ValueError(f"buffer length {length} must exceed H={plan.H}")
+
+
+def _cat(parts) -> np.ndarray:
+    return (np.concatenate(parts) if parts
+            else np.zeros(0, dtype=np.int64))
+
+
 def exchange_rows(
     plan: HaloPlan, length: int, no_pack: bool = False
 ):
@@ -220,22 +251,48 @@ def exchange_rows(
     the dump slot H in the JAX exchange, are left out. ``no_pack`` sends
     s's rows 0..count-1 in place of its gather indices (the reference's
     -no_pack; wrong results on purpose). Returns two int64 arrays."""
-    R = plan.n_shards
-    if length <= plan.H:
-        raise ValueError(f"buffer length {length} must exceed H={plan.H}")
+    _check_length(plan, length)
     src, dst = [], []
-    for d in plan.offsets:
-        gather = plan.send_gather_idx[d]
-        scatter = plan.recv_scatter_idx[d]
-        for r in range(R):
-            s = (r - d) % R
-            n = int(plan.real_counts[d][s])
-            if n == 0:
-                continue
-            rows = (np.arange(n, dtype=np.int64) if no_pack
-                    else gather[s, :n].astype(np.int64))
-            src.append(s * length + rows)
-            dst.append(r * length + scatter[r, :n].astype(np.int64))
-    if not src:
-        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
-    return np.concatenate(src), np.concatenate(dst)
+    for s, r, rows, scat in _exchange_pairs(plan, no_pack):
+        src.append(s * length + rows)
+        dst.append(r * length + scat)
+    return _cat(src), _cat(dst)
+
+
+def split_exchange_rows(
+    plan: HaloPlan, length: int, owner: np.ndarray, me: int,
+    no_pack: bool = False,
+):
+    """``exchange_rows`` for the shards of process ``me`` when shard r lives
+    in process ``owner[r]`` (owners ascending: a process holds consecutive
+    shards, stacked in shard order into its own buffer of ``length`` rows
+    per shard). Returns (src, dst, send, recv):
+
+      * src, dst: the pairs whose two shards both live in ``me``, as rows of
+        its stacked buffer (one copy, as ``exchange_rows``);
+      * send[q]: the rows of its buffer that ``me`` sends to process q;
+      * recv[q]: the rows of its buffer that take what q sends to ``me``.
+
+    Every process walks the same pairs in the same order (offset d, then
+    receiver r), so q's ``send[me]`` and ``me``'s ``recv[q]`` list the same
+    rows in the same order. Applied together over every process, the parts
+    equal the one-process exchange."""
+    _check_length(plan, length)
+    owner = np.asarray(owner, dtype=np.int64)
+    n_proc = int(owner.max()) + 1 if owner.size else 1
+    # a shard's place in its process's stack (owners ascend)
+    slot = np.arange(owner.size) - np.searchsorted(owner, owner)
+    src, dst = [], []
+    send = [[] for _ in range(n_proc)]
+    recv = [[] for _ in range(n_proc)]
+    for s, r, rows, scat in _exchange_pairs(plan, no_pack):
+        qs, qr = int(owner[s]), int(owner[r])
+        if qs == me and qr == me:
+            src.append(slot[s] * length + rows)
+            dst.append(slot[r] * length + scat)
+        elif qs == me:
+            send[qr].append(slot[s] * length + rows)
+        elif qr == me:
+            recv[qs].append(slot[r] * length + scat)
+    return (_cat(src), _cat(dst), [_cat(p) for p in send],
+            [_cat(p) for p in recv])

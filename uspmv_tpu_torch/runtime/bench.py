@@ -20,7 +20,10 @@ so the JAX harness's loop-carried epsilon (its ``_make_runner``, and the
 
 Both take an ``SpmvOperator`` or a sharded ``DistributedSpmvOperator``
 (parallel/distributed.py); for the latter the result also carries the halo
-elements received per SpMV, in all and per shard.
+elements received per SpMV, in all, per shard and per process. An operator
+spread over processes runs a collective in every SpMV, so every process
+must run the same number of batches of the same size: each batch's time is
+the largest of all processes' (an all-reduce), and the doubling reads that.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..parallel import multihost
 from .operator import OperatorBase
 
 WARM_UP_REPS = 100  # reference main.cpp:22
@@ -73,6 +77,7 @@ class BenchResult:
     comm_volume_elems: int = 0
     per_shard: Optional[list] = None
     comm_volume_per_host: Optional[dict] = None
+    n_processes: int = 1  # processes of the run (parallel/multihost.py)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -81,7 +86,8 @@ class BenchResult:
 def _time_batch(op: OperatorBase, x: torch.Tensor, n: int,
                 call=None) -> float:
     """Seconds for n calls of ``call(x)`` (default: one SpMV), measured on
-    the device's own clock."""
+    the device's own clock; for an operator spread over processes, the
+    largest of all processes' seconds."""
     call = call or op.spmv
     if op.device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
@@ -91,11 +97,15 @@ def _time_batch(op: OperatorBase, x: torch.Tensor, n: int,
             call(x)
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / 1e3
-    t0 = time.perf_counter()
-    for _ in range(n):
-        call(x)
-    return time.perf_counter() - t0
+        seconds = start.elapsed_time(end) / 1e3
+    else:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call(x)
+        seconds = time.perf_counter() - t0
+    if getattr(op, "n_processes", 1) > 1:
+        seconds = multihost.agree_max(seconds)
+    return seconds
 
 
 def bench_spmv(
@@ -220,4 +230,5 @@ def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
         comm_volume_elems=comm_elems,
         per_shard=per_shard,
         comm_volume_per_host=per_host,
+        n_processes=multihost.process_count(),
     )

@@ -60,6 +60,13 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
         lines.append(f"  n_dropped={res.n_dropped}")
     if res.comm_volume_elems:
         lines.append(f"comm volume: {res.comm_volume_elems} halo elems/SpMV")
+    if res.n_processes > 1 and res.comm_volume_per_host:
+        # runs of several processes: halo elements each process receives
+        for p, hosts in res.comm_volume_per_host.items():
+            per = "  ".join(
+                f"host{h}={v}" for h, v in sorted(hosts.items())
+            )
+            lines.append(f"  [{p}] halo elems/SpMV per host: {per}")
     if cfg.comm_mode in ("singlevec", "multivec"):
         lines.append(
             f"note: comm_mode={cfg.comm_mode}: the shards share one device, "

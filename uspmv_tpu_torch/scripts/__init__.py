@@ -8,7 +8,8 @@ as ``python -m uspmv_tpu_torch.scripts.<name>``:
     perf_sweep    perf_sweep.py
     ap_bench      ap_bench.py
     check_dp_emu  check_dp_emu.py
-    validate_campaign  validate_campaign.py
+    solve_diag    solve_diag.py
+    validate_campaign  validate_campaign.py (--multihost: 2-process runs)
 
 Each takes ``--backend cuda|cpu`` (default cuda, which raises
 DeviceUnavailableError without a GPU) and appends its JSON rows to

@@ -13,11 +13,17 @@ packed tier at bs 1 and 2, as the JAX script's extra runs.
 The reference's bundled matrices are not in this repository, so the
 default matrices are generated: Laplace2D-16 (the 2-D FDM stencil of
 FDM-2d-16.mtx), a random banded matrix and a small ScaMaC Hubbard chain;
-``--matrices`` takes .mtx paths or generator specs. The JAX script's
---multihost sweep waits for the port's multi-host slice.
+``--matrices`` takes .mtx paths or generator specs. ``--multihost`` adds
+the JAX script's sweep on real runs of two processes (the reference's
+validate_multi_proc.sh): three configurations on the first matrix, each two
+subprocesses of the CLI over torch.distributed (-n_shards 4, 2 shards per
+process; on the card NCCL where the host has a card per process, gloo
+through host buffers where they share one; gloo with --backend cpu),
+validated on process 0.
 
     python -m uspmv_tpu_torch.scripts.validate_campaign [--quick]
-        [--matrices M ...] [--shards N] [--backend cuda|cpu] [--out PATH]
+        [--matrices M ...] [--shards N] [--multihost]
+        [--backend cuda|cpu] [--out PATH]
 
 One row per run ({"matrix", "argv", "rc", "impl", "seconds", "platform"};
 impl as the CLI printed it) is appended to --out, by default
@@ -34,6 +40,8 @@ import io
 import itertools
 import os
 import re
+import socket
+import subprocess
 import sys
 import time
 from typing import List, Optional
@@ -53,6 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quick", action="store_true", help="reduced sweep")
     p.add_argument("--matrices", nargs="*", default=None)
     p.add_argument("--shards", type=int, default=1)
+    p.add_argument("--multihost", action="store_true",
+                   help="also run three configurations on two processes "
+                        "each (the reference's validate_multi_proc.sh)")
     _common.add_common_args(p, NAME)
     return p
 
@@ -102,6 +113,58 @@ def sweep(args) -> list:
     return runs
 
 
+MULTIHOST_CONFIGS = (
+    ["scs", "-c", "4", "-s", "8", "-sp"],
+    ["crs", "-dp", "-rand_x", "1"],
+    ["scs", "-c", "1024", "-s", "1", "-sp", "-seg_method", "seg-nnz"],
+)
+
+
+def free_port() -> int:
+    """A TCP port of this host that nothing listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argv: List[str], n: int) -> tuple:
+    """``python -m uspmv_tpu_torch.cli *argv`` as a run of n processes on
+    this host (a free port of 127.0.0.1 as coordinator, one thread each).
+    Every process is killed when one outlives 600 s. Returns (return
+    codes, outputs)."""
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "uspmv_tpu_torch.cli", *argv,
+         "-coordinator", f"127.0.0.1:{port}", "-n_processes", str(n),
+         "-process_id", str(pid)],
+        cwd=repo, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for pid in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs], outs
+
+
+def multihost_sweep(args) -> list:
+    """(matrix, argv) of the two-process runs, in the JAX script's order."""
+    out_dir = os.environ.get("USPMV_CAMPAIGN_DIR",
+                             str(BUILD_DIR / "campaign"))
+    m = (args.matrices or list(DEFAULT_MATRICES))[0]
+    return [(m, [m, *extra, "-mode", "s", "-rev", "2", "-validate", "1",
+                 "-n_shards", "4", "-local_devices", "2", "-mtx_out",
+                 out_dir, "-backend", args.backend])
+            for extra in MULTIHOST_CONFIGS]
+
+
 def run(args) -> List[dict]:
     # raises early without the device
     platform = _common.platform_of(_common.device_for(args.backend))
@@ -123,6 +186,19 @@ def run(args) -> List[dict]:
         rows.append({"matrix": m, "argv": argv, "rc": rc,
                      "impl": impl.group(1) if impl else None,
                      "seconds": seconds, "platform": platform})
+    if args.multihost:
+        for m, argv in multihost_sweep(args):
+            t0 = time.perf_counter()
+            rcs, outs = run_processes(argv, 2)
+            rc = next((c for c in rcs if c), 0)
+            if rc != 0:
+                print(f"ERROR multihost rc={rcs} {' '.join(argv)}\n"
+                      f"{outs[0][-600:]}")
+            impl = re.search(r"impl: (\S+)", outs[0])
+            rows.append({"matrix": m, "argv": argv, "rc": rc,
+                         "impl": impl.group(1) if impl else None,
+                         "seconds": time.perf_counter() - t0,
+                         "platform": platform, "n_processes": 2})
     n_fail = sum(r["rc"] != 0 for r in rows)
     path = _common.write_rows(args.out or _common.default_out(NAME), rows)
     print(f"campaign: {len(rows)} runs, {n_fail} failures "

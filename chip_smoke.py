@@ -349,6 +349,15 @@ def card_name_and_power_limit():
     return out.splitlines()[0]
 
 
+def driver_version():
+    """The card's driver version: a programmatic dependent launch (the halo
+    kernels) inside a CUDA-graph capture needs a recent one."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 def acc_tol(x):
     """Tolerance by the accumulator (x) dtype."""
     import torch
@@ -1936,9 +1945,12 @@ def host_rel(got, want):
 
 def exchange_record(op, p, x, card, what):
     """The exchange kernel of precision p of ``op`` on the stacked x:
-    bit-equal to its plain version, then the kernel, the plain version and
-    the library pair index_select + index_copy_ timed by replayed CUDA
+    bit-equal to its plain version, then the kernel, its launch floor (the
+    same entry point on a plan of the first pair alone), the plain version
+    and the library pair index_select + index_copy_ timed by replayed CUDA
     graphs in turns. Returns the record for the kernels line."""
+    import dataclasses
+
     import torch
 
     from uspmv_tpu_torch.ops import halo_exchange as hx
@@ -1958,9 +1970,12 @@ def exchange_record(op, p, x, card, what):
     xk = got.clone()
     flat, dim = hx.flat_view(ex, xk, layout)
     dst64 = ex.dst.long()
+    one = dataclasses.replace(ex, src=ex.src[:1], dst=ex.dst[:1])
     med, samples = time_turns({
         "kernel": lambda: graph_ms(lambda: hx.halo_exchange(ex, xk, layout),
                                    200),
+        "floor": lambda: graph_ms(lambda: hx.halo_exchange(one, xk, layout),
+                                  200),
         "plain": lambda: graph_ms(
             lambda: hx.halo_exchange_plain(ex, xk, layout), 200),
         "library": lambda: graph_ms(lambda: flat.index_copy_(
@@ -1972,8 +1987,11 @@ def exchange_record(op, p, x, card, what):
     rec = dict(entry=hx._ENTRY_POINTS[x.dtype], pairs=ex.n,
                values_per_pair=n_val, bound_bytes=nbytes,
                max_abs_err=max_abs, ms=med["kernel"],
+               floor_ms=med["floor"],
+               above_floor_ms=med["kernel"] - med["floor"],
                plain_ms=med["plain"], library_ms=med["library"],
                library_error=None, bound_ms=b_ms, bound_by=b_by,
+               geometry=hx.device_geometry("exchange", ex, xk, None, layout),
                timed_on=what)
     emit("halo_exchange", card=card, **rec, **samples)
     return rec
@@ -2924,7 +2942,10 @@ def transfer_record(op, dtype, card):
     over 2 processes of 2 shards, on x of ``dtype``: each bit-equal to its
     plain version, then the kernel, the plain version and the library call
     (index_select for the pack, index_copy_ for the unpack) timed by
-    replayed CUDA graphs in turns. Returns {entry point: record}."""
+    replayed CUDA graphs in turns, with the launch floor (the same entry
+    point on one row). Returns {entry point: record}."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2953,20 +2974,27 @@ def transfer_record(op, dtype, card):
     require(not torch.equal(got_u, x), f"unpack {dtype} wrote nothing")
     xu = x.clone()
     flat_u = xu.view(-1)
+    # the launch floor: the same entry points on a plan of one row
+    one = dataclasses.replace(tr, send=tr.send[:1], recv=tr.recv[:1],
+                              send_counts=[1], recv_counts=[1])
+    buf1, inc1 = buf[:1], inc[:1]
     recs = {}
-    for kind, n, kernel, plain, library, err in (
+    for kind, n, kernel, floor, plain, library, err in (
             ("pack", tr.n_send,
              lambda: hx.halo_pack(tr, x, buf),
+             lambda: hx.halo_pack(one, x, buf1),
              lambda: hx.halo_pack_plain(tr, x, buf),
              lambda: torch.index_select(flat, 0, tr.send, out=buf),
              (got - want).abs().max().item()),
             ("unpack", tr.n_recv,
              lambda: hx.halo_unpack(tr, inc, xu),
+             lambda: hx.halo_unpack(one, inc1, xu),
              lambda: hx.halo_unpack_plain(tr, inc, xu),
              lambda: flat_u.index_copy_(0, recv64, inc),
              (got_u - want_u).abs().max().item())):
         med, samples = time_turns({
             "kernel": lambda: graph_ms(kernel, 200),
+            "floor": lambda: graph_ms(floor, 200),
             "plain": lambda: graph_ms(plain, 200),
             "library": lambda: graph_ms(library, 200)})
         nbytes = tr.bound_bytes(x.element_size(), pack=kind == "pack")
@@ -2974,8 +3002,12 @@ def transfer_record(op, dtype, card):
         table = (hx.PACK_ENTRY_POINTS if kind == "pack"
                  else hx.UNPACK_ENTRY_POINTS)
         rec = dict(entry=table[dtype], kind=kind, rows=n, max_abs_err=err,
-                   ms=med["kernel"], plain_ms=med["plain"],
+                   ms=med["kernel"], floor_ms=med["floor"],
+                   above_floor_ms=med["kernel"] - med["floor"],
+                   plain_ms=med["plain"],
                    library_ms=med["library"], library_error=None,
+                   geometry=hx.device_geometry(
+                       kind, tr, x, buf if kind == "pack" else inc),
                    library_call=("torch.index_select" if kind == "pack"
                                  else "Tensor.index_copy_"),
                    bound_bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
@@ -3007,7 +3039,8 @@ def transfer_kernels(launches, records):
             "library_call": rec["library_call"],
             "library_error": rec["library_error"],
             "timed_on": rec["timed_on"], "rows": rec["rows"],
-            "bound_bytes": rec["bound_bytes"],
+            "bound_bytes": rec["bound_bytes"], "floor_ms": rec["floor_ms"],
+            "above_floor_ms": rec["above_floor_ms"],
         })
     return out
 
@@ -3284,7 +3317,7 @@ def main():
         [nvcc, "--version"], capture_output=True, text=True, check=True
     ).stdout.strip().splitlines()[-1]
     emit("environment", torch=torch.__version__, cuda=torch.version.cuda,
-         nvcc=nvcc_version, device=kind,
+         nvcc=nvcc_version, driver=driver_version(), device=kind,
          device_count=torch.cuda.device_count(), card=card)
 
     # the native host library (g++) builds while nvcc builds the kernels;
@@ -3595,7 +3628,8 @@ def main():
             "library_call": "index_select + index_copy_",
             "library_error": rec["library_error"],
             "timed_on": rec["timed_on"], "pairs": rec["pairs"],
-            "bound_bytes": rec["bound_bytes"],
+            "bound_bytes": rec["bound_bytes"], "floor_ms": rec["floor_ms"],
+            "above_floor_ms": rec["above_floor_ms"],
         })
     kernels += transfer_kernels(mh_launches, mh_records)
     emit("done", seconds_total=time.perf_counter() - t_start)

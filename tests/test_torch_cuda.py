@@ -978,6 +978,134 @@ def test_halo_pack_and_unpack_bit_equal_to_plain(cuda, dtype, layout, bs):
     assert not torch.equal(got, x)
 
 
+HALO_LAYOUTS = [("rowwise", 1), ("rowwise", 3), ("rowwise", 4),
+                ("rowwise", 8), ("colwise", 4)]
+HALO_KINDS = ["exchange", "pack", "unpack"]
+
+
+def halo_case(kind, n, layout, bs, dtype, offset, device):
+    """(plan, x, the buffer or None, the target's start, the plain result)
+    of one halo kernel: a stacked x of 2 shards of L rows, n distinct
+    sources among the local rows (the first half of each shard) and n
+    distinct destinations among the halo rows; index arrays that start
+    ``offset`` words into their allocation, copied to the card as the
+    plan's build functions copy them. The target is the buffer of the
+    pack and x of the exchange and the unpack."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    L = 2 * n + 8
+    rng = np.random.default_rng(n + offset)
+    local = np.concatenate([np.arange(L // 2) + r * L for r in range(2)])
+    halo = local + L // 2
+    src = rng.choice(local, n, replace=False)
+    dst = rng.choice(halo, n, replace=False)
+
+    def rows(a):
+        words = np.concatenate([np.zeros(offset, np.int32),
+                                a.astype(np.int32)])
+        return torch.from_numpy(words).to(device)[offset:]
+
+    def values(shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dtype).to(
+            device)
+
+    x = values((2, L) if bs == 1 else (2, L, bs) if layout == "rowwise"
+               else (bs, 2, L))
+    if kind == "exchange":
+        plan = hx.DeviceExchange(src=rows(src), dst=rows(dst), n_shards=2,
+                                 length=L)
+        return plan, x, None, x, hx.halo_exchange_plain(plan, x.clone(),
+                                                        layout)
+    plan = hx.DeviceTransfer(send=rows(src), recv=rows(dst), send_counts=[n],
+                             recv_counts=[n], n_shards=2, length=L,
+                             active=True)
+    buf = values(plan.buffer_shape(n, bs))
+    if kind == "pack":
+        start = torch.zeros_like(buf)
+        return plan, x, buf, start, hx.halo_pack_plain(plan, x, start.clone(),
+                                                       layout)
+    return plan, x, buf, x, hx.halo_unpack_plain(plan, buf, x.clone(), layout)
+
+
+def halo_call(kind, plan, x, buf, target, layout):
+    """One call of the kind's wrapper, writing ``target``."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    if kind == "exchange":
+        hx.halo_exchange(plan, target, layout)
+    elif kind == "pack":
+        hx.halo_pack(plan, x, target, layout)
+    else:
+        hx.halo_unpack(plan, buf, target, layout)
+
+
+def halo_entry(kind, dtype):
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    return {"exchange": hx._ENTRY_POINTS, "pack": hx.PACK_ENTRY_POINTS,
+            "unpack": hx.UNPACK_ENTRY_POINTS}[kind][dtype]
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("n", [1, 2, 5, 4 * 1000 + 3])
+@pytest.mark.parametrize("layout,bs", HALO_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", HALO_KINDS)
+def test_halo_kernels_bit_equal_eagerly_and_in_a_graph(cuda, kind, dtype,
+                                                       layout, bs, n, offset):
+    """Each call launches once (in a capture too: one node) and gives the
+    plain version's bits, at ragged lengths, in every layout, with index
+    arrays at any word offset; the card's geometry is launch_geometry's."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    plan, x, buf, start, want = halo_case(kind, n, layout, bs, dtype, offset,
+                                          cuda)
+    name = halo_entry(kind, dtype)
+    before = hx.launch_counts()[name]
+    got = start.clone()
+    halo_call(kind, plan, x, buf, got, layout)
+    torch.cuda.synchronize()
+    assert hx.launch_counts()[name] == before + 1
+    assert torch.equal(got, want)
+    assert not torch.equal(got, start)
+    target = start.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        halo_call(kind, plan, x, buf, target, layout)
+    assert hx.launch_counts()[name] == before + 2
+    for _ in range(2):
+        target.copy_(start)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(target, want)
+    geo = hx.device_geometry(kind, plan, x, buf, layout)
+    n_vec, ld, ncols, vstride = ((bs, 1, 1, 2 * plan.length)
+                                 if layout == "colwise" else (1, bs, bs, 0))
+    assert geo == hx.launch_geometry(
+        n, n_vec, ld, ncols, x.element_size(), geo["n_sm"],
+        geo["blocks_per_sm"], vstride)
+    assert geo["n_sm"] == torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", HALO_KINDS)
+def test_halo_kernels_loop_beyond_one_wave(cuda, kind, dtype):
+    """More pairs than one wave of threads holds: the grid-stride loop
+    takes every thread several turns."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    n = 4 * 2**20 + 3
+    plan, x, buf, start, want = halo_case(kind, n, "rowwise", 1, dtype, 0,
+                                          cuda)
+    geo = hx.device_geometry(kind, plan, x, buf)
+    assert geo["grid"] * geo["threads"] * 4 < n
+    got = start.clone()
+    halo_call(kind, plan, x, buf, got, "rowwise")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
     """Two processes of the CLI on one card: NCCL refuses two ranks on one
     device, so the transport is gloo through pinned host buffers; the

@@ -12,7 +12,9 @@ worker ...``), which builds the sharded operator in each process, runs one
 SpMV and a solve of 3 repetitions, and has process 0 save both y. The
 one-process sharded operator on the same matrix and x must give the same
 bits: the processes hold the same shards' streams, run the same plain
-versions on them, and the transfer moves the halo rows as they are.
+versions on them, and the transfer moves the halo rows as they are. The
+bench's per-host report line is held against the JAX package's, which the
+test takes in process from the JAX operator's plan (no JAX bench cluster).
 
 In-process: the per-process split of the exchange plan, the pack and
 unpack wrappers against indexing, the transport rule, shard ownership,
@@ -48,10 +50,7 @@ def run_cluster(argv_of, n, timeout=TIMEOUT):
     Every process is killed when one outlives ``timeout``."""
     port = free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    # the JAX package's bootstrap pins its platform itself: the test
-    # session's JAX_PLATFORMS and XLA_FLAGS must not leak in
-    for var in ("USPMV_COORDINATOR", "JAX_PLATFORMS", "XLA_FLAGS"):
-        env.pop(var, None)
+    env.pop("USPMV_COORDINATOR", None)  # the command line says it
     procs = [subprocess.Popen(argv_of(pid, port), cwd=REPO, env=env,
                               text=True, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT) for pid in range(n)]
@@ -67,15 +66,13 @@ def run_cluster(argv_of, n, timeout=TIMEOUT):
     return [p.returncode for p in procs], outs
 
 
-def cli_cluster(args, tmp_path, n=2, local_devices=2,
-                package="uspmv_tpu_torch"):
-    """The CLI line ``args`` on n processes of ``local_devices`` shards each,
-    on the CPU (``package``: the port, or the JAX package for a reference
-    line), its files into ``tmp_path``."""
+def cli_cluster(args, tmp_path, n=2, local_devices=2):
+    """The port's CLI line ``args`` on n processes of ``local_devices``
+    shards each, on the CPU, its files into ``tmp_path``."""
     tmp_path.mkdir(parents=True, exist_ok=True)
 
     def argv_of(pid, port):
-        return [sys.executable, "-m", f"{package}.cli", *args,
+        return [sys.executable, "-m", "uspmv_tpu_torch.cli", *args,
                 "-coordinator", f"localhost:{port}", "-n_processes", str(n),
                 "-process_id", str(pid), "-local_devices",
                 str(local_devices), "-backend", "cpu",
@@ -112,6 +109,44 @@ def per_host_lines(out):
             if "halo elems/SpMV per host" in ln]
 
 
+def jax_per_host_lines(owner):
+    """The JAX package's per-host lines of the bench below, taken in this
+    process: its operator's halo plan for the same matrix, configuration
+    and shards, the plan's halo counts rolled up by the process that holds
+    each shard (as its ``comm_volume_per_host`` does on a mesh spread over
+    processes), written by its own report. A JAX bench cluster is not
+    started: its timed doubling reads each process's own clock
+    (uspmv_tpu/runtime/bench.py:145-152), so two processes can disagree on
+    the batch count and one waits in a collective the other never runs."""
+    from uspmv_tpu.config import Config as JConfig
+    from uspmv_tpu.io import generators as jgen
+    from uspmv_tpu.parallel.distributed import (
+        DistributedSpmvOperator as JDistributed,
+    )
+    from uspmv_tpu.runtime.bench import BenchResult as JBenchResult
+    from uspmv_tpu.runtime.report import format_bench_block as jformat
+
+    cfg = JConfig(kernel_format="scs", chunk_size=4, sigma=8,
+                  value_type="sp", n_shards=4, print_comm_vol=True,
+                  verbose=True, backend="cpu", use_pallas=False)
+    jop = JDistributed.from_mtx(cfg, jgen.laplace2d(24))
+    per_host = {}
+    for p, hp in jop.halo_plans.items():
+        if hp is not None:
+            acc = {}
+            for r, h in enumerate(hp.halo_counts):
+                acc[owner[r]] = acc.get(owner[r], 0) + int(h)
+            per_host[p] = acc
+    res = JBenchResult(
+        perf_gflops=0.0, effective_gbps=0.0, duration_total_s=0.0,
+        duration_kernel_s=0.0, n_iterations=1, nnz=0, block_vec_size=1,
+        value_type="sp", kernel_format="scs", C=4, sigma=8, beta={},
+        device_beta={}, nnz_per_precision={}, memory_footprint_bytes=0,
+        n_rows=0, platform="cpu", comm_volume_per_host=per_host,
+        n_processes=max(owner) + 1)
+    return per_host_lines(jformat(cfg, res))
+
+
 def test_two_process_bench_per_host_lines_equal_jax(tmp_path):
     args = ["Laplace2D,24", "scs", "-c", "4", "-s", "8", "-mode", "b",
             "-bench_time", "0.05", "-n_shards", "4", "-sp",
@@ -122,9 +157,9 @@ def test_two_process_bench_per_host_lines_equal_jax(tmp_path):
     assert "host0=" in out and "host1=" in out, out
     assert "shard 0:" in out and "shard 3:" in out, out
     assert "comm volume:" in outs[0] and "perf:" not in outs[1], outs[1]
-    jrcs, jouts = cli_cluster(args, tmp_path / "jax", package="uspmv_tpu")
-    assert jrcs == [0, 0], jouts
-    assert per_host_lines(out) == per_host_lines(jouts[0]), (out, jouts[0])
+    # shards 0-1 on process 0, 2-3 on process 1 (-local_devices 2)
+    jlines = jax_per_host_lines([0, 0, 1, 1])
+    assert per_host_lines(out) == jlines, (out, jlines)
     assert per_host_lines(out) == [
         "[sp] halo elems/SpMV per host: host0=72  host1=72"]
 

@@ -235,7 +235,8 @@ def test_kernel_ab_arguments_and_turns(tmp_path):
         == len(kernel_ab.scs_pieces._ARGTYPES)
     args = kernel_ab.build_parser().parse_args(["--lib", "a=b"])
     assert args.out is None
-    assert args.cases == "sell,packed,solve,pieces,gather"
+    assert args.cases == "sell,packed,solve,pieces,gather,halo"
+    assert "halo" in kernel_ab.CASES
     assert _common.default_out("kernel_ab").parent \
         == REPO / "build" / "uspmv_tpu_torch"
     with pytest.raises(ValueError, match="unknown"):

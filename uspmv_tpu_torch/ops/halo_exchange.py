@@ -28,13 +28,24 @@ launch of its kernel in ``csrc/halo_exchange.cu`` for CUDA tensors and
 (``index_copy_``) for CPU tensors. A buffer row holds every value of its x
 row: ``[n]`` for one vector, ``[n, bs]`` for block vectors of either
 layout, so the transfer splits it by rows.
+
+The three are one kernel template on the card (``csrc/halo_exchange.cu``):
+a thread copies a pair, rows of a multiple of 16 bytes move as 16-byte
+units, the grid is at most one wave with a grid-stride loop beyond it, and
+each launch is a programmatic dependent launch: it reads its index arrays
+before it waits for the kernel before it on the stream, so they are
+written once, when the plan is built (copies from the host in
+``build_device_exchange`` and ``build_device_transfer``), never by a
+kernel just launched. ``launch_geometry`` mirrors the source's choices in
+Python, and ``device_geometry`` asks the library what a launch of given
+tensors takes.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -56,6 +67,17 @@ UNPACK_ENTRY_POINTS = {
 }
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2
              + [ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+GEOMETRY_ENTRY = "uspmv_halo_geometry"
+_GEOMETRY_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                      + [ctypes.c_int64] * 2
+                      + [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                         ctypes.c_void_p])
+# the launch geometry of csrc/halo_exchange.cu
+THREADS = 256
+VECTOR_BYTES = 16
+KINDS = ("exchange", "pack", "unpack")
+_GEOMETRY_KEYS = ("threads", "unit_bytes", "row_units", "grid", "n_vec",
+                  "n_sm", "blocks_per_sm")
 
 # one count per entry point: the exchange, the pack and the unpack
 _launches: Dict[str, int] = {
@@ -151,8 +173,61 @@ def _kernel_lib() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+        query = getattr(lib, GEOMETRY_ENTRY)
+        query.argtypes = _GEOMETRY_ARGTYPES
+        query.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def launch_geometry(n: int, n_vec: int, ld: int, ncols: int, itemsize: int,
+                    n_sm: int, per_sm: int, vstride: int = 0,
+                    aligned: bool = True) -> Dict[str, int]:
+    """How csrc/halo_exchange.cu launches a copy of n pairs (rows of
+    ``ncols`` values of ``itemsize`` bytes, ``ld`` values apart, ``n_vec``
+    colwise vectors ``vstride`` apart) on a card of ``n_sm`` SMs holding
+    ``per_sm`` of its blocks each: thread t of the grid takes pairs t,
+    t + grid * threads, ...; a row moves in units of ``unit_bytes`` (16
+    where its bytes, ``ld`` and ``vstride`` are multiples of 16 and the
+    buffers are 16-byte ``aligned``, else one value), ``row_units`` of
+    them; the grid is ``grid`` x ``n_vec`` blocks of ``threads``, at most
+    one wave (at least one block per vector)."""
+    if n < 1 or n_vec < 1 or ncols < 1 or ld < 1:
+        raise ValueError("a launch copies n >= 1 rows of ncols >= 1 values "
+                         "for n_vec >= 1 vectors, ld >= 1")
+    row_bytes = ncols * itemsize
+    vec = (aligned and row_bytes % VECTOR_BYTES == 0
+           and ld * itemsize % VECTOR_BYTES == 0
+           and (n_vec == 1 or vstride * itemsize % VECTOR_BYTES == 0))
+    unit = VECTOR_BYTES if vec else itemsize
+    wave = max(n_sm * per_sm // n_vec, 1)
+    return dict(threads=THREADS, unit_bytes=unit, row_units=row_bytes // unit,
+                grid=min(-(-n // THREADS), wave), n_vec=n_vec, n_sm=n_sm,
+                blocks_per_sm=per_sm)
+
+
+def device_geometry(kind: str, plan, x: torch.Tensor,
+                    buf: Optional[torch.Tensor] = None,
+                    layout: str = "rowwise") -> Dict[str, int]:
+    """The geometry (``launch_geometry``'s keys) the library gives one
+    launch of ``kind`` on the stacked CUDA x, without launching: the
+    exchange of a ``DeviceExchange``, or the pack into (unpack from)
+    ``buf`` of a ``DeviceTransfer``."""
+    if kind == "exchange":
+        rows, dst = plan.src, plan.dst
+    else:
+        rows, dst = (plan.send if kind == "pack" else plan.recv), None
+    flat, dim = flat_view(plan, x, layout)
+    out = (ctypes.c_int64 * len(_GEOMETRY_KEYS))()
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, GEOMETRY_ENTRY)(
+            KINDS.index(kind), x.element_size(), x.data_ptr(),
+            None if buf is None else buf.data_ptr(), rows.data_ptr(),
+            None if dst is None else dst.data_ptr(), int(rows.shape[0]),
+            *_geometry(flat, dim), out)
+    scs_spmv.raise_for(lib, rc, f"halo {kind} geometry query")
+    return dict(zip(_GEOMETRY_KEYS, (int(v) for v in out)))
 
 
 def halo_exchange(ex: DeviceExchange, x: torch.Tensor,

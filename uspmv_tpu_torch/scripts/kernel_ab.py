@@ -3,7 +3,8 @@ inputs in one process on one card: the paired comparison of a kernel change
 (the parent's sources against the change's).
 
     python -m uspmv_tpu_torch.scripts.kernel_ab --lib NAME=CSRC_DIR
-        [--lib NAME=CSRC_DIR ...] [--cases sell,packed,solve,pieces,gather]
+        [--lib NAME=CSRC_DIR ...]
+        [--cases sell,packed,solve,pieces,gather,halo]
         [--reps R] [--rounds N] [--out PATH]
 
 Each CSRC_DIR is a copy of ``uspmv_tpu_torch/csrc`` (the parent commit's,
@@ -27,13 +28,26 @@ and cuobjdump's registers per kernel are printed for each. The cases:
             columns of RandomImbalanced-500k's packed rows and pieces (sp,
             as the packed and pieces cases), the indices of chip_smoke.py's
             gather floors
+    halo    halo_exchange.cu on Laplace3D-128 (values / 16, so a solve
+            stays finite), sp, C=1024, sigma=1, split into R shards by
+            rows: the exchange of the R=4 plan (98,304 rows) in f32, f64
+            and rowwise bs 8, and on the plan's first pair alone (the
+            launch floor); the pack and unpack of process 0's 16,384 rows
+            of that plan over 2 processes, f32 and f64, and on one row;
+            the sharded op.spmv at R=4 and R=8 with the overlap off and
+            on, and the graph solve (k=64) at R=4, each with the exchange
+            of the library version under test
 
 On a case every library's kernel runs on the same tensors, in the order
 first..last then last..first, --rounds times; each turn is one replay of a
 CUDA graph of R launches (the solve: R launches timed by CUDA events).
 cuSPARSE (``torch.sparse_csr_tensor @ x``) on the same matrix, where the
 value and x types agree, or ``torch.index_select`` for the gather, takes
-its turns among them, timed by CUDA events. One row per (case, library)
+its turns among them, timed by CUDA events; for the halo cases
+``index_select`` + ``index_copy_`` (the op.spmv and the solve with that
+pair as their exchange) takes them, by replayed graph as the versions.
+The op.spmv and solve cases swap only the halo library: every other
+kernel is the package's own build. One row per (case, library)
 gives the median ms, the samples, the byte bound, whether y equals the
 first library's bit for bit, and the error against the plain version. A
 tree whose pieces kernel is the pair of a piece pass and a fold pass (the
@@ -45,6 +59,7 @@ are not bound.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import dataclasses
 import subprocess
@@ -60,6 +75,7 @@ from ..config import Config
 from ..io import generators
 from ..ops import (
     _build,
+    halo_exchange,
     scs_packed,
     scs_pieces,
     scs_solve,
@@ -71,7 +87,7 @@ from ..runtime.operator import SpmvOperator
 from . import _common, gather_probe
 
 NAME = "kernel_ab"
-CASES = ("sell", "packed", "solve", "pieces", "gather")
+CASES = ("sell", "packed", "solve", "pieces", "gather", "halo")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SOLVE_K = 32
 # the pieces entry points of the two-pass design: (n_pieces, piece_ptr,
@@ -145,6 +161,8 @@ class Version:
                        else _PIECES_ARGTYPES_TWO_PASS)
         for entry, argtypes in x_access._ARGTYPES.items():
             self._bind(entry, argtypes)
+        for entry in halo_exchange.launch_counts():
+            self._bind(entry, halo_exchange._ARGTYPES)
         self.lib.uspmv_cuda_error_string.argtypes = [ctypes.c_int]
         self.lib.uspmv_cuda_error_string.restype = ctypes.c_char_p
 
@@ -192,7 +210,8 @@ def resources(versions: Dict[str, Version]) -> List[dict]:
             if any(k in r["function"] for k in (
                     "scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
                     "scs_solve_kernel", "scs_probe_kernel",
-                    "scs_pieces_kernel", "gather_store_kernel")):
+                    "scs_pieces_kernel", "gather_store_kernel",
+                    "halo_")):
                 rows.append(dict(kind="resources", lib=v.name, **r))
     return rows
 
@@ -225,11 +244,12 @@ def events_ms(fn: Callable[[], object], reps: int) -> float:
 def paired(case: str, versions: Dict[str, Version], run, plain_y,
            nbytes: int, reps: int, rounds: int, library=None,
            timer=None, y0=None, library_name="cusparse",
-           tol=None) -> List[dict]:
+           tol=None, library_timer=None) -> List[dict]:
     """One case: ``run(version, y)`` writes y = the product (or, with
     ``y0``, adds it into y = a copy of y0); each version is checked against
     ``plain_y`` (to ``tol``, default TOL of its dtype) and the first
-    version's y, then timed in turns with ``library`` (a call, or None)."""
+    version's y, then timed in turns with ``library`` (a call, or None;
+    timed by ``library_timer``, default CUDA events around a loop)."""
     device = plain_y.device
     tol = TOL[plain_y.dtype] if tol is None else tol
     ys, rows = {}, {}
@@ -248,8 +268,9 @@ def paired(case: str, versions: Dict[str, Version], run, plain_y,
     names = list(versions) + ([library_name] if library else [])
     samples = {n: [] for n in names}
     for n in turns(names, rounds):
-        if n == library_name:  # allocates its result: events, not a graph
-            samples[n].append(events_ms(library, reps))
+        if n == library_name:  # allocates its result: events by default
+            samples[n].append(library_timer(library) if library_timer
+                              else events_ms(library, reps))
         else:
             y = ys[n]
             samples[n].append(timer(lambda v=versions[n], y=y: run(v, y)))
@@ -477,6 +498,164 @@ def solve_cases(versions, device, reps, rounds) -> List[dict]:
                   run, want, nbytes, reps, rounds, None, timer)
 
 
+@contextlib.contextmanager
+def halo_library(v: Optional[Version]):
+    """The package's halo wrappers launch ``v``'s kernels inside (the
+    exchange by ``index_select`` + ``index_copy_`` where v is None); every
+    other kernel stays the package's own."""
+    from ..parallel import distributed
+
+    lib, exchange = halo_exchange._lib, distributed.halo_exchange
+    if v is None:
+        distributed.halo_exchange = halo_exchange.halo_exchange_plain
+    else:
+        halo_exchange._lib = v.lib
+    try:
+        yield
+    finally:
+        halo_exchange._lib, distributed.halo_exchange = lib, exchange
+
+
+HALO_SOLVE_K = 64
+HALO_LIBRARY = "index_select+index_copy_"
+
+
+def halo_cases(versions, device, reps, rounds) -> List[dict]:
+    from ..parallel.distributed import DistributedSpmvOperator
+    from ..parallel.halo import split_exchange_rows
+
+    mtx = generators.generate_matrix("Laplace3D,128")
+    mtx.values[:] = mtx.values / 16.0  # exact: row sums of |A| <= 12/16
+    base = dict(kernel_format="scs", chunk_size=1024, sigma=1,
+                value_type="sp", backend="cuda")
+    rng = np.random.default_rng(6)
+    x_host = rng.standard_normal(mtx.n_rows)
+    graph = dict(library_timer=lambda fn: _common.device_ms(fn, reps, device),
+                 library_name=HALO_LIBRARY, tol=0.0)
+    rows = []
+    ops = {(4, True): DistributedSpmvOperator.from_mtx(
+        Config(**base, n_shards=4), mtx)}
+    op4 = ops[(4, True)]
+    ex, L = op4.exchanges["sp"], op4.lengths["sp"]
+
+    # the exchange kernel alone, in place on a stacked x whose halo rows
+    # start at zero; its launch floor on the plan's first pair
+    one = dataclasses.replace(ex, src=ex.src[:1], dst=ex.dst[:1])
+    for label, plan, dtype, bs in (
+            ("R=4 sp", ex, torch.float32, 1),
+            ("R=4 dp", ex, torch.float64, 1),
+            ("R=4 sp rowwise bs=8", ex, torch.float32, 8),
+            ("one pair (launch floor) sp", one, torch.float32, 1)):
+        shape = (4, L) if bs == 1 else (4, L, bs)
+        x0 = torch.as_tensor(rng.standard_normal(shape), device=device
+                             ).to(dtype)
+        x0.view(4 * L, -1).index_fill_(0, ex.dst.long(), 0)
+        entry = halo_exchange._ENTRY_POINTS[dtype]
+        geo = halo_exchange._geometry(x0.view(4 * L, -1).squeeze(1), 0)
+        xl = x0.clone()
+        flat, dst64 = xl.view(4 * L, -1).squeeze(1), plan.dst.long()
+
+        def run(v, y, plan=plan, entry=entry, geo=geo):
+            v.call(entry, y.data_ptr(), plan.src.data_ptr(),
+                   plan.dst.data_ptr(), plan.n, *geo)
+
+        rows += paired(
+            f"halo exchange {label}", versions, run,
+            halo_exchange.halo_exchange_plain(plan, x0.clone()),
+            plan.bound_bytes(x0.element_size(), bs), reps, rounds,
+            lambda flat=flat, dst64=dst64, plan=plan: flat.index_copy_(
+                0, dst64, flat.index_select(0, plan.src)), y0=x0, **graph)
+
+    # pack and unpack: process 0's rows of the plan over 2 processes
+    _, _, send, recv = split_exchange_rows(op4.halo_plans["sp"], L,
+                                           np.array([0, 0, 1, 1]), 0)
+    tr = halo_exchange.build_device_transfer(send, recv, 2, L, True, device)
+    row = dataclasses.replace(tr, send=tr.send[:1], recv=tr.recv[:1],
+                              send_counts=[1], recv_counts=[1])
+    for dtype in (torch.float32, torch.float64):
+        x = torch.as_tensor(rng.standard_normal((2, L)), device=device
+                            ).to(dtype)
+        inc = torch.as_tensor(rng.standard_normal(tr.n_recv), device=device
+                              ).to(dtype)
+        for plan in (tr, row):
+            n, buf = plan.n_send, torch.empty(plan.n_send, dtype=dtype,
+                                              device=device)
+            pack = halo_exchange.PACK_ENTRY_POINTS[dtype]
+            unpack = halo_exchange.UNPACK_ENTRY_POINTS[dtype]
+            xu, incn = x.clone(), inc[:n]
+            rec64 = plan.recv.long()
+
+            def run_pack(v, y, plan=plan, x=x, pack=pack, n=n):
+                v.call(pack, x.data_ptr(), y.data_ptr(),
+                       plan.send.data_ptr(), n, 1, 1, 0, 1)
+
+            def run_unpack(v, y, plan=plan, incn=incn, unpack=unpack, n=n):
+                v.call(unpack, y.data_ptr(), incn.data_ptr(),
+                       plan.recv.data_ptr(), n, 1, 1, 0, 1)
+
+            name = (f"{n:,} rows" if plan is tr else "one row (launch "
+                    "floor)") + f" {str(dtype).replace('torch.', '')}"
+            rows += paired(
+                f"halo pack {name}", versions, run_pack,
+                halo_exchange.halo_pack_plain(plan, x, buf.clone()),
+                plan.bound_bytes(x.element_size()), reps, rounds,
+                lambda x=x, plan=plan, buf=buf: torch.index_select(
+                    x.view(-1), 0, plan.send, out=buf), **graph)
+            rows += paired(
+                f"halo unpack {name}", versions, run_unpack,
+                halo_exchange.halo_unpack_plain(plan, incn, x.clone()),
+                plan.bound_bytes(x.element_size(), pack=False), reps, rounds,
+                lambda xu=xu, rec64=rec64, incn=incn: xu.view(-1).index_copy_(
+                    0, rec64, incn), y0=x, **graph)
+
+    # the sharded op.spmv by replayed graph, and the graph solve
+    for R in (4, 8):
+        for overlap in (False, True):
+            if (R, overlap) not in ops:
+                ops[(R, overlap)] = DistributedSpmvOperator.from_mtx(
+                    Config(**base, n_shards=R, overlap_comm=overlap), mtx)
+            op = ops[(R, overlap)]
+            x = op.make_x(x_host)
+            want, yl = torch.zeros_like(x), torch.zeros_like(x)
+            with halo_library(None):
+                op.spmv(x, out=want)
+
+            def run_spmv(v, y, op=op, x=x):
+                with halo_library(v):
+                    op.spmv(x, out=y)
+
+            def lib_spmv(op=op, x=x, yl=yl):
+                with halo_library(None):
+                    op.spmv(x, out=yl)
+
+            rows += paired(
+                f"sharded op.spmv R={R} overlap "
+                f"{'on' if overlap else 'off'}", versions, run_spmv, want,
+                op.bytes_per_spmv(), reps, rounds, lib_spmv,
+                y0=torch.zeros_like(x), **graph)
+    caches = {}
+    x = op4.make_x(x_host)
+
+    def solve(v):
+        key = HALO_LIBRARY if v is None else v.name
+        with halo_library(v):
+            op4._solve_graphs = caches.setdefault(key, {})
+            return op4.solve(x, HALO_SOLVE_K, "graph")[1]
+
+    def solve_timer(fn):  # each call replays a graph of k SpMVs
+        return events_ms(fn, max(reps // 10, 1)) / HALO_SOLVE_K
+
+    out = paired(f"sharded graph solve R=4 per iteration k={HALO_SOLVE_K}",
+                 versions, lambda v, y: y.copy_(solve(v)), solve(None),
+                 op4.bytes_per_spmv(), reps, rounds,
+                 lambda: solve(None), timer=solve_timer,
+                 library_name=HALO_LIBRARY, library_timer=solve_timer,
+                 tol=0.0)
+    del ops, op4, caches
+    torch.cuda.empty_cache()
+    return rows + out
+
+
 def run(args: argparse.Namespace) -> List[dict]:
     """Build every --lib, time the cases; returns the rows, also appended
     to --out. Needs a GPU: the kernels have no CPU form to compare."""
@@ -499,7 +678,7 @@ def run(args: argparse.Namespace) -> List[dict]:
     for case in cases:
         fn = {"sell": sell_cases, "packed": packed_cases,
               "solve": solve_cases, "pieces": pieces_cases,
-              "gather": gather_cases}[case]
+              "gather": gather_cases, "halo": halo_cases}[case]
         rows += fn(versions, device, args.reps, args.rounds)
     for r in rows:
         r.update(platform=_common.platform_of(device), card=card)

@@ -36,9 +36,10 @@ nvidia-smi. Phases, each printing JSON lines:
      solve, and the kernel's time beside its bound and cuSPARSE's, timed
      in turns as in 4;
   6. the paths of slice 2, each driven as a user would (from_mtx, a solve
-     of 5 repetitions validated OK, bench_spmv for 1 s) with the launch
+     of 5 repetitions validated OK, bench_spmv for 0.5 s) with the launch
      counts set to 0 before and read after, then the whole SpMV and each
-     precision stream compared and timed against the plain version:
+     precision stream compared and timed against the plain version (the
+     kernels by a replayed CUDA graph, the plain version by events):
        A  Laplace3D-128  ap[dp_sp] -dp_emu, ap_threshold_1 = 2.44
        B  Laplace3D-128  ap[sp_hp], ap_threshold_1 = 2.44
        C  Laplace3D-128  hp
@@ -60,7 +61,7 @@ nvidia-smi. Phases, each printing JSON lines:
         launch through the wrapper and is counted apart, as k kernel nodes
         per stream, in runtime/operator.graph_nodes_replayed);
      b. path F, solve at full size through SpmvOperator and bench_solve,
-        C=1024 sigma=1 sp, k=512, 1 s per impl: Laplace3D-128, FemTet3D-55
+        C=1024 sigma=1 sp, k=512, 0.5 s per impl: Laplace3D-128, FemTet3D-55
         and the launch-bound FemTet3D-9; impl loop, graph and fused, each
         with a solve of 5 repetitions validated OK and the three results
         bit-equal at k=512 and k=64; ap[dp_sp] -dp_emu through loop and
@@ -199,11 +200,34 @@ nvidia-smi. Phases, each printing JSON lines:
         (the f64 pack and unpack), beside the CLI runs of b;
      d. with two or more cards, b over NCCL, one process per card (and 4 x
         1 shard with four cards): y bit-equal, the SpMV and the all-to-all
-        timed; on one card a line says it did not run and why;
+        timed; the transfer captured in CUDA graphs: a bench batch and a
+        solve of 5 bit-equal to their loops, bench_spmv timed by graph,
+        op.spmv by a replayed graph beside its loop; on one card a line
+        says it did not run and why (over gloo, b, the bench and the solve
+        must run the loop);
      e. solve_diag on Laplace3D-128 sp and FemTet3D-9: t(k) = a + b k for
         the loop, graph and fused solves.
      ``python3 chip_smoke.py --only 12`` runs phases 1, 2 and 12 alone,
-     ``--only 12d`` phases 1, 2, the references of 12b and 12d.
+     ``--only 12d`` phases 1, 2, the references of 12b and 12d;
+ 13. the harness by replayed CUDA graph (slice 13):
+     a. bench_spmv's timing, GFLOP/s and time per SpMV beside op.spmv timed
+        by a replayed graph and by a loop of launches, in turns, on the
+        headline, RandomImbalanced-500k and BandedImbalanced-500k at
+        (1024, 1), FemTet3D-9, the headline sharded at R=4 (overlap on and
+        off) and R=8, ap[dp_sp] -dp_emu, rowwise bs 8, -impl xla and
+        -impl bcoo; by graph the bench may take at most 1.10 times the
+        graph's time per SpMV;
+     b. bench_solve by graph (m replays, x copied in once) against m calls
+        of op.solve(x, k, "graph") (a copy in and two clones out each) on
+        FemTet3D-9 and Laplace3D-128 at k = 2, 16 and 512, in turns, the
+        bench's buffers bit-equal to the loop of launches.
+     ``--only 13`` runs phases 1, 2 and 13 alone.
+
+Since the bench times replays of a captured graph, every driven run counts
+a kernel's launches through its wrapper plus its kernel nodes replayed from
+graphs (runtime/operator.graph_nodes_replayed), and the kernel line's
+``launches`` counts both; 7c runs the CG example by graph batches and by
+eager steps (the same iterations, x bit-equal) and times both.
 
 Beside each kernel's time the script prints its bound (bytes over 3,350
 GB/s, or flops over the peak of its type if larger) and ``library_ms``, the
@@ -226,6 +250,7 @@ per instantiation, timed on the stream of its path) and nvidia-smi's
 It needs no network and imports nothing of JAX.
 """
 
+import faulthandler
 import json
 import os
 import subprocess
@@ -256,6 +281,10 @@ X_ACCESS = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
 SOLVE_K = 512
+# what the kernel line's "launches" counts, since the bench times replays
+LAUNCHES_COUNTED = ("launches through the kernel's wrapper plus its kernel "
+                    "nodes replayed from CUDA graphs (bench batches, graph "
+                    "solves) on the main path")
 # the kernels whose registers the build phase reports (cuobjdump)
 ROW_SUM_KERNELS = ("scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
                    "scs_solve_kernel")
@@ -492,13 +521,18 @@ def graph_ms(fn, reps):
     return time_ms(graph.replay, 3) / reps
 
 
-def time_pair(kernel, plain, reps=100):
+def time_pair(kernel, plain, reps=100, graph=False):
     """(kernel ms, plain ms, samples) in the order plain, kernel, kernel,
-    plain on the same tensors; each is the median of its two runs."""
+    plain on the same tensors; each is the median of its two runs. With
+    ``graph`` the kernel is timed by a replayed CUDA graph (``graph_ms``:
+    it writes into a buffer it was given), else by CUDA events around a
+    loop, which reads the host where a launch is shorter than its
+    enqueue."""
     import numpy as np
 
     t_plain = [time_ms(plain, reps)]
-    t_kern = [time_ms(kernel, reps) for _ in range(2)]
+    timer = graph_ms if graph else time_ms
+    t_kern = [timer(kernel, reps) for _ in range(2)]
     t_plain.append(time_ms(plain, reps))
     return (float(np.median(t_kern)), float(np.median(t_plain)),
             dict(kernel_samples_ms=t_kern, plain_samples_ms=t_plain))
@@ -698,7 +732,7 @@ def run_path(name, spec, mtx, fields, rng):
 
     cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
                  backend="cuda", **fields)
-    reset_launch_count()
+    reset_tier_launch_counts()
     t0 = time.perf_counter()
     op = SpmvOperator.from_mtx(cfg, mtx)
     torch.cuda.synchronize()
@@ -709,14 +743,16 @@ def run_path(name, spec, mtx, fields, rng):
     require(list(npp) == list(cfg.ap_precisions) and min(npp.values()) > 0,
             f"{name}: empty precision stream {npp}")
     rep, _ = validated_solve(op, mtx, 5, f"path {name} solve")
-    n_before = launch_count()
-    res = bench_spmv(op, bench_time=1.0)
-    bench_launches = launch_count() - n_before
-    counts = launch_counts()  # the main path's launches, per instantiation
+    n_before = sum(with_replays(launch_counts()).values())
+    res = bench_spmv(op, bench_time=0.5)
+    # the main path's launches and replayed graph nodes, per instantiation
+    counts = with_replays(launch_counts())
+    bench_launches = sum(counts.values()) - n_before
     streams = len(op.devs)
+    require(res.timing == "graph", f"{name}: bench timed by {res.timing}")
     require(bench_launches >= res.n_iterations * streams,
-            f"{name}: {bench_launches} launches for {res.n_iterations} "
-            f"timed iterations of {streams} streams")
+            f"{name}: {bench_launches} launches and graph nodes for "
+            f"{res.n_iterations} timed iterations of {streams} streams")
     require(np.isfinite(res.perf_gflops) and res.perf_gflops > 0,
             f"{name}: GFLOP/s {res.perf_gflops}")
     wd = op.working_dtype
@@ -730,15 +766,18 @@ def run_path(name, spec, mtx, fields, rng):
     y = op.spmv(x)
     torch.cuda.synchronize()
     max_abs, rel = compare(y, plain_spmv(op, x), acc_tol(x), name)
-    ms, plain_ms, samples = time_pair(lambda: op.spmv(x),
-                                      lambda: plain_spmv(op, x))
+    # the kernels by replayed graph: path A's dp stream (17.5 us at its
+    # bound) is shorter than the host's enqueue
+    out = torch.empty_like(y)
+    ms, plain_ms, samples = time_pair(lambda: op.spmv(x, out=out),
+                                      lambda: plain_spmv(op, x), graph=True)
     flops, nbytes = op.flops_per_spmv(), op.bytes_per_spmv()
     layout = cfg.vector_layout
     stream_rec = {}
     for p, dev in op.devs.items():
         s_ms, s_plain_ms, _ = time_pair(
-            lambda: spmv_scs(dev, x, layout),
-            lambda: spmv_scs_plain(dev, x, layout))
+            lambda: spmv_scs(dev, x, layout, out=out),
+            lambda: spmv_scs_plain(dev, x, layout), graph=True)
         s_abs, s_rel = compare(spmv_scs(dev, x, layout),
                                spmv_scs_plain(dev, x, layout), acc_tol(x),
                                f"{name} {p} stream")
@@ -765,7 +804,7 @@ def run_path(name, spec, mtx, fields, rng):
          beta=op.beta(), n_dropped=op.n_dropped, operator_build_s=build_s,
          validation=rep.summary(), gflops=res.perf_gflops,
          gbps=res.effective_gbps, n_iterations=res.n_iterations,
-         timing_samples_s=res.timing_samples_s,
+         timing=res.timing, timing_samples_s=res.timing_samples_s,
          bench_launches=bench_launches, main_path_launches=counts,
          kernel_ms=ms, kernel_gflops=flops / ms / 1e6,
          kernel_gbps=nbytes / ms / 1e6, plain_ms=plain_ms,
@@ -990,7 +1029,7 @@ def solve_path(spec, mtx, scale, ap_threshold, card, unscaled=None):
                     "fused launches")
             n0, f0 = scs_spmv.launch_count(), scs_solve.launch_count()
             g0 = nodes_replayed()
-            res = bench_solve(op, k, x=x, bench_time=1.0, impl=impl)
+            res = bench_solve(op, k, x=x, bench_time=0.5, impl=impl)
             bench_spmv_l = scs_spmv.launch_count() - n0
             bench_fused_l = scs_solve.launch_count() - f0
             bench_nodes = nodes_replayed() - g0
@@ -1081,7 +1120,7 @@ def fused_record(mtx, unscaled, value_type, card):
         rep, rep_l2 = validated_solve(op_check, unscaled, 5,
                                       f"fused {value_type}", "fused")
         del op_check
-        res = bench_solve(op, k, bench_time=1.0, impl="fused")
+        res = bench_solve(op, k, bench_time=0.5, impl="fused")
         main = scs_solve.launch_counts()[entry]
         emit("solve_path", matrix="Laplace3D,128", config=value_type,
              impl=res.impl, C=1024, sigma=1, k=k,
@@ -1166,19 +1205,42 @@ def interface_and_cg(mtx, mtx_scaled, rng, card):
     h = ui.prepare(mtx, C=1024, sigma=1, value_type="sp")
     x_true = np.random.default_rng(0).standard_normal(mtx.n_rows)
     b = mtx.to_scipy().tocsr() @ x_true
-    example.cg(h, b, tol=tol, maxiter=example.BATCH)  # warm-up, one batch
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x_cg, it, res = example.cg(h, b, tol=tol, maxiter=maxiter)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    graphs = []
+
+    def graph_batches(step):
+        graphs.append(example.GraphBatches(step))
+        return graphs[-1]
+
+    runs = {}
+    for name, batches in (("eager", example.eager_batches),
+                          ("graph", graph_batches)):
+        # warm-up, one batch
+        example.cg(h, b, tol=tol, maxiter=example.BATCH, batches=batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_cg, it, res = example.cg(h, b, tol=tol, maxiter=maxiter,
+                                   batches=batches)
+        torch.cuda.synchronize()
+        runs[name] = (x_cg, it, res, time.perf_counter() - t0)
+    x_cg, it, res, seconds = runs["graph"]
+    x_e, it_e, res_e, seconds_e = runs["eager"]
+    require(it == it_e and res == res_e and np.array_equal(x_cg, x_e),
+            f"CG: the graph batches ({it} iterations, residual {res:.3e}) "
+            f"differ from the eager steps ({it_e}, {res_e:.3e})")
     err = float(np.linalg.norm(x_cg - x_true) / np.linalg.norm(x_true))
     require(res <= tol * 10, f"CG: residual {res:.3e} after {it} iterations")
     require(np.isfinite(err) and err < 1e-3, f"CG: solution error {err:.3e}")
+    # one batch by replay alone, the graph's own cost per iteration (the
+    # timed run above includes its captures)
+    replay = graphs[-1].graphs[example.BATCH].replay
+    replay_us = time_ms(replay, 10) / example.BATCH * 1e3
     emit("cg", matrix="Laplace3D,128", value_type="sp", tol=tol,
          maxiter=maxiter, iterations=it, rel_residual=res,
-         solution_rel_error=err, seconds=seconds,
-         us_per_iteration=seconds / it * 1e6, card=card)
+         solution_rel_error=err, graph_bit_equal_to_eager=True,
+         seconds=seconds, us_per_iteration=seconds / it * 1e6,
+         eager_seconds=seconds_e, eager_us_per_iteration=seconds_e / it * 1e6,
+         graph_replay_us_per_iteration=replay_us,
+         graph_sizes=sorted(graphs[-1].graphs), card=card)
 
 
 def imbalanced_small():
@@ -1484,10 +1546,28 @@ def tier_launch_counts():
 
 
 def reset_tier_launch_counts():
+    """The three SpMV wrappers' launch counts and the graph nodes replayed
+    set to 0."""
     from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+    from uspmv_tpu_torch.runtime.operator import reset_graph_nodes_replayed
 
     for mod in (scs_spmv, scs_packed, scs_pieces):
         mod.reset_launch_count()
+    reset_graph_nodes_replayed()
+
+
+def with_replays(counts):
+    """``counts`` (launches per entry point) plus the kernel nodes that CUDA
+    graphs replayed per entry point since the last reset
+    (runtime/operator.graph_nodes_replayed). On the card ``bench_spmv``
+    times replays of a captured batch, whose kernels no wrapper launches:
+    what a main path ran is the sum of both."""
+    from uspmv_tpu_torch.runtime.operator import graph_nodes_replayed
+
+    out = dict(counts)
+    for entry, n in graph_nodes_replayed().items():
+        out[entry] = out.get(entry, 0) + n
+    return out
 
 
 def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
@@ -1528,7 +1608,9 @@ def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
         judged = ("G", spec, cfg.value_type) in L2_JUDGED
         rep, rep_l2 = validated_solve(op, mtx, 1, what, l2_judged=judged)
         res = bench_spmv(op, bench_time=0.3)
-        main = {k: v for k, v in tier_launch_counts().items() if v}
+        require(res.timing == "graph", f"{what}: bench timed by {res.timing}")
+        main = {k: v for k, v in with_replays(tier_launch_counts()).items()
+                if v}
         per_spmv = (len(op.devs) * (-(-cfg.block_vec_size // 8)
                                     if cfg.vector_layout == "rowwise" else 1)
                     + len(op.pieces))
@@ -1538,7 +1620,7 @@ def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
         rec.update(validation=rep.summary(), validation_l2=rep_l2.summary(),
                    judged="L2 norm" if judged else "per element",
                    gflops=res.perf_gflops, gbps=res.effective_gbps,
-                   n_iterations=res.n_iterations,
+                   n_iterations=res.n_iterations, timing=res.timing,
                    launches_per_spmv=per_spmv, main_path_launches=main)
     bs = cfg.block_vec_size
     if x_host is None:
@@ -1881,7 +1963,8 @@ def phase9(mtx, headline_ms, card):
             (perf_sweep, ["--bench_time", "0.02"], None),
             (ap_bench, ["Laplace3D,128", "--bench_time", "0.05"], mtx)):
         for r in mod.run(mod.build_parser().parse_args(argv), mtx=m):
-            require(r["platform"] == "cuda" and r["gflops"] > 0,
+            require(r["platform"] == "cuda" and r["gflops"] > 0
+                    and r["timing"] == "graph",
                     f"{mod.__name__} {argv}: {r}")
             emit(mod.__name__.rsplit(".", 1)[1], card=card, **r)
     t_9c = time.perf_counter() - t0 - t_9a - t_9b
@@ -2017,6 +2100,7 @@ def phase10(mtx, card):
         halo_comm_volume,
         seg_work_sharing,
     )
+    from uspmv_tpu_torch.runtime import operator
     from uspmv_tpu_torch.runtime.bench import bench_solve, bench_spmv
 
     t_phase = time.perf_counter()
@@ -2038,12 +2122,15 @@ def phase10(mtx, card):
         read after; the halo exchange and a row kernel must have run."""
         for w in wrappers:
             w.reset_launch_count()
+        operator.reset_graph_nodes_replayed()
         op, build_s = build(m, **kw)
         rep, rep_l2 = validated_solve(op, m, n_rev, what, l2_judged=l2_judged)
         res = bench_spmv(op, bench_time=0.3)
+        require(res.timing == "graph", f"{what}: bench timed by {res.timing}")
         got = {}
         for w in wrappers:
-            got.update({k: n for k, n in w.launch_counts().items() if n})
+            got.update(w.launch_counts())
+        got = {k: n for k, n in with_replays(got).items() if n}
         require(any(k.startswith("uspmv_halo_exchange") for k in got),
                 f"{what}: the halo exchange never launched: {got}")
         require(any(k.startswith(("uspmv_scs_spmv", "uspmv_scs_packed"))
@@ -2055,7 +2142,7 @@ def phase10(mtx, card):
                     validation=rep.summary(), validation_l2=rep_l2.summary(),
                     main_path_launches=got,
                     comm=op.comm_volume_per_spmv())
-        info.update(bench_gflops=res.perf_gflops,
+        info.update(bench_gflops=res.perf_gflops, bench_timing=res.timing,
                     bench_iterations=res.n_iterations,
                     bench_per_shard=res.per_shard)
         return op, info
@@ -2364,9 +2451,12 @@ def aux_matrix(spec, card, rng):
     build_s = time.perf_counter() - t0
     rep, rep_l2 = validated_solve(op, mtx, 1, what)
     res = bench_spmv(op, bench_time=0.3)
-    launches = {k: v for k, v in tier_launch_counts().items() if v}
+    require(res.timing == "graph", f"{what}: bench timed by {res.timing}")
+    launches = {k: v for k, v in with_replays(tier_launch_counts()).items()
+                if v}
     require(sum(launches.values()) >= res.n_iterations * len(op.devs),
-            f"{what}: {launches} launches for {res.n_iterations} iterations")
+            f"{what}: {launches} launches and graph nodes for "
+            f"{res.n_iterations} iterations")
 
     x_host = rng.standard_normal(mtx.n_rows)
     x = op.make_x(x_host)
@@ -2420,7 +2510,8 @@ def aux_matrix(spec, card, rng):
         split_rows_threshold=op.split_threshold, n_pieces=op.n_pieces(),
         validation=rep.summary(), validation_l2=rep_l2.summary(),
         bench_gflops=res.perf_gflops, bench_gbps=res.effective_gbps,
-        n_iterations=res.n_iterations, main_path_launches=launches,
+        n_iterations=res.n_iterations, timing=res.timing,
+        main_path_launches=launches,
         max_abs_err=max_abs, rel_err=rel, rel_err_vs_scipy=rel_scipy,
         tol=tol, spmv_graph_ms=ms, gflops=flops / ms / 1e6,
         gbps=nbytes / ms / 1e6, moved_bytes=nbytes, bound_bytes=fn_bytes,
@@ -2462,6 +2553,7 @@ def aux_flags(card):
     from uspmv_tpu_torch.io.generators import generate_matrix
     from uspmv_tpu_torch.ops import scs_spmv
     from uspmv_tpu_torch.runtime import profiling
+    from uspmv_tpu_torch.runtime.operator import graph_nodes_replayed
 
     rec = {}
     small = generate_matrix(AUX_SMALL)
@@ -2508,8 +2600,10 @@ def aux_flags(card):
     prof_dir = os.path.join(AUX_DIR, "prof")
     off = cli_bench(head, "-log_prof off")
     n0 = scs_spmv.launch_count()
+    g0 = sum(graph_nodes_replayed().values())
     on = cli_bench([*head, "-log_prof", prof_dir], "-log_prof on")
     launched = scs_spmv.launch_count() - n0
+    replayed = sum(graph_nodes_replayed().values()) - g0
     trace = profiling.last_trace_path()
     require(trace is not None and os.path.exists(trace),
             f"-log_prof: no trace in {prof_dir}")
@@ -2521,11 +2615,19 @@ def aux_flags(card):
     require(marker, "-log_prof: the trace holds no spmv_scs_benchmark range")
     require(kernels, f"-log_prof: the trace names no {SELL_KERNEL} (CUPTI "
             "did not record the kernel launched through ctypes)")
+    # the bench replays a captured graph: its kernels, not only the
+    # capture's one warm-up launch, must be in the trace
+    require(on["timing"] == off["timing"] == "graph"
+            and len(kernels) > launched,
+            f"-log_prof: {len(kernels)} {SELL_KERNEL} events for "
+            f"{launched} launches and {replayed} graph nodes replayed "
+            f"(timing {on['timing']})")
     dur = [e["dur"] for e in kernels if "dur" in e]
     rec["log_prof"] = dict(
         trace=trace, trace_bytes=os.path.getsize(trace),
         events=len(events), marker_ranges=len(marker),
         sell_kernel_events=len(kernels), sell_kernel_launches=launched,
+        sell_kernel_graph_nodes_replayed=replayed, timing=on["timing"],
         sell_kernel_name=kernels[0]["name"],
         sell_kernel_median_us=float(np.median(dur)) if dur else None,
         gflops_off=off["perf_gflops"], gflops_on=on["perf_gflops"],
@@ -2687,8 +2789,8 @@ def phase11(mtx, card):
                        max_rel=val["max_rel_diff"])
         res = cli_bench([*head, *flags, "-bench_time", "0.3"],
                         f"11b/c {label} bench")
-        row.update(impl=res["impl"], gflops=res["perf_gflops"],
-                   gbps=res["effective_gbps"],
+        row.update(impl=res["impl"], timing=res["timing"],
+                   gflops=res["perf_gflops"], gbps=res["effective_gbps"],
                    bytes_per_spmv=res["memory_footprint_bytes"],
                    ms_per_spmv=res["duration_kernel_s"]
                    / res["n_iterations"] * 1e3)
@@ -2748,10 +2850,13 @@ def worker_main(spec_json):
     from uspmv_tpu_torch.ops.vectors import init_x_host
     from uspmv_tpu_torch.parallel import multihost
     from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime.bench import timing_of
     from uspmv_tpu_torch.runtime.validate import validate_solve
 
     spec = json.loads(spec_json)
     pid = spec["pid"]
+    # a hung worker prints its threads' stacks before its parent kills it
+    faulthandler.dump_traceback_later(spec.get("stack_dump_s", 270))
     info = multihost.initialize(spec["coordinator"], spec["n"], pid,
                                 spec["local_devices"], backend="cuda")
     rec = dict(process=pid, multihost=info)
@@ -2767,7 +2872,8 @@ def worker_main(spec_json):
         rec.update(build_s=time.perf_counter() - t0, impl=op.impl_name(),
                    shards=[op.shards.start, op.shards.stop],
                    per_host=op.comm_volume_per_host(),
-                   solve_impl=op.solve_impl_name(5))
+                   solve_impl=op.solve_impl_name(5),
+                   bench_timing=timing_of(op))
         x_host = np.random.default_rng(spec["x_seed"]).standard_normal(
             mtx.n_rows)
         x = op.make_x(x_host)
@@ -2793,11 +2899,60 @@ def worker_main(spec_json):
         rec["main_path_launches"] = launches
         if spec.get("reps"):
             rec.update(time_worker(op, x, spec["reps"]))
+        if spec.get("graph"):
+            rec.update(graph_worker(op, x))
     finally:
         multihost.shutdown()
     with open(f"{spec['out']}.{pid}.json", "w") as f:
         json.dump(rec, f)
     return 0
+
+
+def worker_ms(fn, reps):
+    """Milliseconds per call of ``fn`` over ``reps`` calls by CUDA events,
+    the largest of the processes' (the all-reduces outside the events)."""
+    import torch
+
+    from uspmv_tpu_torch.parallel import multihost
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    multihost.agree_max(0.0)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return multihost.agree_max(start.elapsed_time(end) / reps)
+
+
+def graph_worker(op, x):
+    """With the transfer captured (NCCL): a bench batch of 10 SpMVs and a
+    solve of 5 by CUDA graph, each bit-equal to its loop of launches (y
+    gathered to the host in every process); bench_spmv's timing and time
+    per SpMV; op.spmv by a replayed graph of 100 SpMVs and by a loop of
+    100 launches, by events, the slowest process's."""
+    import numpy as np
+
+    from uspmv_tpu_torch.runtime.bench import bench_spmv
+
+    want = op.to_host(op.spmv(x.clone()))
+    g = op.batch_graph(x, 10)
+    op.replay(g)
+    spmv_equal = bool(np.array_equal(op.to_host(g.bufs[0]), want))
+    loop = [op.to_host(v) for v in op.solve(x.clone(), 5, "loop")]
+    graph = [op.to_host(v) for v in op.solve(x.clone(), 5, "graph")]
+    solve_equal = all(np.array_equal(a, b) for a, b in zip(loop, graph))
+    res = bench_spmv(op, x=x, bench_time=0.2)
+    g100 = op.batch_graph(x, 100)
+    graph_ms = worker_ms(lambda: op.replay(g100), 3) / 100
+    loop_ms = worker_ms(lambda: op.spmv(x, out=g100.bufs[0]), 100)
+    return dict(graph_spmv_bit_equal=spmv_equal,
+                graph_solve_bit_equal=solve_equal,
+                bench_timing=res.timing, bench_gflops=res.perf_gflops,
+                bench_ms_per_spmv=res.duration_kernel_s / res.n_iterations
+                * 1e3, bench_n_iterations=res.n_iterations,
+                spmv_graph_ms=graph_ms, spmv_graph_loop_ms=loop_ms)
 
 
 def time_worker(op, x, reps):
@@ -2815,15 +2970,7 @@ def time_worker(op, x, reps):
     from uspmv_tpu_torch.parallel import multihost
 
     def events(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        multihost.agree_max(0.0)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return multihost.agree_max(start.elapsed_time(end) / reps)
+        return worker_ms(fn, reps)
 
     def host(fn):
         torch.cuda.synchronize()
@@ -2894,11 +3041,20 @@ def run_workers(spec, n, local_devices, one_card):
 
 def wait_all(procs, timeout=300):
     """The outputs of ``procs``; every one is killed when one outlives
-    ``timeout`` or after the wait, so no process outlives the phase."""
+    ``timeout`` or after the wait, so no process outlives the phase. A
+    timeout raises with the end of every process's output (a worker of
+    this script dumps its threads' stacks before: ``worker_main``)."""
     outs = []
     try:
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        tails = [p.communicate()[0][-4000:] for p in procs[len(outs):]]
+        raise RuntimeError(
+            f"processes outlived {timeout} s; the output of those still "
+            "running: " + json.dumps(tails)) from None
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2907,13 +3063,13 @@ def wait_all(procs, timeout=300):
     return [p.returncode for p in procs], outs
 
 
-def worker_records(procs_out, what):
+def worker_records(procs_out, what, timeout=300):
     """Wait for the workers of ``run_workers``: (their records, process 0's
     y, the path prefix of their files); raises where one failed."""
     import numpy as np
 
     procs, out = procs_out
-    rcs, outs = wait_all(procs)
+    rcs, outs = wait_all(procs, timeout)
     require(rcs == [0] * len(procs),
             f"{what}: worker rcs {rcs}: {[o[-1500:] for o in outs]}")
     recs = []
@@ -3068,12 +3224,21 @@ def nccl_runs(b_spec, y4, mtx, card, ref_ms):
         if n > n_cards:
             continue
         recs, y, _ = worker_records(
-            run_workers(dict(b_spec, name=f"12d-{n}"), n, D,
-                        one_card=False), f"12d {n}")
+            run_workers(dict(b_spec, name=f"12d-{n}", graph=True,
+                             stack_dump_s=100), n, D, one_card=False),
+            f"12d {n}", timeout=130)
         require(np.array_equal(y, y4),
                 f"12d: y of {n} processes over NCCL != one process")
         r0 = recs[0]
         require(r0["transport"] == "nccl", f"12d: {r0['transport']}")
+        require(all(r["graph_spmv_bit_equal"] and r["graph_solve_bit_equal"]
+                    and r["bench_timing"] == "graph"
+                    and r["solve_impl"] == "graph" for r in recs),
+                "12d: the CUDA graph over NCCL: " + json.dumps(
+                    [{k: r[k] for k in ("graph_spmv_bit_equal",
+                                        "graph_solve_bit_equal",
+                                        "bench_timing", "solve_impl")}
+                     for r in recs]))
         emit("multiprocess_nccl", skipped=False, processes=n,
              shards_per_process=D, device_count=n_cards,
              bit_equal_to_one_process=True, impl=r0["impl"],
@@ -3085,6 +3250,14 @@ def nccl_runs(b_spec, y4, mtx, card, ref_ms):
              single_device_loop_ms=ref_ms["single_device"],
              pack_ms=r0["pack_ms"], unpack_ms=r0["unpack_ms"],
              nccl_ms=r0["nccl_ms"], transfer_ms=r0["transfer_ms"],
+             solve_impl=r0["solve_impl"], bench_timing=r0["bench_timing"],
+             bench_gflops=r0["bench_gflops"],
+             bench_ms_per_spmv=r0["bench_ms_per_spmv"],
+             bench_n_iterations=r0["bench_n_iterations"],
+             spmv_graph_ms=r0["spmv_graph_ms"],
+             spmv_graph_loop_ms=r0["spmv_graph_loop_ms"],
+             graph_gflops=2 * mtx.nnz / r0["spmv_graph_ms"] / 1e6,
+             graph_bit_equal_to_loop=True,
              rows_sent=[r["n_send"] for r in recs],
              main_path_launches=[r["main_path_launches"] for r in recs],
              card=card)
@@ -3167,6 +3340,10 @@ def phase12(mtx, card):
                                 "12b")
     require(np.array_equal(y, y4),
             "12b: y of 2 processes != the one-process R=4 operator's")
+    require(all(r["bench_timing"] == "loop" and r["solve_impl"] == "loop"
+                for r in recs),
+            f"12b: over gloo the bench and the solve must run the loop: "
+            f"{[(r['bench_timing'], r['solve_impl']) for r in recs]}")
     add_launches(recs)
     require(all(any(k.startswith("uspmv_halo_pack") for k in
                     r["main_path_launches"]) for r in recs),
@@ -3175,7 +3352,7 @@ def phase12(mtx, card):
     emit("multiprocess_headline", matrix="Laplace3D,128", processes=2,
          shards_per_process=2, transport=r0["transport"],
          impl=r0["impl"], solve_impl=r0["solve_impl"],
-         bit_equal_to_one_process=True,
+         bench_timing=r0["bench_timing"], bit_equal_to_one_process=True,
          build_s=[r["build_s"] for r in recs],
          spmv_loop_ms=r0["spmv_loop_ms"],
          spmv_loop_host_ms=r0["spmv_loop_host_ms"],
@@ -3283,6 +3460,164 @@ def phase12(mtx, card):
     return launches, records
 
 
+# ----------------------------------------------------------------- phase 13
+
+# (label, matrix, configuration beyond sp at C=1024, sigma=1) of the bench
+# by replayed graph against op.spmv by graph and by a loop of launches
+PHASE13_CASES = [
+    ("headline", "Laplace3D,128", {}),
+    ("RandomImbalanced-500k", "RandomImbalanced,500000,8", {}),
+    ("BandedImbalanced-500k", "BandedImbalanced,500000,64,8", {}),
+    ("FemTet3D-9", "FemTet3D,9", {}),
+    ("sharded R=4 overlap on", "Laplace3D,128", dict(n_shards=4)),
+    ("sharded R=4 overlap off", "Laplace3D,128",
+     dict(n_shards=4, overlap_comm=False)),
+    ("sharded R=8", "Laplace3D,128", dict(n_shards=8)),
+    ("ap[dp_sp]", "Laplace3D,128", dict(value_type="ap[dp_sp]",
+                                        dp_emulation=True,
+                                        ap_threshold_1=2.44)),
+    ("rowwise bs 8", "Laplace3D,128", dict(block_vec_size=8,
+                                           vector_layout="rowwise")),
+    ("impl xla", "Laplace3D,128", dict(impl="xla")),
+    ("impl bcoo", "Laplace3D,128", dict(impl="bcoo")),
+]
+# bench_spmv's time per SpMV over op.spmv's by a replayed graph, at most
+BENCH_OVER_GRAPH = 1.10
+PHASE13_SOLVE_K = (2, 16, 512)
+
+
+def phase13(mtx, card):
+    """Phase 13: the harness by replayed CUDA graph. ``mtx`` is the
+    headline's Laplace3D-128.
+      a. for each of PHASE13_CASES, bench_spmv's timing, GFLOP/s and time
+         per SpMV beside op.spmv timed by a replayed CUDA graph and by a
+         loop of launches (CUDA events), the three in turns; by graph the
+         bench may take at most BENCH_OVER_GRAPH times the graph's time per
+         SpMV (the medians of two runs each);
+      b. bench_solve by graph on FemTet3D-9 and Laplace3D-128 (value-scaled,
+         as path F) at k in PHASE13_SOLVE_K: the new batch (m replays, x
+         copied in once) against m calls of op.solve(x, k, "graph") (a copy
+         in and two clones out per solve), in turns, and the bench's
+         buffers bit-equal to the loop of launches."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.io import generators
+    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime.bench import (
+        bench_solve,
+        bench_spmv,
+        timing_of,
+    )
+
+    t_phase = time.perf_counter()
+    sizing = dict(SIZING)
+    matrices = {"Laplace3D,128": mtx}
+
+    def matrix(spec):
+        if spec not in matrices:
+            matrices[spec] = (sizing[spec](generators) if spec in sizing
+                              else generators.generate_matrix(spec))
+        return matrices[spec]
+
+    for label, spec, fields in PHASE13_CASES:
+        m = matrix(spec)
+        cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
+                     backend="cuda", **{"value_type": "sp", **fields})
+        cls = (BcooSpmvOperator if cfg.impl == "bcoo"
+               else DistributedSpmvOperator if cfg.n_shards > 1
+               else SpmvOperator)
+        op = cls.from_mtx(cfg, m)
+        x = op.make_x()
+        out = torch.zeros_like(x)
+        reps = 100 if time_ms(lambda: op.spmv(x, out=out), 3) < 1.0 else 20
+        results = []
+
+        def bench():
+            results.append(bench_spmv(op, x=x, bench_time=0.2))
+            return (results[-1].duration_kernel_s
+                    / results[-1].n_iterations * 1e3)
+
+        # in turns: bench, graph, loop, loop, graph, bench
+        timers = {"bench": bench}
+        if timing_of(op) == "graph":
+            timers["graph"] = lambda: graph_ms(lambda: op.spmv(x, out=out),
+                                               reps)
+        timers["loop"] = lambda: time_ms(lambda: op.spmv(x, out=out), reps)
+        med, turns = time_turns(timers)
+        res = results[-1]
+        bench_ms, graph = med["bench"], med.get("graph")
+        flops = op.flops_per_spmv()
+        ratio = bench_ms / graph if graph else None
+        emit("bench_graph", case=label, matrix=spec, impl=res.impl,
+             timing=res.timing, gflops=flops / bench_ms / 1e6,
+             bench_gflops=[r.perf_gflops for r in results],
+             bench_ms_per_spmv=bench_ms,
+             n_iterations=[r.n_iterations for r in results],
+             spmv_graph_ms=graph, spmv_loop_ms=med["loop"],
+             graph_gflops=flops / graph / 1e6 if graph else None,
+             loop_gflops=flops / med["loop"] / 1e6,
+             bench_over_graph=ratio, limit=BENCH_OVER_GRAPH, **turns,
+             card=card)
+        require(all(r.timing == res.timing for r in results)
+                and np.isfinite(res.perf_gflops) and res.perf_gflops > 0,
+                f"13a {label}: GFLOP/s {res.perf_gflops}")
+        if res.timing == "graph":
+            require(ratio <= BENCH_OVER_GRAPH,
+                    f"13a {label}: bench {bench_ms:.5f} ms per SpMV against "
+                    f"{graph:.5f} by graph ({ratio:.3f}x > "
+                    f"{BENCH_OVER_GRAPH}): the bench is host-bound")
+        else:
+            require(False, f"13a {label}: timed by {res.timing}")
+        del op, x, out
+        torch.cuda.empty_cache()
+
+    base = dict(kernel_format="scs", chunk_size=1024, sigma=1,
+                value_type="sp", backend="cuda", mixed_tiles=False,
+                random_init_x=True)
+    for spec in ("FemTet3D,9", "Laplace3D,128"):
+        m = matrix(spec).copy()
+        unit_row_sums(m)
+        op = SpmvOperator.from_mtx(Config(**base), m)
+        x = op.make_x()
+        for k in PHASE13_SOLVE_K:
+            one = time_ms(lambda: op.solve(x, k, "graph"), 2)
+            solves = max(3, min(200, int(50.0 / one)))
+            results = []
+
+            def new():
+                res = bench_solve(op, k, x=x, bench_time=0.1, impl="graph")
+                results.append(res)
+                return res.duration_kernel_s / res.n_iterations * 1e3
+
+            med, turns = time_turns({
+                "old": lambda: time_ms(lambda: op.solve(x, k, "graph"),
+                                       solves) / k,
+                "new": new})
+            g = op.solve_graph(x, k)
+            got = (g.bufs[k & 1].clone() if k > 1 else x.clone(),
+                   g.bufs[(k - 1) & 1].clone())
+            want = op.solve(x, k, "loop")
+            require(torch.equal(got[1], want[1])
+                    and torch.equal(got[0], want[0]),
+                    f"13b {spec} k={k}: the bench's graph differs from the "
+                    "loop of launches")
+            require(all(r.timing == "graph" for r in results),
+                    f"13b {spec} k={k}: timed by {results[0].timing}")
+            emit("bench_solve_graph", matrix=spec, k=k, impl=results[0].impl,
+                 timing=results[0].timing,
+                 new_us_per_iteration=med["new"] * 1e3,
+                 old_us_per_iteration=med["old"] * 1e3,
+                 old_solves_per_sample=solves,
+                 n_iterations=[r.n_iterations for r in results],
+                 bit_equal_to_loop=True, **turns, card=card)
+        del op, x
+        torch.cuda.empty_cache()
+    emit("phase13", seconds=time.perf_counter() - t_phase)
+
+
 def main():
     import torch
 
@@ -3341,6 +3676,15 @@ def main():
             f"cuobjdump: row-sum kernels missing from {resources}")
     emit("kernel_resources", kernels=resources)
 
+    if sys.argv[1:3] == ["--only", "13"]:
+        phase13(laplace3d(128), card)
+        emit("done", seconds_total=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": []}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] in (["12"], ["12d"]):
         # phase 12 alone, or its NCCL runs alone (on a host with several
         # cards); the kernels line holds the pack and unpack entries
@@ -3396,20 +3740,22 @@ def main():
     mtx = laplace3d(128)
     cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
                  value_type="sp", backend="cuda")
-    reset_launch_count()
+    reset_tier_launch_counts()
     t0 = time.perf_counter()
     op = SpmvOperator.from_mtx(cfg, mtx)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     require(op.impl_name() == "cuda-scs-sp", f"impl {op.impl_name()}")
     rep, _ = validated_solve(op, mtx, 5, "headline solve")
-    n_before_bench = launch_count()
-    res = bench_spmv(op, bench_time=2.0)
-    bench_launches = launch_count() - n_before_bench
-    main_launches = launch_counts()
+    n_before_bench = sum(with_replays(launch_counts()).values())
+    res = bench_spmv(op, bench_time=1.0)
+    # launched by the wrapper or replayed from the bench's graph
+    main_launches = with_replays(launch_counts())
+    bench_launches = sum(main_launches.values()) - n_before_bench
+    require(res.timing == "graph", f"headline bench timed by {res.timing}")
     require(bench_launches >= res.n_iterations,
-            f"bench launched the kernel {bench_launches} times for "
-            f"{res.n_iterations} timed iterations")
+            f"bench launched or replayed the kernel {bench_launches} times "
+            f"for {res.n_iterations} timed iterations")
     require(np.isfinite(res.perf_gflops) and res.perf_gflops > 0,
             f"GFLOP/s {res.perf_gflops}")
 
@@ -3430,7 +3776,8 @@ def main():
          n_elements=dev.n_elements, beta=op.beta()["sp"],
          operator_build_s=build_s, validation=rep.summary(),
          gflops=res.perf_gflops, gbps=res.effective_gbps,
-         n_iterations=res.n_iterations, bench_launches=bench_launches,
+         n_iterations=res.n_iterations, timing=res.timing,
+         bench_launches=bench_launches,
          main_path_launches=sum(main_launches.values()),
          timing_samples_s=res.timing_samples_s,
          kernel_ms=ms, kernel_gflops=flops / ms / 1e6,
@@ -3480,7 +3827,7 @@ def main():
                  nnz=matrices[spec].nnz, seconds=time.perf_counter() - t0)
         counts, streams = run_path(name, spec, matrices[spec], fields, rng)
         for entry, n in counts.items():
-            main_launches[entry] += n
+            main_launches[entry] = main_launches.get(entry, 0) + n
         for p, rec in streams.items():
             stream_records[(name, p)] = rec
         torch.cuda.empty_cache()
@@ -3546,6 +3893,9 @@ def main():
 
     # ---- 12. the sharded operator over processes: pack, transfer, unpack
     mh_launches, mh_records = phase12(mtx, card)
+
+    # ---- 13. the bench by replayed CUDA graph, the solve bench's batches
+    phase13(mtx, card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():
@@ -3632,6 +3982,8 @@ def main():
             "above_floor_ms": rec["above_floor_ms"],
         })
     kernels += transfer_kernels(mh_launches, mh_records)
+    for k in kernels:
+        k["launches_counted"] = LAUNCHES_COUNTED
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

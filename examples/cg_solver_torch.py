@@ -6,7 +6,10 @@ library would do with ``interface.hpp``, embed the SpMV kernel inside their
 own iterative solver. The whole iteration stays on the device in the
 operator's layout: the SpMV is ``op.spmv`` (the CUDA kernel on a GPU), the
 dots and axpys are PyTorch's, and the residual is read back only once per
-batch of iterations.
+batch of iterations. On a GPU each batch of BATCH steps is one replay of a
+CUDA graph captured once over static (x, r, p, rs) tensors (the
+counterpart of the JAX example's ``jax.jit`` of a ``lax.scan``; a short
+last batch gets its own graph); on the CPU the steps run eagerly.
 
 Usage: python examples/cg_solver_torch.py [matrix.mtx | 'Laplace3D,48']
            [--tol 1e-6] [--maxiter 500] [--backend cuda|cpu]
@@ -23,11 +26,10 @@ import numpy as np
 BATCH = 25  # iterations between two reads of the residual
 
 
-def cg(op, b_host, tol=1e-6, maxiter=500):
-    """CG on the device layout; returns (x_host, n_iters, rel_residual)."""
+def cg_step(op):
+    """One CG iteration on the state (x, r, p, rs); the dots stay 0-d
+    device tensors, never read on the host."""
     import torch
-
-    b = op.make_x(b_host)
 
     def step(state):
         x, r, p, rs = state
@@ -39,6 +41,73 @@ def cg(op, b_host, tol=1e-6, maxiter=500):
         p = r + (rs_new / rs) * p
         return (x, r, p, rs_new)
 
+    return step
+
+
+def eager_batches(step):
+    """run(state, n): n steps launched one by one."""
+    def run(state, n):
+        for _ in range(n):
+            state = step(state)
+        return state
+
+    return run
+
+
+class GraphBatches:
+    """run(state, n): n steps as one replay of a CUDA graph, captured at
+    the first batch of n steps over static state tensors (which the replay
+    updates in place and returns). The graph launches what the eager steps
+    launch, in the same order, so the iterates are the same bits."""
+
+    def __init__(self, step):
+        self.step = step
+        self.static = None
+        self.graphs = {}
+
+    def __call__(self, state, n):
+        if self.static is None:
+            self.static = tuple(t.clone() for t in state)
+        elif state is not self.static:
+            for dst, src in zip(self.static, state):
+                dst.copy_(src)
+        if n not in self.graphs:
+            self.graphs[n] = self._capture(n)
+        self.graphs[n].replay()
+        return self.static
+
+    def _capture(self, n):
+        import torch
+
+        # kernels built and libraries set up on a side stream first, from a
+        # copy of the state: none of that is legal inside a capture
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.step(tuple(t.clone() for t in self.static))
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            state = self.static
+            for _ in range(n):
+                state = self.step(state)
+            for dst, src in zip(self.static, state):
+                dst.copy_(src)
+        return graph
+
+
+def cg(op, b_host, tol=1e-6, maxiter=500, batches=None):
+    """CG on the device layout; returns (x_host, n_iters, rel_residual).
+    ``batches(step)`` makes the runner of a batch (default: GraphBatches
+    on a GPU, eager_batches on the CPU)."""
+    import torch
+
+    b = op.make_x(b_host)
+    step = cg_step(op)
+    if batches is None:
+        batches = GraphBatches if b.device.type == "cuda" else eager_batches
+    run = batches(step)
     rs = torch.dot(b, b)
     b_norm = float(torch.sqrt(rs))
     state = (torch.zeros_like(b), b, b, rs)
@@ -46,8 +115,7 @@ def cg(op, b_host, tol=1e-6, maxiter=500):
     res = 1.0
     while it < maxiter:
         n = min(BATCH, maxiter - it)
-        for _ in range(n):
-            state = step(state)
+        state = run(state, n)
         it += n
         # one device sync per batch, not per iteration
         res = float(torch.sqrt(state[3])) / b_norm

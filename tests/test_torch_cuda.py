@@ -1301,3 +1301,190 @@ def test_hubbard_through_the_default_tiers_matches_scipy(cuda):
             + scs_pieces.launch_count()) > n0
     ref = mtx.to_scipy().tocsr() @ x.astype(np.float32).astype(np.float64)
     assert np.abs(y - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+# ------------------------------------- slice 13: the bench's CUDA graphs
+
+BATCH_CASES = {
+    "sp": dict(value_type="sp"),
+    "dp": dict(value_type="dp"),
+    "hp": dict(value_type="hp"),
+    "ap[dp_sp]-dp_emu": dict(value_type="ap[dp_sp]", dp_emulation=True,
+                             ap_threshold_1=0.5),
+    "sp-rowwise-8": dict(value_type="sp", block_vec_size=8,
+                         vector_layout="rowwise"),
+    "sp-colwise-4": dict(value_type="sp", block_vec_size=4,
+                         vector_layout="colwise"),
+    "packed": dict(value_type="sp", mixed_tiles=True,
+                   split_rows_threshold=-1),
+    "scs+pieces": dict(value_type="sp", mixed_tiles=False,
+                       split_rows_threshold=8),
+    "xla": dict(value_type="sp", impl="xla"),
+    "sharded-overlap": dict(value_type="sp", n_shards=4),
+    "sharded-no-overlap": dict(value_type="sp", n_shards=4,
+                               overlap_comm=False),
+    "bcoo": dict(value_type="sp", impl="bcoo"),
+}
+
+
+def batch_operator(case):
+    """The operator of BATCH_CASES[case] on the card, over an imbalanced
+    matrix (so the split and packed cases have pieces and row groups)."""
+    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+
+    kw = dict(BATCH_CASES[case])
+    cfg = Config(kernel_format="scs", chunk_size=32, sigma=64,
+                 backend="cuda", **kw)
+    mtx = imbalanced()
+    if kw.get("impl") == "bcoo":
+        return BcooSpmvOperator.from_mtx(cfg, mtx)
+    if kw.get("n_shards"):
+        return DistributedSpmvOperator.from_mtx(cfg, mtx)
+    return SpmvOperator.from_mtx(cfg, mtx)
+
+
+def all_launches():
+    from uspmv_tpu_torch.ops import halo_exchange, scs_packed, scs_pieces
+
+    return sum(sum(m.launch_counts().values()) for m in
+               (scs_spmv, scs_packed, scs_pieces, halo_exchange))
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_bench_batch_graph_equals_eager_spmv(cuda, case):
+    """y of a replayed bench batch against eager ``op.spmv``: bit for bit
+    through this package's kernels, within the sp tolerance where the sums'
+    order may vary from call to call (the plain route's index_add_ and
+    cuSPARSE's CSR product); the replay counts G kernel nodes per SpMV node
+    and launches nothing through the wrappers."""
+    op = batch_operator(case)
+    bs = op.config.block_vec_size
+    x = op.make_x(np.random.default_rng(8).standard_normal(
+        (op.n_rows, bs) if bs > 1 else op.n_rows))
+    want = op.spmv(x.clone())
+    G = 10
+    g = op.batch_graph(x, G)
+    per_spmv = sum(g.nodes.values()) // G
+    assert sum(g.nodes.values()) == G * per_spmv
+    assert per_spmv > 0 or not uses_kernels(op)
+    for _ in range(2):
+        n0, g0 = all_launches(), sum(graph_nodes_replayed().values())
+        op.replay(g, 3)
+        torch.cuda.synchronize()
+        assert all_launches() == n0
+        assert sum(graph_nodes_replayed().values()) - g0 == 3 * G * per_spmv
+        got = g.bufs[0]
+        if case in ("xla", "bcoo"):
+            assert (got - want).abs().max().item() <= \
+                TOL["sp"] * want.abs().max().item()
+        else:
+            assert np.array_equal(op.to_host(got), op.to_host(want))
+    assert op.batch_graph(x, G) is g  # kept, not captured again
+
+
+def uses_kernels(op):
+    from uspmv_tpu_torch.runtime.operator import uses_kernels as uk
+
+    return uk(op.config)
+
+
+@pytest.mark.parametrize("case", ["sp", "scs+pieces", "sharded-overlap",
+                                  "bcoo"])
+def test_bench_spmv_times_replays(cuda, case):
+    """bench_spmv on the card: timing "graph", n = start_iters * 2^j, at
+    least n kernel nodes per SpMV node replayed in the timed batches, and
+    the wrappers' only launches those of the capture's warm-up SpMV."""
+    from uspmv_tpu_torch.runtime.bench import bench_spmv
+
+    op = batch_operator(case)
+    x = op.make_x()
+    n0 = all_launches()
+    op.spmv(x.clone())
+    torch.cuda.synchronize()
+    per_spmv_launches = all_launches() - n0
+    n0, g0 = all_launches(), sum(graph_nodes_replayed().values())
+    res = bench_spmv(op, x=x, bench_time=0.01, warmup=5, start_iters=4,
+                     timing_reps=2)
+    torch.cuda.synchronize()
+    assert res.timing == "graph" and res.to_dict()["timing"] == "graph"
+    ratio = res.n_iterations // 4
+    assert res.n_iterations == 4 * ratio and ratio & (ratio - 1) == 0
+    assert all_launches() - n0 == per_spmv_launches
+    nodes = sum(graph_nodes_replayed().values()) - g0
+    assert nodes >= 2 * res.n_iterations * per_spmv_launches
+    assert res.perf_gflops > 0
+
+
+@pytest.mark.parametrize("k", [1, 2, 7])
+def test_bench_solve_graph_equals_solve(cuda, k):
+    """bench_solve by graph replays the captured solve from x copied in
+    once: its buffers hold op.solve(x, k, "graph")'s bits."""
+    from uspmv_tpu_torch.runtime.bench import bench_solve
+
+    mtx = laplace2d(33)
+    mtx.values[:] = mtx.values * 0.1
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=32, sigma=8, value_type="sp",
+               backend="cuda"), mtx)
+    x = op.make_x(np.random.default_rng(k).standard_normal(mtx.n_rows))
+    want_prev, want = op.solve(x, k, impl="graph")
+    loop_prev, loop = op.solve(x, k, impl="loop")
+    assert torch.equal(want, loop) and torch.equal(want_prev, loop_prev)
+    n0 = launch_count()
+    res = bench_solve(op, k, x=x, bench_time=0.01, warmup=1, impl="graph")
+    torch.cuda.synchronize()
+    assert res.timing == "graph" and res.impl == "solve-graph[cuda-scs-sp]"
+    assert launch_count() == n0  # the graph was cached: no capture
+    g = op.solve_graph(x, k)
+    assert torch.equal(g.bufs[(k - 1) & 1], want)
+    if k > 1:
+        assert torch.equal(g.bufs[k & 1], want_prev)
+
+
+def test_capture_failure_names_the_operator(cuda, monkeypatch):
+    """A host sync inside the SpMV makes the capture fail: it raises with
+    the operator's impl_name and does not fall back to a loop."""
+    op = batch_operator("sp")
+    x = op.make_x()
+    spmv = op.spmv
+
+    def syncing(xx, out=None):
+        y = spmv(xx, out=out)
+        float(y.sum())  # a host read: illegal while capturing
+        return y
+
+    monkeypatch.setattr(op, "spmv", syncing)
+    with pytest.raises(RuntimeError, match="capture of cuda-"):
+        op.batch_graph(x, 3)
+
+
+def load_cg_example():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "examples", "cg_solver_torch.py")
+    spec = importlib.util.spec_from_file_location("cg_solver_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("maxiter", [25, 60])
+def test_graph_cg_equals_eager_cg(cuda, maxiter):
+    """The CG example's graph batches (one per batch size: 25, and 10 at
+    maxiter 60) against its eager steps: the same iterations, the same
+    bits of x."""
+    import uspmv_tpu_torch.interface as tui
+
+    ex = load_cg_example()
+    mtx = laplace2d(40)
+    h = tui.prepare(mtx, C=1024, sigma=1, value_type="sp", backend="cuda")
+    b = mtx.to_scipy().tocsr() @ np.random.default_rng(2).standard_normal(
+        mtx.n_rows)
+    x_e, it_e, res_e = ex.cg(h, b, tol=1e-30, maxiter=maxiter,
+                             batches=ex.eager_batches)
+    x_g, it_g, res_g = ex.cg(h, b, tol=1e-30, maxiter=maxiter)
+    assert it_g == it_e == maxiter and res_g == res_e
+    assert np.array_equal(x_g, x_e)

@@ -21,7 +21,9 @@ own, gloo through host buffers where processes share one, gloo with
 prints the run as a [multihost] line); solve mode runs the operator's ``solve`` (one CUDA graph
 of the -rev launches on a GPU, the fused solve kernel when
 ``USPMV_FUSED_SOLVE`` is set and an unsharded operator is eligible, a loop
-on the CPU) and prints which one ran. -impl bcoo runs the vendor
+on the CPU) and prints which one ran; bench mode times replays of a CUDA
+graph of captured SpMVs on a GPU and a loop of calls on the CPU and over
+gloo (-json's "timing" says which). -impl bcoo runs the vendor
 comparison (ops/spmv_bcoo.py: cuSPARSE CSR on the card), -impl xla the
 plain PyTorch path on the chosen device; -matrix_stats prints the matrix
 statistics and exits, -output_sparsity dumps each precision's matrix as

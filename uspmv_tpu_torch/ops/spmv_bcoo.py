@@ -71,6 +71,8 @@ class BcooSpmvOperator(OperatorBase):
     mtx: MtxData  # natural order, values as stored (dump_sparsity)
     split_threshold: int = 0
     n_dropped: int = 0
+    # the bench's captured batches (OperatorBase.batch_graph)
+    _batch_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @classmethod
     def from_mtx(cls, config: Config, mtx: MtxData) -> "BcooSpmvOperator":
@@ -125,15 +127,18 @@ class BcooSpmvOperator(OperatorBase):
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """y = A x in natural order: one vector, rowwise block vectors
         [n, bs] as one sparse-dense product, colwise [bs, n] vector by
-        vector. With ``out`` given, y is copied into it."""
+        vector. With ``out`` given, the products write into it (the same
+        calls with ``out=``: no copy for the bench's graphs to time)."""
         mat = next(iter(self.devs.values())).mat
         if x.dim() == 2 and self.config.vector_layout == "colwise":
-            y = torch.stack([mat @ x[i] for i in range(x.shape[0])])
-        else:
-            y = mat @ x
-        if out is not None:
-            return out.copy_(y)
-        return y
+            if out is None:
+                return torch.stack([mat @ x[i] for i in range(x.shape[0])])
+            for i in range(x.shape[0]):
+                torch.mv(mat, x[i], out=out[i])
+            return out
+        if out is None:
+            return mat @ x
+        return (torch.mv if x.dim() == 1 else torch.mm)(mat, x, out=out)
 
     def solve_impl_name(self, n_repetitions: int = 2,
                         impl: Optional[str] = None) -> str:

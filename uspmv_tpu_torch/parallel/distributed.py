@@ -61,10 +61,15 @@ copy out before the transfer. With the overlap the interior launches are
 enqueued before the transfer; the halo parts and the pieces run after the
 unpack. In allgather mode every process all-gathers the local rows into
 the whole stacked x. ``to_host`` gathers every shard (a collective: every
-process calls it and returns the whole y). A solve runs the loop: a
-transfer through the host cannot be captured in a CUDA graph. The metrics
-of the shards a process does not hold come from the others' summaries,
-gathered once at build.
+process calls it and returns the whole y). Under NCCL the pack, the
+all-to-all, its wait and the unpack are captured with the rest of an SpMV
+into the CUDA graphs of a solve and of the bench's batches; every process
+captures and replays in the same order, and ``multihost.shutdown`` resets
+those graphs before the group goes (NCCL does not destroy a communicator
+that a live graph uses). Over gloo a solve and the bench run a loop of
+launches: a transfer through the host cannot be captured in a CUDA graph.
+The metrics of the shards a process does not hold come from the others'
+summaries, gathered once at build.
 
 Not ported, as the ROADMAP lists: lane tiles and re-tiling, the
 transpose-stream tier, the ±1 fold matrix and its prefix sums (the pieces
@@ -307,6 +312,7 @@ class DistributedSpmvOperator(OperatorBase):
     _comm_stream: Optional[object] = dataclasses.field(default=None,
                                                        repr=False)
     _solve_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
+    _batch_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ----------------------------------------------------------------- build
 
@@ -734,13 +740,19 @@ class DistributedSpmvOperator(OperatorBase):
             written = True
         return out
 
+    def transport(self) -> Optional[str]:
+        """The transport of this operator's transfer (parallel/multihost.py),
+        None where one process holds every shard."""
+        return multihost.transport() if self.n_processes > 1 else None
+
     def solve_impl_name(self, n_repetitions: int = 2,
                         impl: Optional[str] = None) -> str:
         """"graph" (one CUDA graph of the k SpMVs) on a CUDA device for
         more than one repetition, else "loop"; the fused solve kernel runs
-        one SELL-C-sigma stream and takes no sharded operator, and an
-        operator spread over processes runs the loop (its transfer is a
-        collective outside any graph)."""
+        one SELL-C-sigma stream and takes no sharded operator. Across
+        processes the graph holds the NCCL all-to-all; over gloo the
+        operator runs the loop (its transfer crosses the host)."""
+        capturable = multihost.graph_capturable(self.transport())
         if impl is not None:
             if impl not in SOLVE_IMPLS:
                 raise ValueError(
@@ -749,14 +761,13 @@ class DistributedSpmvOperator(OperatorBase):
                 raise ValueError(
                     "the fused solve kernel takes one SELL-C-sigma stream; "
                     "a sharded operator solves by impl='graph' or 'loop'")
-            if impl == "graph" and self.n_processes > 1:
+            if impl == "graph" and not capturable:
                 raise ValueError(
                     "an operator spread over processes solves by "
                     "impl='loop': its transfer cannot be captured in a "
                     "CUDA graph")
             return impl
-        if self.device.type == "cuda" and n_repetitions > 1 \
-                and self.n_processes == 1:
+        if self.device.type == "cuda" and n_repetitions > 1 and capturable:
             return "graph"
         return "loop"
 

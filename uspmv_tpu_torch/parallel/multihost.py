@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -45,6 +46,8 @@ import torch
 TIMEOUT_S = 600.0  # a lost peer fails the run after this long
 
 _state: Optional[dict] = None
+# the CUDA graphs captured in this run (they may hold NCCL collectives)
+_graphs: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def transport_for(backend: str, n_local_processes: int,
@@ -146,11 +149,23 @@ def initialize(
     return dict(_state)
 
 
+def hold_graph(graph) -> None:
+    """Keep track of a CUDA graph captured in this run: ``shutdown`` resets
+    it before the process group goes, since destroying a communicator
+    waits for every live graph that holds its collectives."""
+    _graphs.add(graph)
+
+
 def shutdown() -> None:
-    """Leave the run (``destroy_process_group``); a no-op outside one."""
+    """Leave the run (``destroy_process_group``), after resetting the CUDA
+    graphs captured in it (``hold_graph``; they cannot be replayed after);
+    a no-op outside one."""
     global _state
     import torch.distributed as dist
 
+    for graph in list(_graphs):
+        graph.reset()
+    _graphs.clear()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
     _state = None
@@ -176,6 +191,15 @@ def process_count() -> int:
 def transport() -> Optional[str]:
     """"nccl", "gloo" or "gloo-staged"; None outside a run of processes."""
     return None if _state is None else _state["transport"]
+
+
+def graph_capturable(transport: Optional[str]) -> bool:
+    """Whether the transfer of an operator spread over processes over
+    ``transport`` (None: no run of processes, no transfer) can sit inside
+    a CUDA graph. NCCL's all-to-all runs on the cards' own tensors and is
+    captured; a gloo transfer crosses the host, which waits on the copy
+    out before it, so gloo and gloo-staged run a loop of launches."""
+    return transport in (None, "nccl")
 
 
 def agree_max(value: float) -> float:

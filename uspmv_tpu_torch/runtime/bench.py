@@ -12,11 +12,21 @@ Port of ``bench_spmv`` and ``bench_solve`` from
   * effective GB/s from the operator's byte count (values + col_idxs +
     chunk metadata + x + y, main.cpp:655-668).
 
-On a GPU a batch is timed with CUDA events recorded on the current stream
-around its launches; on the CPU with ``time.perf_counter``. Eager PyTorch
-launches every SpMV it is asked for and cannot hoist a loop-invariant one,
-so the JAX harness's loop-carried epsilon (its ``_make_runner``, and the
-``eps`` of its ``bench_solve``) has no counterpart here.
+The JAX harness runs a batch of n SpMVs as one jitted ``lax.fori_loop``,
+one dispatch per batch. Here, on a CUDA device, a batch is n / G replays
+of one CUDA graph of G = ``start_iters`` captured SpMVs
+(``OperatorBase.batch_graph``), so n = G * 2^j as in the JAX harness and
+no host enqueue sits between two SpMVs; every SpMV of the graph reads the
+same x, as the JAX runner's ``x + y_prev[0] * 0`` does. The warm-up is the
+capture and replays of at least ``warmup`` SpMVs. On the CPU, and for an
+operator spread over processes whose transfer crosses the host (gloo), a
+batch is a Python loop of n ``op.spmv`` calls: there is no graph to
+replay. ``timing_for`` decides, from the device and the transport alone,
+and ``BenchResult.timing`` records it ("graph" or "loop"). A capture that
+fails raises. A batch is timed with CUDA events recorded on the current
+stream around it on a GPU, with ``time.perf_counter`` on the CPU. Nothing
+in a graph is loop-invariant to a compiler, so the JAX harness's epsilon
+has no counterpart.
 
 Both take an ``SpmvOperator`` or a sharded ``DistributedSpmvOperator``
 (parallel/distributed.py); for the latter the result also carries the halo
@@ -78,34 +88,68 @@ class BenchResult:
     per_shard: Optional[list] = None
     comm_volume_per_host: Optional[dict] = None
     n_processes: int = 1  # processes of the run (parallel/multihost.py)
+    # how a batch was timed: "graph" (replays of a captured CUDA graph) or
+    # "loop" (a Python loop of calls); timing_for decides
+    timing: str = "loop"
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
 
-def _time_batch(op: OperatorBase, x: torch.Tensor, n: int,
-                call=None) -> float:
-    """Seconds for n calls of ``call(x)`` (default: one SpMV), measured on
-    the device's own clock; for an operator spread over processes, the
-    largest of all processes' seconds."""
-    call = call or op.spmv
+def timing_for(device_type: str, transport: Optional[str] = None) -> str:
+    """How ``bench_spmv`` times a batch on a device of ``device_type``
+    ("cuda" or "cpu") for an operator whose transfer runs over
+    ``transport`` (parallel/multihost.py; None for an operator in one
+    process): "graph", replays of a captured CUDA graph, on a card where
+    the whole SpMV can be captured; else "loop"."""
+    if device_type == "cuda" and multihost.graph_capturable(transport):
+        return "graph"
+    return "loop"
+
+
+def timing_of(op: OperatorBase) -> str:
+    """``timing_for`` of the operator's device and transport."""
+    return timing_for(op.device.type, op.transport())
+
+
+def _seconds(op: OperatorBase, run) -> float:
+    """Seconds of ``run()`` measured on the device's own clock; for an
+    operator spread over processes, the largest of all processes' seconds
+    (the all-reduce outside the timed window)."""
     if op.device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(n):
-            call(x)
+        run()
         end.record()
         end.synchronize()
         seconds = start.elapsed_time(end) / 1e3
     else:
         t0 = time.perf_counter()
-        for _ in range(n):
-            call(x)
+        run()
         seconds = time.perf_counter() - t0
     if getattr(op, "n_processes", 1) > 1:
         seconds = multihost.agree_max(seconds)
     return seconds
+
+
+def _doubling(op: OperatorBase, run, n0: int, limit: int,
+              bench_time: float, timing_reps: int) -> tuple:
+    """The reference's timed loop: ``run(n)`` batches from n0, doubling n
+    until a batch takes ``bench_time`` or n reaches ``limit``, then
+    ``timing_reps`` batches of that n in all. Returns (n, samples, total
+    seconds)."""
+    n = n0
+    t_total0 = time.perf_counter()
+    while True:
+        elapsed = _seconds(op, lambda: run(n))
+        if elapsed >= bench_time or n >= limit:
+            break
+        n *= 2
+    samples = [elapsed]
+    for _ in range(max(timing_reps, 1) - 1):
+        samples.append(_seconds(op, lambda: run(n)))
+    return n, samples, time.perf_counter() - t_total0
 
 
 def bench_spmv(
@@ -119,21 +163,22 @@ def bench_spmv(
     if x is None:
         x = op.make_x()
     bench_time = bench_time if bench_time is not None else op.config.bench_time
-    _time_batch(op, x, max(warmup, 1))  # warm-up: build, caches, clocks
+    timing = timing_of(op)
+    G = max(1, start_iters)
+    if timing == "graph":
+        g = op.batch_graph(x, G)  # capture: build, caches
 
-    n_iter = max(1, start_iters)
-    max_iters = 1 << 17
-    t_total0 = time.perf_counter()
-    while True:
-        elapsed = _time_batch(op, x, n_iter)
-        if elapsed >= bench_time or n_iter >= max_iters:
-            break
-        n_iter *= 2
-    samples = [elapsed]
-    for _ in range(max(timing_reps, 1) - 1):
-        samples.append(_time_batch(op, x, n_iter))
-    t_total = time.perf_counter() - t_total0
-    return _result(op, n_iter, samples, t_total, op.impl_name())
+        def run(n):
+            op.replay(g, -(-n // G))
+    else:
+        def run(n):
+            for _ in range(n):
+                op.spmv(x)
+
+    _seconds(op, lambda: run(max(warmup, 1)))  # warm-up: caches, clocks
+    n_iter, samples, t_total = _doubling(op, run, G, 1 << 17, bench_time,
+                                         timing_reps)
+    return _result(op, n_iter, samples, t_total, op.impl_name(), timing)
 
 
 def bench_solve(
@@ -147,41 +192,41 @@ def bench_solve(
 ) -> BenchResult:
     """Solve-mode benchmark: time y = A^k x with the x<->y swap, the way
     the reference times its solve loop (main.cpp:528-607). A batch is m
-    whole solves of k = n_repetitions iterations through
-    ``op.solve(x, k, impl)``; m doubles until a batch takes ``bench_time``
-    (or reaches 2^14), and the median of ``timing_reps`` batches counts.
-    GFLOP/s = 2 * nnz * bs * k * m / t. ``impl`` picks the loop of
-    launches, the CUDA graph or the fused kernel (None: the operator's
-    default); the result's ``impl`` reads solve-loop[...], solve-graph[...]
-    or solve-fused[...] around ``op.impl_name()``."""
+    whole solves of k = n_repetitions iterations; m doubles until a batch
+    takes ``bench_time`` (or reaches 2^14), and the median of
+    ``timing_reps`` batches counts. GFLOP/s = 2 * nnz * bs * k * m / t.
+    ``impl`` picks the loop of launches, the CUDA graph or the fused
+    kernel (None: the operator's default); the result's ``impl`` reads
+    solve-loop[...], solve-graph[...] or solve-fused[...] around
+    ``op.impl_name()``. By graph a batch is m back-to-back replays of the
+    captured solve, x copied in once before them (the JAX harness chains
+    its m solves inside one jit); by loop and fused, m calls of
+    ``op.solve(x, k, impl)``."""
     if x is None:
         x = op.make_x()
     bench_time = bench_time if bench_time is not None else op.config.bench_time
     k = int(n_repetitions)
     name = op.solve_impl_name(k, impl)
+    timing = "graph" if name == "graph" and k >= 1 else "loop"
+    if timing == "graph":
+        g = op.solve_graph(x, k)  # capture: build, caches; x copied in
 
-    def solve(xv):
-        return op.solve(xv, k, name)
+        def run(m):
+            op.replay(g, m)
+    else:
+        def run(m):
+            for _ in range(m):
+                op.solve(x, k, name)
 
-    _time_batch(op, x, max(warmup, 1), solve)  # build, capture, caches
-
-    m = 1
-    t_total0 = time.perf_counter()
-    while True:
-        elapsed = _time_batch(op, x, m, solve)
-        if elapsed >= bench_time or m >= (1 << 14):
-            break
-        m *= 2
-    samples = [elapsed]
-    for _ in range(max(timing_reps, 1) - 1):
-        samples.append(_time_batch(op, x, m, solve))
-    t_total = time.perf_counter() - t_total0
+    _seconds(op, lambda: run(max(warmup, 1)))
+    m, samples, t_total = _doubling(op, run, 1, 1 << 14, bench_time,
+                                    timing_reps)
     return _result(op, k * m, samples, t_total,
-                   f"solve-{name}[{op.impl_name()}]")
+                   f"solve-{name}[{op.impl_name()}]", timing)
 
 
 def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
-            impl: str) -> BenchResult:
+            impl: str, timing: str) -> BenchResult:
     """The record of n_iter SpMVs whose final batches took ``samples``."""
     elapsed = float(np.median(samples))
     bs = op.config.block_vec_size
@@ -231,4 +276,5 @@ def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
         per_shard=per_shard,
         comm_volume_per_host=per_host,
         n_processes=multihost.process_count(),
+        timing=timing,
     )

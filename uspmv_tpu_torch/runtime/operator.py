@@ -68,6 +68,7 @@ from ..ops.scs_pieces import spmv_pieces, spmv_pieces_plain
 from ..ops.scs_solve import solve_fits, solve_scs
 from ..ops.scs_spmv import record_captured_launches, spmv_scs, spmv_scs_plain
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
+from ..parallel import multihost
 from ..precision.partition import partition_precisions
 
 
@@ -238,19 +239,22 @@ def guard_scs_explosion(mtx: MtxData, C: int, sigma: int):
 
 
 SOLVE_IMPLS = ("fused", "graph", "loop")
-MAX_SOLVE_GRAPHS = 4  # captured graphs an operator keeps, least recent out
+# captured solve graphs and bench batches an operator keeps, least recent out
+MAX_SOLVE_GRAPHS = 4
+MAX_BATCH_GRAPHS = 4
 
-# kernel nodes replayed by the graph solves of this process, per SpMV entry
-# point: bookkeeping from capture time times the replays, kept apart from
-# the wrappers' launch counts, which hold launches they made themselves
+# kernel nodes replayed by the CUDA graphs of this process (solves and bench
+# batches), per SpMV entry point: bookkeeping from capture time times the
+# replays, kept apart from the wrappers' launch counts, which hold launches
+# they made themselves
 _graph_nodes_replayed: Dict[str, int] = {}
 
 
 def graph_nodes_replayed() -> Dict[str, int]:
-    """Kernel nodes replayed by ``SpmvOperator.solve(impl="graph")``, per
-    SpMV entry point. A replay launches its nodes on the card without
-    passing through ``spmv_scs``, so they are no part of its launch
-    count."""
+    """Kernel nodes replayed by ``SpmvOperator.solve(impl="graph")`` and by
+    the captured batches of ``runtime.bench``, per SpMV entry point. A
+    replay launches its nodes on the card without passing through
+    ``spmv_scs``, so they are no part of its launch count."""
     return dict(_graph_nodes_replayed)
 
 
@@ -259,24 +263,29 @@ def reset_graph_nodes_replayed() -> None:
 
 
 @dataclasses.dataclass
-class _SolveGraph:
-    """k captured iterations of ``SpmvOperator.spmv`` over static vectors."""
+class CapturedGraph:
+    """Captured launches of ``spmv`` over static vectors: a solve's k
+    iterations with the x <-> y swap (iteration i writes bufs[i & 1]), or a
+    bench batch of n SpMVs that each read x_in and write bufs[0]."""
 
     graph: "torch.cuda.CUDAGraph"
-    x_in: torch.Tensor  # iteration 0 reads it
-    bufs: Tuple[torch.Tensor, torch.Tensor]  # iteration i writes bufs[i & 1]
+    x_in: torch.Tensor  # the first (a batch: every) SpMV reads it
+    bufs: Tuple[torch.Tensor, ...]
     nodes: Dict[str, int]  # kernel nodes per replay, by entry point
 
 
 class OperatorBase:
-    """What ``SpmvOperator`` and the sharded
-    ``parallel.distributed.DistributedSpmvOperator`` share, for an operator
-    with ``config``, ``nnz``, ``nnz_per_precision()``, ``spmv(x, out=...)``
-    and a ``_solve_graphs`` dict: the metrics below, and solve impl
-    "graph", k iterations of ``spmv`` with the x <-> y swap captured once
-    per (k, x shape, x dtype) into a CUDA graph over static vectors and
-    replayed. The vectors start zeroed, so rows that ``spmv(out=...)``
-    does not write (a sharded operator's halo rows) hold no garbage."""
+    """What ``SpmvOperator``, the sharded
+    ``parallel.distributed.DistributedSpmvOperator`` and the vendor
+    ``ops.spmv_bcoo.BcooSpmvOperator`` share, for an operator with
+    ``config``, ``nnz``, ``nnz_per_precision()``, ``spmv(x, out=...)`` and
+    ``_solve_graphs`` and ``_batch_graphs`` dicts: the metrics below; solve
+    impl "graph", k iterations of ``spmv`` with the x <-> y swap captured
+    once per (k, x shape, x dtype) into a CUDA graph over static vectors and
+    replayed; and the bench's batch of n SpMVs captured the same way (the
+    counterpart of the JAX harness's jitted runner). The vectors start
+    zeroed, so rows that ``spmv(out=...)`` does not write (a sharded
+    operator's halo rows) hold no garbage."""
 
     @property
     def working_dtype(self) -> torch.dtype:
@@ -299,6 +308,11 @@ class OperatorBase:
             return self.config.block_vec_size
         return 1
 
+    def transport(self) -> Optional[str]:
+        """The transport of the operator's transfer between processes
+        (parallel/multihost.py); None: it runs in one process."""
+        return None
+
     def hp_nnz_fraction(self) -> float:
         """Share of the stored nonzeros in bf16, which sets the validation
         bound of hp mixes (runtime/validate.compare); 1.0 unless AP."""
@@ -306,6 +320,92 @@ class OperatorBase:
             return 1.0
         npp = self.nnz_per_precision()
         return npp.get("hp", 0) / max(sum(npp.values()), 1)
+
+    # ------------------------------------------------------- CUDA graphs
+
+    def solve_graph(self, x: torch.Tensor, k: int) -> CapturedGraph:
+        """The graph of k >= 1 solve iterations for x's shape and dtype
+        (captured at the first call, then kept), with x copied into its
+        static input; ``replay`` runs it. After a replay the result is
+        bufs[(k - 1) & 1] and the last input bufs[k & 1] (x for k = 1)."""
+        def capture(x_in, bufs):
+            src = x_in
+            for it in range(k):
+                src = self.spmv(src, out=bufs[it & 1])
+
+        return self._graph(self._solve_graphs, MAX_SOLVE_GRAPHS, (k,), x, 2,
+                           capture)
+
+    def batch_graph(self, x: torch.Tensor, n: int) -> CapturedGraph:
+        """The graph of a bench batch for x's shape and dtype: n SpMVs
+        ``spmv(x_in, out=bufs[0])``, each reading the same x as the JAX
+        runner's ``x + y_prev[0] * 0`` does (so A^k x cannot overflow over
+        a long batch); captured at the first call, then kept, with x copied
+        into x_in."""
+        def capture(x_in, bufs):
+            for _ in range(n):
+                self.spmv(x_in, out=bufs[0])
+
+        return self._graph(self._batch_graphs, MAX_BATCH_GRAPHS, (n,), x, 1,
+                           capture)
+
+    @staticmethod
+    def replay(g: CapturedGraph, times: int = 1) -> None:
+        """Replay ``g`` ``times`` times, its kernel nodes counted in
+        ``graph_nodes_replayed``."""
+        for _ in range(times):
+            g.graph.replay()
+        for name, n in g.nodes.items():
+            _graph_nodes_replayed[name] = (_graph_nodes_replayed.get(name, 0)
+                                           + n * times)
+
+    def _graph(self, cache: dict, limit: int, key: tuple, x: torch.Tensor,
+               n_bufs: int, body) -> CapturedGraph:
+        """The cached graph of ``key`` and x's shape and dtype, captured
+        by ``body(x_in, bufs)`` over new static vectors where there is none
+        (the least recent of ``limit`` graphs goes); x copied into x_in."""
+        if x.device.type != "cuda":
+            raise ValueError(
+                f"a CUDA graph needs a CUDA device, x is on {x.device}; "
+                "use impl='loop'")
+        key = (*key, tuple(x.shape), x.dtype)
+        g = cache.pop(key, None)
+        if g is None:
+            while len(cache) >= limit:
+                del cache[next(iter(cache))]
+            g = self._capture(x, n_bufs, body)
+        cache[key] = g
+        g.x_in.copy_(x)
+        return g
+
+    def _capture(self, x: torch.Tensor, n_bufs: int, body) -> CapturedGraph:
+        """Capture ``body(x_in, bufs)`` over static vectors shaped like x.
+        The kernels are built, loaded and launched once on a side stream
+        first: none of that is legal inside a capture. The capture is
+        thread-local: a process group's watchdog thread may query its
+        events meanwhile. A capture that fails raises, naming the
+        operator; nothing falls back to a loop."""
+        x_in = x.clone()
+        bufs = tuple(torch.zeros_like(x) for _ in range(n_bufs))
+        cur = torch.cuda.current_stream(x.device)
+        side = torch.cuda.Stream(device=x.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            self.spmv(x_in, out=bufs[0])
+        cur.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with record_captured_launches() as nodes, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
+                body(x_in, bufs)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA-graph capture of {self.impl_name()} failed: {e}"
+            ) from e
+        if multihost.is_multiprocess():
+            multihost.hold_graph(graph)  # its collectives: reset first
+        return CapturedGraph(graph=graph, x_in=x_in, bufs=bufs,
+                             nodes=dict(nodes))
 
     def _solve_graph(self, x: torch.Tensor, k: int) -> tuple:
         if x.device.type != "cuda":
@@ -315,40 +415,10 @@ class OperatorBase:
             )
         if k < 1:
             return torch.zeros_like(x), x
-        key = (k, tuple(x.shape), x.dtype)
-        g = self._solve_graphs.pop(key, None)
-        if g is None:
-            while len(self._solve_graphs) >= MAX_SOLVE_GRAPHS:
-                del self._solve_graphs[next(iter(self._solve_graphs))]
-            g = self._capture_solve(x, k)
-        self._solve_graphs[key] = g
-        g.x_in.copy_(x)
-        g.graph.replay()
-        for name, n in g.nodes.items():
-            _graph_nodes_replayed[name] = _graph_nodes_replayed.get(name, 0) + n
+        g = self.solve_graph(x, k)
+        self.replay(g)
         prev = x if k == 1 else g.bufs[k & 1].clone()
         return prev, g.bufs[(k - 1) & 1].clone()
-
-    def _capture_solve(self, x: torch.Tensor, k: int) -> _SolveGraph:
-        """Capture k iterations of ``spmv`` over static vectors. The
-        kernels are built, loaded and launched once on a side stream
-        first: none of that is legal inside a capture."""
-        x_in = torch.empty_like(x)
-        bufs = (torch.zeros_like(x), torch.zeros_like(x))
-        x_in.copy_(x)
-        side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(torch.cuda.current_stream(x.device))
-        with torch.cuda.stream(side):
-            self.spmv(x_in, out=bufs[0])
-        torch.cuda.current_stream(x.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with record_captured_launches() as nodes:
-            with torch.cuda.graph(graph):
-                src = x_in
-                for it in range(k):
-                    src = self.spmv(src, out=bufs[it & 1])
-        return _SolveGraph(graph=graph, x_in=x_in, bufs=bufs,
-                           nodes=dict(nodes))
 
 
 @dataclasses.dataclass
@@ -372,9 +442,11 @@ class SpmvOperator(OperatorBase):
     n_dropped: int = 0
     jacobi_diag: Optional[np.ndarray] = None
     equilib: Optional[tuple] = None
-    # captured solve graphs by (k, x shape, x dtype), most recent last,
-    # at most MAX_SOLVE_GRAPHS of them
+    # captured solve graphs by (k, x shape, x dtype) and bench batches by
+    # (n, x shape, x dtype), most recent last, at most MAX_SOLVE_GRAPHS and
+    # MAX_BATCH_GRAPHS of them
     _solve_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
+    _batch_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ----------------------------------------------------------------- build
 

@@ -129,6 +129,7 @@ def run(args: argparse.Namespace, mtx=None) -> List[dict]:
             "beta": res.beta, "impl": res.impl,
             "platform": res.platform,
             "device_name": res.device_name,
+            "timing": res.timing,
         })
         del op
     path = _common.write_rows(args.out or _common.default_out(NAME), rows)

@@ -13,9 +13,10 @@ through the port's ``Config``, ``SpmvOperator`` and ``bench_spmv``:
 
 Rows are appended to --out, by default build/uspmv_tpu_torch/perf_sweep.jsonl
 (the perf_sweep.jsonl at the repository root is the JAX package's TPU
-record). ``bench_spmv`` times a Python loop of launches, so where one SpMV
-is shorter than the host's enqueue (tens of microseconds) the row reports
-the host. A failed configuration raises.
+record). On a GPU ``bench_spmv`` times replays of a CUDA graph of
+captured SpMVs, so each row reports the card, not the host's enqueue (on
+the CPU a loop of calls; the row's ``timing`` says which). A failed
+configuration raises.
 """
 
 from __future__ import annotations
@@ -96,6 +97,7 @@ def run(args: argparse.Namespace, mtx=None) -> List[dict]:
             # which kernel ran: the tier (SELL-C-sigma or packed rows)
             "impl": res.impl,
             "device_name": res.device_name,
+            "timing": res.timing,
         })
         del op
     path = _common.write_rows(args.out or _common.default_out(NAME), rows)

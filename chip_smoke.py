@@ -221,7 +221,20 @@ nvidia-smi. Phases, each printing JSON lines:
         of op.solve(x, k, "graph") (a copy in and two clones out each) on
         FemTet3D-9 and Laplace3D-128 at k = 2, 16 and 512, in turns, the
         bench's buffers bit-equal to the loop of launches.
-     ``--only 13`` runs phases 1, 2 and 13 alone.
+     ``--only 13`` runs phases 1, 2 and 13 alone;
+ 14. the headline program, ``bench_torch.py`` (the port's counterpart of
+     bench.py), in a process of its own, its record file under
+     build/uspmv_tpu_torch/chip_smoke_bench/:
+     a. a whole run: exit 0, no error, each of its seven ``*_gflops`` a
+        number > 0, vs_baseline > 0, timing "graph", and its headline
+        within 10% of 13a's bench_spmv on the same matrix; its record is
+        printed as one line;
+     b. a run whose USPMV_BENCH_PHASE_DEADLINE_S fires the watchdog inside
+        the headline's timed batches (from a's progress lines and its last
+        batches' length), while the card is busy: the partial record must
+        parse, with value null and the watchdog's error, and the exit must
+        be non-zero.
+     ``--only 14`` runs phases 1, 2, 13a's headline case and 14.
 
 Since the bench times replays of a captured graph, every driven run counts
 a kernel's launches through its wrapper plus its kernel nodes replayed from
@@ -229,8 +242,9 @@ graphs (runtime/operator.graph_nodes_replayed), and the kernel line's
 ``launches`` counts both; 7c runs the CG example by graph batches and by
 eager steps (the same iterations, x bit-equal) and times both.
 
-Beside each kernel's time the script prints its bound (bytes over 3,350
-GB/s, or flops over the peak of its type if larger) and ``library_ms``, the
+Beside each kernel's time the script prints its bound (bytes over the
+card's HBM rate from uspmv_tpu_torch/runtime/card.py, 3,350 GB/s on an H100
+SXM, or flops over the peak of its type if larger) and ``library_ms``, the
 time of ``torch.sparse_csr_tensor(...) @ x`` on the same matrix in the
 original row order: a yardstick only, the port never calls it (null with
 the error text where PyTorch has no CSR product for the dtypes). The bytes
@@ -253,6 +267,7 @@ It needs no network and imports nothing of JAX.
 import faulthandler
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -277,8 +292,8 @@ X_ACCESS = {
     "uspmv_x_copy_fma": (["scripts/test_gather_tput.py:66"],
                          ("copy_fma", "in_place", 2**24)),
 }
-# H100 SXM data sheet: HBM3 bytes/s; FLOP/s outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM data sheet: FLOP/s outside the tensor cores (the HBM rate is
+# uspmv_tpu_torch/runtime/card.py's, by the card's name)
 PEAK_FLOPS = {"torch.float32": 67e12, "torch.float64": 34e12}
 SOLVE_K = 512
 # what the kernel line's "launches" counts, since the bench times replays
@@ -369,15 +384,6 @@ def require(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def card_name_and_power_limit():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    return out.splitlines()[0]
-
-
 def driver_version():
     """The card's driver version: a programmatic dependent launch (the halo
     kernels) inside a CUDA-graph capture needs a recent one."""
@@ -394,10 +400,25 @@ def acc_tol(x):
     return TOL["dp"] if x.dtype == torch.float64 else TOL["sp"]
 
 
+def hbm_bytes_per_s():
+    """The first card's HBM rate (uspmv_tpu_torch/runtime/card.py); a card
+    the table does not know fails the run rather than take a guessed
+    rate."""
+    import torch
+
+    from uspmv_tpu_torch.runtime import card
+
+    name = torch.cuda.get_device_name(0)
+    rate = card.hbm_bytes_per_s(name)
+    require(rate is not None, f"no HBM rate on record for {name!r} in "
+            "uspmv_tpu_torch/runtime/card.py")
+    return rate
+
+
 def bound(nbytes, flops, x_dtype):
     """(bound_ms, bound_by): the least time the card could take, the larger
     of bytes over the HBM rate and flops over the peak of the type."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_bytes = nbytes / hbm_bytes_per_s()
     t_ops = flops / PEAK_FLOPS[str(x_dtype)]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -2516,7 +2537,7 @@ def aux_matrix(spec, card, rng):
         tol=tol, spmv_graph_ms=ms, gflops=flops / ms / 1e6,
         gbps=nbytes / ms / 1e6, moved_bytes=nbytes, bound_bytes=fn_bytes,
         bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
-        moved_share=nbytes / HBM_BYTES_PER_S * 1e3 / ms,
+        moved_share=nbytes / hbm_bytes_per_s() * 1e3 / ms,
         other_tier=other.impl_name(), other_tier_build_s=other_build_s,
         other_tier_graph_ms=med["other_tier"],
         other_tier_bytes_per_spmv=other.bytes_per_spmv(),
@@ -3486,6 +3507,71 @@ BENCH_OVER_GRAPH = 1.10
 PHASE13_SOLVE_K = (2, 16, 512)
 
 
+def bench_graph_case(label, spec, fields, m, card):
+    """One case of 13a on matrix ``m``: bench_spmv beside op.spmv by a
+    replayed graph and by a loop of launches, in turns; returns the emitted
+    record (``gflops``: the bench's, from the median of its two runs)."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime.bench import bench_spmv, timing_of
+
+    cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
+                 backend="cuda", **{"value_type": "sp", **fields})
+    cls = (BcooSpmvOperator if cfg.impl == "bcoo"
+           else DistributedSpmvOperator if cfg.n_shards > 1
+           else SpmvOperator)
+    op = cls.from_mtx(cfg, m)
+    x = op.make_x()
+    out = torch.zeros_like(x)
+    reps = 100 if time_ms(lambda: op.spmv(x, out=out), 3) < 1.0 else 20
+    results = []
+
+    def bench():
+        results.append(bench_spmv(op, x=x, bench_time=0.2))
+        return (results[-1].duration_kernel_s
+                / results[-1].n_iterations * 1e3)
+
+    # in turns: bench, graph, loop, loop, graph, bench
+    timers = {"bench": bench}
+    if timing_of(op) == "graph":
+        timers["graph"] = lambda: graph_ms(lambda: op.spmv(x, out=out),
+                                           reps)
+    timers["loop"] = lambda: time_ms(lambda: op.spmv(x, out=out), reps)
+    med, turns = time_turns(timers)
+    res = results[-1]
+    bench_ms, graph = med["bench"], med.get("graph")
+    flops = op.flops_per_spmv()
+    ratio = bench_ms / graph if graph else None
+    rec = dict(case=label, matrix=spec, impl=res.impl,
+               timing=res.timing, gflops=flops / bench_ms / 1e6,
+               bench_gflops=[r.perf_gflops for r in results],
+               bench_ms_per_spmv=bench_ms,
+               n_iterations=[r.n_iterations for r in results],
+               spmv_graph_ms=graph, spmv_loop_ms=med["loop"],
+               graph_gflops=flops / graph / 1e6 if graph else None,
+               loop_gflops=flops / med["loop"] / 1e6,
+               bench_over_graph=ratio, limit=BENCH_OVER_GRAPH, **turns,
+               card=card)
+    emit("bench_graph", **rec)
+    require(all(r.timing == res.timing for r in results)
+            and np.isfinite(res.perf_gflops) and res.perf_gflops > 0,
+            f"13a {label}: GFLOP/s {res.perf_gflops}")
+    if res.timing == "graph":
+        require(ratio <= BENCH_OVER_GRAPH,
+                f"13a {label}: bench {bench_ms:.5f} ms per SpMV against "
+                f"{graph:.5f} by graph ({ratio:.3f}x > "
+                f"{BENCH_OVER_GRAPH}): the bench is host-bound")
+    else:
+        require(False, f"13a {label}: timed by {res.timing}")
+    del op, x, out
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase13(mtx, card):
     """Phase 13: the harness by replayed CUDA graph. ``mtx`` is the
     headline's Laplace3D-128.
@@ -3498,19 +3584,13 @@ def phase13(mtx, card):
          as path F) at k in PHASE13_SOLVE_K: the new batch (m replays, x
          copied in once) against m calls of op.solve(x, k, "graph") (a copy
          in and two clones out per solve), in turns, and the bench's
-         buffers bit-equal to the loop of launches."""
-    import numpy as np
+         buffers bit-equal to the loop of launches.
+    Returns 13a's records by case label."""
     import torch
 
     from uspmv_tpu_torch import Config, SpmvOperator
     from uspmv_tpu_torch.io import generators
-    from uspmv_tpu_torch.ops.spmv_bcoo import BcooSpmvOperator
-    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
-    from uspmv_tpu_torch.runtime.bench import (
-        bench_solve,
-        bench_spmv,
-        timing_of,
-    )
+    from uspmv_tpu_torch.runtime.bench import bench_solve
 
     t_phase = time.perf_counter()
     sizing = dict(SIZING)
@@ -3522,57 +3602,9 @@ def phase13(mtx, card):
                               else generators.generate_matrix(spec))
         return matrices[spec]
 
-    for label, spec, fields in PHASE13_CASES:
-        m = matrix(spec)
-        cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
-                     backend="cuda", **{"value_type": "sp", **fields})
-        cls = (BcooSpmvOperator if cfg.impl == "bcoo"
-               else DistributedSpmvOperator if cfg.n_shards > 1
-               else SpmvOperator)
-        op = cls.from_mtx(cfg, m)
-        x = op.make_x()
-        out = torch.zeros_like(x)
-        reps = 100 if time_ms(lambda: op.spmv(x, out=out), 3) < 1.0 else 20
-        results = []
-
-        def bench():
-            results.append(bench_spmv(op, x=x, bench_time=0.2))
-            return (results[-1].duration_kernel_s
-                    / results[-1].n_iterations * 1e3)
-
-        # in turns: bench, graph, loop, loop, graph, bench
-        timers = {"bench": bench}
-        if timing_of(op) == "graph":
-            timers["graph"] = lambda: graph_ms(lambda: op.spmv(x, out=out),
-                                               reps)
-        timers["loop"] = lambda: time_ms(lambda: op.spmv(x, out=out), reps)
-        med, turns = time_turns(timers)
-        res = results[-1]
-        bench_ms, graph = med["bench"], med.get("graph")
-        flops = op.flops_per_spmv()
-        ratio = bench_ms / graph if graph else None
-        emit("bench_graph", case=label, matrix=spec, impl=res.impl,
-             timing=res.timing, gflops=flops / bench_ms / 1e6,
-             bench_gflops=[r.perf_gflops for r in results],
-             bench_ms_per_spmv=bench_ms,
-             n_iterations=[r.n_iterations for r in results],
-             spmv_graph_ms=graph, spmv_loop_ms=med["loop"],
-             graph_gflops=flops / graph / 1e6 if graph else None,
-             loop_gflops=flops / med["loop"] / 1e6,
-             bench_over_graph=ratio, limit=BENCH_OVER_GRAPH, **turns,
-             card=card)
-        require(all(r.timing == res.timing for r in results)
-                and np.isfinite(res.perf_gflops) and res.perf_gflops > 0,
-                f"13a {label}: GFLOP/s {res.perf_gflops}")
-        if res.timing == "graph":
-            require(ratio <= BENCH_OVER_GRAPH,
-                    f"13a {label}: bench {bench_ms:.5f} ms per SpMV against "
-                    f"{graph:.5f} by graph ({ratio:.3f}x > "
-                    f"{BENCH_OVER_GRAPH}): the bench is host-bound")
-        else:
-            require(False, f"13a {label}: timed by {res.timing}")
-        del op, x, out
-        torch.cuda.empty_cache()
+    records = {label: bench_graph_case(label, spec, fields, matrix(spec),
+                                       card)
+               for label, spec, fields in PHASE13_CASES}
 
     base = dict(kernel_format="scs", chunk_size=1024, sigma=1,
                 value_type="sp", backend="cuda", mixed_tiles=False,
@@ -3616,6 +3648,113 @@ def phase13(mtx, card):
         del op, x
         torch.cuda.empty_cache()
     emit("phase13", seconds=time.perf_counter() - t_phase)
+    return records
+
+
+# ----------------------------------------------------------------- phase 14
+
+BENCH_DIR = os.path.join("build", "uspmv_tpu_torch", "chip_smoke_bench")
+# the program's headline against 13a's bench_spmv on the same matrix
+HEADLINE_VS_13A = 0.10
+# "[bench_torch] t=<s> s <key>: <what>" on the program's standard error
+_PROGRESS = re.compile(
+    r"^\[bench_torch\] t=([0-9.]+) s (\w+): .* (built|landed)$")
+
+
+def bench_torch_run(env_extra, timeout):
+    """``python bench_torch.py`` from the root of the checkout, with its
+    record file under BENCH_DIR; returns (exit code, its last line parsed,
+    {(case, "built" | "landed"): seconds after the watchdog was armed},
+    seconds, its standard error)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, USPMV_OUTPUT_DIR=os.path.join(root, BENCH_DIR),
+               **env_extra)
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, os.path.join(root, "bench_torch.py")],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    seconds = time.perf_counter() - t0
+    lines = p.stdout.strip().splitlines()
+    require(lines, f"bench_torch.py printed nothing (rc {p.returncode}): "
+            f"{p.stderr[-3000:]}")
+    try:
+        rec = json.loads(lines[-1])
+    except json.JSONDecodeError:
+        require(False, f"bench_torch.py's last line is not JSON: "
+                f"{lines[-1][:500]}")
+    progress = {}
+    for ln in p.stderr.splitlines():
+        m = _PROGRESS.match(ln)
+        if m:
+            progress[(m.group(2), m.group(3))] = float(m.group(1))
+    return p.returncode, rec, progress, seconds, p.stderr
+
+
+def phase14(mtx, headline_gflops, card):
+    """Phase 14: the headline program, bench_torch.py, as a user runs it,
+    in a process of its own on the card. ``mtx`` is the headline's
+    Laplace3D-128, ``headline_gflops`` 13a's bench_spmv on it.
+      a. a whole run: exit 0, no error, every ``*_gflops`` a number > 0,
+         vs_baseline > 0, timing "graph", the headline within
+         HEADLINE_VS_13A of 13a's, its line appended to the record file;
+      b. a run whose USPMV_BENCH_PHASE_DEADLINE_S fires the watchdog inside
+         the headline's timed batches, while the card is busy: a's progress
+         lines say when its headline landed, and its last three batches took
+         3 n_iterations 2 nnz / GFLOP/s; the deadline falls in the middle of
+         them. The partial record must parse, with value null and the
+         watchdog's error; the exit non-zero; b's operator built and no
+         number landed."""
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    os.makedirs(BENCH_DIR, exist_ok=True)
+    rc, rec, progress, seconds, err = bench_torch_run({}, 900)
+    emit("bench_torch", rc=rc, seconds=seconds, record=rec,
+         progress={f"{k} {w}": t for (k, w), t in progress.items()},
+         headline_13a_gflops=headline_gflops, card=card)
+    require(rc == 0 and "error" not in rec,
+            f"14a: bench_torch.py rc {rc}: {err[-3000:]}")
+    gflops = {k: v for k, v in rec.items() if k.endswith("_gflops")}
+    require(len(gflops) == 7 and all(
+        isinstance(v, (int, float)) and v > 0 for v in gflops.values()),
+        f"14a: extras {gflops}")
+    require(isinstance(rec["value"], float) and rec["value"] > 0
+            and isinstance(rec["vs_baseline"], float)
+            and rec["vs_baseline"] > 0, f"14a: value {rec['value']}, "
+            f"vs_baseline {rec['vs_baseline']}")
+    require(rec["timing"] == "graph", f"14a: timed by {rec['timing']}")
+    off = abs(rec["value"] / headline_gflops - 1)
+    require(off <= HEADLINE_VS_13A,
+            f"14a: headline {rec['value']:.1f} GFLOP/s, 13a "
+            f"{headline_gflops:.1f} ({100 * off:.1f}% apart)")
+    with open(os.path.join(BENCH_DIR, "spmv_bench_torch.jsonl")) as f:
+        saved = json.loads(f.read().splitlines()[-1])
+    require({k: saved[k] for k in rec} == rec,
+            "14a: the record file's last line is not the printed record")
+
+    t_batch = rec["n_iterations"] * 2 * mtx.nnz / (rec["value"] * 1e9)
+    landed = progress[("headline", "landed")]
+    deadline = landed - 1.5 * t_batch
+    require(deadline > progress[("headline", "built")],
+            f"14b: a deadline of {deadline:.3f} s falls before the headline "
+            f"operator was built ({progress})")
+    rc, part, progress, seconds, err = bench_torch_run(
+        {"USPMV_BENCH_PHASE_DEADLINE_S": f"{deadline:.3f}"}, 300)
+    emit("bench_torch_watchdog", rc=rc, seconds=seconds, record=part,
+         deadline_s=deadline, a_headline_landed_s=landed,
+         a_timed_batch_s=t_batch,
+         progress={f"{k} {w}": t for (k, w), t in progress.items()},
+         card=card)
+    require(rc != 0, "14b: the watchdog's run exited 0")
+    require(part.get("value", 0) is None
+            and part.get("error", "").startswith("cuda-hung-mid-run"),
+            f"14b: partial record {part}")
+    require(("headline", "built") in progress
+            and ("headline", "landed") not in progress,
+            f"14b: the watchdog fired outside the headline's bench "
+            f"({progress})")
+    emit("phase14", seconds=time.perf_counter() - t_phase)
 
 
 def main():
@@ -3642,6 +3781,7 @@ def main():
         reset_launch_count,
     )
     from uspmv_tpu_torch.runtime.bench import bench_spmv
+    from uspmv_tpu_torch.runtime.card import card_name_and_power_limit
 
     t_start = time.perf_counter()
     card = card_name_and_power_limit()
@@ -3676,8 +3816,13 @@ def main():
             f"cuobjdump: row-sum kernels missing from {resources}")
     emit("kernel_resources", kernels=resources)
 
-    if sys.argv[1:3] == ["--only", "13"]:
-        phase13(laplace3d(128), card)
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:3] in (["13"], ["14"]):
+        mtx = laplace3d(128)
+        if sys.argv[2] == "13":
+            phase13(mtx, card)
+        else:  # 13a's headline case is phase 14's yardstick
+            phase14(mtx, bench_graph_case("headline", "Laplace3D,128", {},
+                                          mtx, card)["gflops"], card)
         emit("done", seconds_total=time.perf_counter() - t_start)
         print(json.dumps({"kernels": []}))
         print(card)
@@ -3895,7 +4040,10 @@ def main():
     mh_launches, mh_records = phase12(mtx, card)
 
     # ---- 13. the bench by replayed CUDA graph, the solve bench's batches
-    phase13(mtx, card)
+    bench_13a = phase13(mtx, card)
+
+    # ---- 14. the headline program, bench_torch.py, in its own process
+    phase14(mtx, bench_13a["headline"]["gflops"], card)
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():

@@ -334,11 +334,18 @@ def test_package_never_imports_jax():
         "import uspmv_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, 'uspmv_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('bench_torch',"
+        " 'bench_torch.py')\n"
+        "bt = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(bt)\n"
+        "assert bt.run(bt.CASES, emit=lambda rec: None) == 3\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(k.split('.')[0] == 'uspmv_tpu' for k in sys.modules)\n"
         "print('ok', len([k for k in sys.modules if k.startswith('uspmv_tpu_torch')]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok ")

@@ -15,10 +15,10 @@ import torch
 from ..config import Config
 from ..ops._build import BUILD_DIR
 from ..ops.scs_spmv import record_captured_launches
+from ..runtime import card
 from ..runtime.operator import resolve_device
 
-# H100 SXM data sheet: HBM3 bytes/s; the L2 cache in bytes
-HBM_BYTES_PER_S = 3.35e12
+# the H100's L2 cache in bytes (data sheet)
 L2_BYTES = 50 * 2**20
 
 
@@ -95,11 +95,17 @@ def check_close(got: torch.Tensor, want: torch.Tensor, tol: float,
     return dict(max_abs_err=max_abs, rel_err=rel)
 
 
-def bound_ms(nbytes: float) -> float:
+def bound_ms(nbytes: float, device: torch.device) -> float:
     """The least time for ``nbytes`` of device memory traffic at the HBM
-    rate; these probes do about one operation per 4 B, far under the
-    card's peak, so bytes bound them."""
-    return nbytes / HBM_BYTES_PER_S * 1e3
+    rate of ``device`` (runtime/card.py; raises for a card whose rate is
+    not on record); these probes do about one operation per 4 B, far under
+    the card's peak, so bytes bound them."""
+    name = card.device_name(device)
+    rate = card.hbm_bytes_per_s(name)
+    if rate is None:
+        raise RuntimeError(f"no HBM rate on record for {name!r}: add it to "
+                           "uspmv_tpu_torch/runtime/card.py")
+    return nbytes / rate * 1e3
 
 
 def write_rows(path, rows: Iterable[dict]) -> Path:

@@ -209,7 +209,7 @@ def throughput(device: torch.device, tput_blocks: int, reps: int,
         rows.append(dict(probe="gather_tput", mode=mode, n_blocks=tput_blocks,
                          elements=E, ms=ms, gelem_s=E / ms / 1e6,
                          gbps=moved / ms / 1e6, bound_ms=_common.bound_ms(
-                             moved + 4 * T), tol=x_access.fma_tol(E),
+                             moved + 4 * T, device), tol=x_access.fma_tol(E),
                          platform=platform, **err))
     return rows
 
@@ -261,9 +261,11 @@ def sweep(device: torch.device, n: int, x_sizes, reps: int,
                     probe="sweep", mode=mode, pattern=pattern, x_elems=n_x,
                     x_mb=4 * n_x / 1e6, elements=n, n_threads=T, ms=ms,
                     gelem_s=n / ms / 1e6, gbps=nbytes / ms / 1e6,
-                    bound_bytes=nbytes, bound_ms=_common.bound_ms(nbytes),
+                    bound_bytes=nbytes,
+                    bound_ms=_common.bound_ms(nbytes, device),
                     bound_by="bytes",
-                    sector_floor_ms=(_common.bound_ms(streams + SECTOR * n)
+                    sector_floor_ms=(_common.bound_ms(streams + SECTOR * n,
+                                                      device)
                                      if miss else None),
                     plain_ms=plain_ms, library_ms=lib_ms,
                     library_call=lib_call,
@@ -296,7 +298,8 @@ def sweep(device: torch.device, n: int, x_sizes, reps: int,
     rows.append(dict(probe="sweep", mode="copy_fma", pattern="in_place",
                      x_elems=n, x_mb=4 * n / 1e6, elements=n, n_threads=T,
                      ms=ms, gelem_s=n / ms / 1e6, gbps=nbytes / ms / 1e6,
-                     bound_bytes=nbytes, bound_ms=_common.bound_ms(nbytes),
+                     bound_bytes=nbytes,
+                     bound_ms=_common.bound_ms(nbytes, device),
                      bound_by="bytes", sector_floor_ms=None,
                      plain_ms=plain_ms, library_ms=None, library_call=None,
                      library_error="no one PyTorch call computes the "

@@ -83,6 +83,7 @@ from ..ops import (
     x_access,
 )
 from ..ops.device_format import build_device_scs
+from ..runtime import card
 from ..runtime.operator import SpmvOperator
 from . import _common, gather_probe
 
@@ -262,7 +263,7 @@ def paired(case: str, versions: Dict[str, Version], run, plain_y,
         rows[name] = dict(
             kind="case", case=case, lib=name, bit_equal_to_first=bool(
                 torch.equal(y, first)),
-            bound_bytes=nbytes, bound_ms=_common.bound_ms(nbytes),
+            bound_bytes=nbytes, bound_ms=_common.bound_ms(nbytes, device),
             **_common.check_close(y, plain_y, tol, f"{case} {name}"))
     timer = timer or (lambda fn: _common.device_ms(fn, reps, device))
     names = list(versions) + ([library_name] if library else [])
@@ -277,7 +278,7 @@ def paired(case: str, versions: Dict[str, Version], run, plain_y,
     if library:
         rows[library_name] = dict(kind="case", case=case, lib=library_name,
                                   bound_bytes=nbytes,
-                                  bound_ms=_common.bound_ms(nbytes))
+                                  bound_ms=_common.bound_ms(nbytes, device))
     out = []
     for n in names:
         ms = float(np.median(samples[n]))
@@ -670,18 +671,15 @@ def run(args: argparse.Namespace) -> List[dict]:
     for r in rows:
         print(f"{r['lib']:10s} REG {r['registers']:3d} LOCAL {r['local']:4d} "
               f"{r['function']}")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(card)
+    card_line = card.card_name_and_power_limit()
+    print(card_line)
     for case in cases:
         fn = {"sell": sell_cases, "packed": packed_cases,
               "solve": solve_cases, "pieces": pieces_cases,
               "gather": gather_cases, "halo": halo_cases}[case]
         rows += fn(versions, device, args.reps, args.rounds)
     for r in rows:
-        r.update(platform=_common.platform_of(device), card=card)
+        r.update(platform=_common.platform_of(device), card=card_line)
     path = _common.write_rows(args.out or _common.default_out(NAME), rows)
     print(f"\n{len(rows)} rows appended to {path}")
     return rows

@@ -108,7 +108,8 @@ def measure(mtx, spec: str, device: torch.device, reps: int) -> CostSplit:
         row = dict(matrix=spec, variant=name, us=us,
                    ns_per_element=ms * 1e6 / dev.n_elements,
                    gflops=2 * op.nnz / ms / 1e6, bound_bytes=nbytes,
-                   bound_ms=_common.bound_ms(nbytes), bound_by="bytes",
+                   bound_ms=_common.bound_ms(nbytes, device),
+                   bound_by="bytes",
                    plain_ms=_common.device_ms(plain, max(reps // 10, 1),
                                               device),
                    n_rows=op.n_rows, nnz=op.nnz, n_elements=dev.n_elements,

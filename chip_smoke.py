@@ -24,6 +24,12 @@ nvidia-smi. Phases, each printing JSON lines:
         and 1024, one vector, rowwise and colwise bs=4, the write and the
         accumulate form; each kernel against its plain version, and twice
         in a row bit-equal (the pieces' counters and slots back at 0);
+     d. padded streams: path E's configuration on WideSpectrum-20 (three
+        streams whose groups of 16 rows are shorter than their chunks),
+        every (values, x) pair, layout and the accumulate form against the
+        plain version; and x = inf at the padding's column, non-finite in
+        exactly the rows that read it or whose group is longer than they
+        are (the plain version, as the JAX kernels: or whose chunk is);
      with the launch count checked per call;
   4. headline: Laplace3D-128, SELL-C-sigma C=1024 sigma=1 sp, through
      SpmvOperator.from_mtx, solve (5 repetitions, validated against the
@@ -36,7 +42,7 @@ nvidia-smi. Phases, each printing JSON lines:
      solve, and the kernel's time beside its bound and cuSPARSE's, timed
      in turns as in 4;
   6. the paths of slice 2, each driven as a user would (from_mtx, a solve
-     of 5 repetitions validated OK, bench_spmv for 0.5 s) with the launch
+     of 5 repetitions validated OK, bench_spmv for 0.3 s) with the launch
      counts set to 0 before and read after, then the whole SpMV and each
      precision stream compared and timed against the plain version (the
      kernels by a replayed CUDA graph, the plain version by events):
@@ -61,7 +67,7 @@ nvidia-smi. Phases, each printing JSON lines:
         launch through the wrapper and is counted apart, as k kernel nodes
         per stream, in runtime/operator.graph_nodes_replayed);
      b. path F, solve at full size through SpmvOperator and bench_solve,
-        C=1024 sigma=1 sp, k=512, 0.5 s per impl: Laplace3D-128, FemTet3D-55
+        C=1024 sigma=1 sp, k=512, 0.3 s per impl: Laplace3D-128, FemTet3D-55
         and the launch-bound FemTet3D-9; impl loop, graph and fused, each
         with a solve of 5 repetitions validated OK and the three results
         bit-equal at k=512 and k=64; ap[dp_sp] -dp_emu through loop and
@@ -125,8 +131,10 @@ nvidia-smi. Phases, each printing JSON lines:
         ones; cuSPARSE beside full and the unit stream, on tile_cost's own
         operator and unit stream;
      c. perf_sweep --bs_only on Laplace3D-128 (bs 1, 4, 8, 16, 32), the
-        script's default sweep on Laplace3D-64, and ap_bench on
-        Laplace3D-128, with short bench times, every row emitted;
+        script's default sweep on Laplace3D-64 (C x sigma in (1, 1),
+        (16, 512), (1024, 1), (1024, 1024), sp and hp, bs 1, 4, 8, 16,
+        32: 40 points), and ap_bench on Laplace3D-128, with short bench
+        times, every row emitted;
  10. row-sharded execution (slice 9): DistributedSpmvOperator, R shards on
      the one card, the halo exchange kernel (csrc/halo_exchange.cu). Each
      driven run (from_mtx, a validated solve, bench_spmv 0.3 s) sets every
@@ -377,6 +385,17 @@ SHAPES = [("rowwise", 1), ("rowwise", 4), ("rowwise", 8), ("colwise", 4),
 
 def emit(phase, **fields):
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(part):
+    """Print the seconds since the previous lap, naming the part that
+    just ended: the laps of a run add up to its whole time."""
+    now = time.perf_counter()
+    emit("lap", part=part, seconds=now - _LAP[0])
+    _LAP[0] = now
 
 
 def require(cond, msg):
@@ -735,6 +754,103 @@ def small_shapes(cuda, rng_seed=0):
             del dev
 
 
+# phase 3d: path E's configuration on a WideSpectrum small enough for every
+# pair and layout: three streams whose groups are shorter than their chunks
+PADDED_SMALL = ("WideSpectrum,20", PATHS[-1][2])
+
+
+def padded_small(cuda, rng_seed=3):
+    """Phase 3d: every instantiation, layout and the accumulate form on
+    the three padded streams of PADDED_SMALL (each stream's values rounded
+    to the pair's value type), against the plain version; then x = inf at
+    the padding's column: non-finite exactly in the rows that read that
+    column or whose group is longer than they are (the plain version: or
+    whose chunk is)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.io.generators import generate_matrix
+    from uspmv_tpu_torch.ops import scs_spmv
+    from uspmv_tpu_torch.ops.device_format import (
+        build_device_scs,
+        row_group_lengths,
+    )
+
+    spec, fields = PADDED_SMALL
+    op = SpmvOperator.from_mtx(Config(
+        kernel_format="scs", chunk_size=1024, sigma=1, backend="cpu",
+        **fields), generate_matrix(spec))
+    gen = torch.Generator().manual_seed(rng_seed)
+    for p, scs in op.scs.items():
+        row_group = row_group_lengths(scs.row_counts_new, scs.C)
+        counts = scs.row_counts_new.astype(np.int64)
+        pad_col = int(scs.old_to_new_idx[0])
+        real = ~scs.padding_mask()
+        uses = np.zeros(scs.n_rows_padded, dtype=bool)
+        uses[scs.flat_row_idx()[real & (scs.col_idxs == pad_col)]] = True
+        chunk_len = np.repeat(scs.chunk_lengths.astype(np.int64), scs.C)
+        for (vdt, xdt), entry in scs_spmv._ENTRY_POINTS.items():
+            rounded = dataclasses.replace(scs, values=torch.from_numpy(
+                scs.values.astype(np.float64)).to(vdt).double().numpy())
+            dev = build_device_scs(rounded, cuda, vdt)
+            require(dev.nnz < dev.n_read < dev.n_elements,
+                    f"{spec} {p}: no padding past the groups' lengths")
+            n = dev.n_rows_padded
+            worst = {}
+            for layout, bs in SHAPES:
+                shape = ((n,) if bs == 1 else
+                         (n, bs) if layout == "rowwise" else (bs, n))
+                x = torch.randn(shape, generator=gen,
+                                dtype=torch.float64).to(xdt).to(cuda)
+                y0 = torch.randn(shape, generator=gen,
+                                 dtype=torch.float64).to(xdt).to(cuda)
+                for acc in (False, True):
+                    what = f"{spec} {p} {entry} {layout} bs={bs} acc={acc}"
+                    n0 = scs_spmv.launch_counts()[entry]
+                    y = scs_spmv.spmv_scs(dev, x, layout,
+                                          y0.clone() if acc else None)
+                    torch.cuda.synchronize()
+                    require(scs_spmv.launch_counts()[entry] == n0 + 1,
+                            f"{what}: launch not counted")
+                    ref = scs_spmv.spmv_scs_plain(
+                        dev, x, layout, y0.clone() if acc else None)
+                    _, rel = compare(y, ref, acc_tol(x), what)
+                    worst[f"{layout}-{bs}{'-acc' if acc else ''}"] = rel
+            x = torch.randn(n, generator=gen,
+                            dtype=torch.float64).to(xdt).to(cuda)
+            x[pad_col] = float("inf")
+            bad = ~np.isfinite(scs_spmv.spmv_scs(dev, x).cpu().numpy())
+            plain_bad = ~np.isfinite(
+                scs_spmv.spmv_scs_plain(dev, x).cpu().numpy())
+            require(np.array_equal(bad, uses | (counts < row_group)),
+                    f"{spec} {p} {entry}: x[0] = inf reaches other rows")
+            require(np.array_equal(plain_bad, uses | (counts < chunk_len)),
+                    f"{spec} {p} {entry}: the plain version's inf rows")
+            emit("kernel_vs_plain_padded", matrix=spec, stream=p, C=1024,
+                 sigma=1, entry=entry, values=str(vdt), x=str(xdt),
+                 nnz=dev.nnz, slots_read=dev.n_read,
+                 n_elements=dev.n_elements, rel_err=worst,
+                 tol=acc_tol(x), inf_rows=int(bad.sum()),
+                 inf_rows_plain=int(plain_bad.sum()))
+            del dev
+
+
+def shard_parts(op, p):
+    """Per shard of a sharded operator, its SELL parts of stream ``p``
+    (main: the interior rows when overlapped, else every row; halo: the
+    halo-column part): nonzeros, stored slots, slots the kernel reads and
+    whether it reads them by group lengths."""
+    return [{part: dict(nnz=d.nnz, n_elements=d.n_elements,
+                        slots_read=d.n_read,
+                        group_lengths=bool(d.group_length_bytes))
+             for part, d in (("main", sh.main), ("halo", sh.halo))
+             if d is not None and hasattr(d, "n_read")}
+            for sh in op.streams[p]]
+
+
 def run_path(name, spec, mtx, fields, rng):
     """Phase 6: one path of slice 2, as a user drives it."""
     import numpy as np
@@ -765,7 +881,7 @@ def run_path(name, spec, mtx, fields, rng):
             f"{name}: empty precision stream {npp}")
     rep, _ = validated_solve(op, mtx, 5, f"path {name} solve")
     n_before = sum(with_replays(launch_counts()).values())
-    res = bench_spmv(op, bench_time=0.5)
+    res = bench_spmv(op, bench_time=0.3)
     # the main path's launches and replayed graph nodes, per instantiation
     counts = with_replays(launch_counts())
     bench_launches = sum(counts.values()) - n_before
@@ -814,7 +930,9 @@ def run_path(name, spec, mtx, fields, rng):
                                           spmv_scs(dev, x, layout))
         stream_rec[p] = dict(
             entry=entry_point(dev.values.dtype, wd), nnz=dev.nnz,
-            n_elements=dev.n_elements, ms=s_ms, plain_ms=s_plain_ms,
+            n_elements=dev.n_elements, slots_read=dev.n_read,
+            group_length_bytes=dev.group_length_bytes, ms=s_ms,
+            plain_ms=s_plain_ms,
             gbps=s_bytes / s_ms / 1e6, plain_gbps=s_bytes / s_plain_ms / 1e6,
             moved_bytes=s_bytes, bound_bytes=fn_bytes,
             max_abs_err=s_abs, rel_err=s_rel, bound_ms=b_ms, bound_by=b_by,
@@ -1050,7 +1168,7 @@ def solve_path(spec, mtx, scale, ap_threshold, card, unscaled=None):
                     "fused launches")
             n0, f0 = scs_spmv.launch_count(), scs_solve.launch_count()
             g0 = nodes_replayed()
-            res = bench_solve(op, k, x=x, bench_time=0.5, impl=impl)
+            res = bench_solve(op, k, x=x, bench_time=0.3, impl=impl)
             bench_spmv_l = scs_spmv.launch_count() - n0
             bench_fused_l = scs_solve.launch_count() - f0
             bench_nodes = nodes_replayed() - g0
@@ -1141,7 +1259,7 @@ def fused_record(mtx, unscaled, value_type, card):
         rep, rep_l2 = validated_solve(op_check, unscaled, 5,
                                       f"fused {value_type}", "fused")
         del op_check
-        res = bench_solve(op, k, bench_time=0.5, impl="fused")
+        res = bench_solve(op, k, bench_time=0.3, impl="fused")
         main = scs_solve.launch_counts()[entry]
         emit("solve_path", matrix="Laplace3D,128", config=value_type,
              impl=res.impl, C=1024, sigma=1, k=k,
@@ -2203,6 +2321,7 @@ def phase10(mtx, card):
             "single": lambda: graph_ms(lambda: single.spmv(xs, out=ys), 50),
         })
         emit("dist_laplace128", R=R, **info, **fields,
+             parts=shard_parts(op, "sp"),
              offsets=op.halo_plans["sp"].offsets, H=op.halo_plans["sp"].H,
              sharded_ms=med["sharded"], single_ms=med["single"], **samples,
              card=card)
@@ -2224,7 +2343,7 @@ def phase10(mtx, card):
     emit("dist_overlap", R=4, impl_on=op4.impl_name(),
          impl_off=off.impl_name(), build_s_off=off_s, **fields,
          on_ms=med["overlap_on"], off_ms=med["overlap_off"], **samples,
-         card=card)
+         parts_off=shard_parts(off, "sp"), card=card)
     del off, xo, yf
 
     # the exchange kernel alone, on the R=4 plan (f32)
@@ -2296,6 +2415,8 @@ def phase10(mtx, card):
          comm=ag.comm_volume_per_spmv(), card=card)
     del ag, op4, x4, single, xs, ys
 
+    lap("10a")
+
     # ---- 10b. RandomImbalanced-500k, R=4, seg-nnz: packed rows and pieces
     ri = generators.random_imbalanced(500_000, 8)
     one = SpmvOperator.from_mtx(Config(**base), ri)
@@ -2323,6 +2444,8 @@ def phase10(mtx, card):
          sharded_ms=med["sharded"], single_ms=med["single"], **samples,
          card=card)
     del ri, one, rop, xr, yr, xo1, yo1
+
+    lap("10b")
 
     # ---- 10c. the CLI, two processes at once, beside 10d (which times
     # nothing on the card)
@@ -2387,6 +2510,7 @@ def phase10(mtx, card):
          bench=[ln for ln in outs["bench"][0].splitlines()
                 if "shard" in ln or "comm volume" in ln or "perf:" in ln],
          card=card)
+    lap("10c-d")
     emit("phase10", seconds=time.perf_counter() - t_phase,
          halo_exchange_launches=launches)
     return launches, records
@@ -2793,6 +2917,7 @@ def phase11(mtx, card):
         for k, v in rec["main_path_launches"].items():
             launches[k] = launches.get(k, 0) + v
         emit("aux_matrix", **rec)
+    lap("11a")
     # b, c. -impl bcoo (cuSPARSE) and -impl xla (the plain path) through
     # the CLI on the headline, beside the kernel path
     head = ["Laplace3D,128", "scs", "-c", "1024", "-s", "1", "-mtx_out",
@@ -2823,12 +2948,16 @@ def phase11(mtx, card):
                 f"11b/c {row['run']}: ran {row['impl']}")
     emit("aux_impls", matrix="Laplace3D,128", runs=rows, card=card)
     torch.cuda.empty_cache()
+    lap("11b-c")
     # d. the flags
     emit("aux_flags", **aux_flags(card))
+    lap("11d")
     # e. the native host library
     emit("aux_native", **aux_native(mtx, card))
+    lap("11e")
     # f. the scripts
     emit("aux_scripts", **aux_scripts(card))
+    lap("11f")
     emit("phase11", seconds=time.perf_counter() - t_phase,
          main_path_launches=launches)
     return launches
@@ -3815,6 +3944,7 @@ def main():
             == set(ROW_SUM_KERNELS),
             f"cuobjdump: row-sum kernels missing from {resources}")
     emit("kernel_resources", kernels=resources)
+    lap("1-2 environment and build")
 
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] in (["13"], ["14"]):
         mtx = laplace3d(128)
@@ -3875,11 +4005,19 @@ def main():
     require(launch_count() - n0 == n_calls,
             f"launch count rose by {launch_count() - n0}, expected {n_calls}")
 
+    lap("3a")
+
     # ---- 3b. every instantiation, layout and the accumulate form
     small_shapes(cuda)
+    lap("3b")
 
     # ---- 3c. the heavy-row pieces and packed-row kernels, small shapes
     small_tiers()
+    lap("3c")
+
+    # ---- 3d. padded streams: the row loop stops at each group's length
+    padded_small(cuda)
+    lap("3d")
 
     # ---- 4. headline: the main path, as a user drives it
     mtx = laplace3d(128)
@@ -3940,6 +4078,8 @@ def main():
     del op, dev, x, y
     torch.cuda.empty_cache()
 
+    lap("4 headline")
+
     # ---- 5. large x (on the TPU: the windowed kernel's regime)
     big = laplace3d(160)
     op = SpmvOperator.from_mtx(cfg, big)
@@ -3962,6 +4102,8 @@ def main():
     del op, dev, x, y, big
     torch.cuda.empty_cache()
 
+    lap("5 large x")
+
     # ---- 6. the paths of slice 2
     matrices = {"Laplace3D,128": mtx}
     for name, spec, fields in PATHS:
@@ -3977,9 +4119,12 @@ def main():
             stream_records[(name, p)] = rec
         torch.cuda.empty_cache()
 
+    lap("6 paths A-E")
+
     # ---- 7a. solve mode on small shapes: fused vs loop vs plain, graph
     solve_small(cuda)
     graph_small(rng)
+    lap("7a")
 
     # ---- 7b. path F: solve at full size through the entry points
     lap_scaled = mtx.copy()
@@ -4018,17 +4163,22 @@ def main():
         solve_records[entry] = rec
         torch.cuda.empty_cache()
 
+    lap("7b path F")
+
     # ---- 7c. the library surface and the CG example
     interface_and_cg(mtx, lap_scaled, rng, card)
     del lap_scaled
+    lap("7c")
 
     # ---- 8. path G: imbalanced rows at full size
     tier_launches, tier_records = path_g({"FemTet3D,55": fem55}, card)
     del fem55
     torch.cuda.empty_cache()
+    lap("8 path G")
 
     # ---- 9. the last TPU kernels: x access, cost split, unit stream, sweeps
     probe_launches, probe_records = phase9(mtx, headline_ms, card)
+    lap("9")
 
     # ---- 10. row-sharded execution: R shards on the card, halo exchange
     dist_launches, dist_records = phase10(mtx, card)
@@ -4038,12 +4188,15 @@ def main():
 
     # ---- 12. the sharded operator over processes: pack, transfer, unpack
     mh_launches, mh_records = phase12(mtx, card)
+    lap("12")
 
     # ---- 13. the bench by replayed CUDA graph, the solve bench's batches
     bench_13a = phase13(mtx, card)
+    lap("13")
 
     # ---- 14. the headline program, bench_torch.py, in its own process
     phase14(mtx, bench_13a["headline"]["gflops"], card)
+    lap("14")
 
     kernels = []
     for entry, (replaces, path, prec) in INSTANTIATIONS.items():

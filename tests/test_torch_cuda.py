@@ -896,14 +896,141 @@ def test_packed_grid_matches_plain_and_repeats_bit_for_bit(cuda, pair, n,
 
 def test_launch_geometry_of_the_sell_kernel(cuda):
     """Every entry's one-vector kernel keeps at least kMinBlocksPerSm (5)
-    blocks resident and launches a block per 256 padded rows."""
-    dev = banded_dev(torch.float32, cuda)
+    blocks resident, in the form with group lengths and in the chunk form
+    (the same matrix without them), and launches a block per 256 padded
+    rows."""
+    import dataclasses
+
     for (vdt, xdt), entry in scs_spmv._ENTRY_POINTS.items():
-        geom = scs_spmv.launch_geometry(banded_dev(vdt, cuda), xdt)
-        assert geom["blocks_per_sm"] >= 5, entry
-        assert geom["grid"] == -(-dev.n_rows_padded // 256)
+        dev = banded_dev(vdt, cuda)
+        chunks = dataclasses.replace(dev, group_lengths=dev.group_lengths[:0])
+        for form, d in ((1, dev), (0, chunks)):
+            geom = scs_spmv.launch_geometry(d, xdt)
+            assert geom["groups"] == form, entry
+            assert geom["blocks_per_sm"] >= 5, (entry, form)
+            assert geom["grid"] == -(-dev.n_rows_padded // 256)
     unit, _ = ones_devs(cuda)
     assert scs_spmv.launch_geometry(unit, torch.float32)["blocks_per_sm"] >= 5
+
+
+# ---------------------------------------- group lengths of the row loop
+
+
+def padded_streams(C, sigma):
+    """WideSpectrum-8's three adaptive-precision streams (ap[dp_sp_hp]
+    -dp_emu, thresholds 1e-2 / 1e-5, as path E) at (C, sigma), host
+    ScsData with permuted columns: rows of very different lengths share
+    a chunk, so padding lies below and past the groups' lengths."""
+    cfg = Config(kernel_format="scs", chunk_size=C, sigma=sigma,
+                 value_type="ap[dp_sp_hp]", dp_emulation=True,
+                 ap_threshold_1=1e-2, ap_threshold_2=1e-5, backend="cpu")
+    from uspmv_tpu_torch.io.generators import wide_spectrum
+
+    return SpmvOperator.from_mtx(cfg, wide_spectrum(8)).scs
+
+
+def pair_dev(scs, pair, device):
+    """``scs`` as the DeviceScs of a (values, x) pair, values rounded to
+    the pair's value dtype on the host."""
+    import dataclasses
+
+    vdt, _ = pair
+    rounded = dataclasses.replace(scs, values=torch.from_numpy(
+        scs.values.astype(np.float64)).to(vdt).double().numpy())
+    return build_device_scs(rounded, device, vdt)
+
+
+@pytest.mark.parametrize("C,sigma", [(32, 1), (1024, 1), (128, 8)])
+@pytest.mark.parametrize("stream", ["dp", "sp", "hp"])
+def test_padded_streams_match_plain(cuda, stream, C, sigma):
+    """Every instantiation on a stream whose groups are shorter than their
+    chunks: rowwise bs 1-8 and colwise, written and accumulated, against
+    the plain version, and twice in a row bit-equal."""
+    scs = padded_streams(C, sigma)[stream]
+    n = scs.n_rows_padded
+    for pair in PAIRS:
+        dev = pair_dev(scs, pair, cuda)
+        assert dev.nnz < dev.n_read < dev.n_elements
+        for layout, bs in SHAPES:
+            x, y0 = randn_pair(block_shape(n, layout, bs), pair[1], cuda, bs)
+            for accumulate in (False, True):
+                what = f"{pair} {layout} bs={bs} acc={accumulate}"
+                got = [spmv_scs(dev, x, layout,
+                                y0.clone() if accumulate else None)
+                       for _ in range(2)]
+                torch.cuda.synchronize()
+                assert torch.equal(got[0], got[1]), what
+                ref = spmv_scs_plain(dev, x, layout,
+                                     y0.clone() if accumulate else None)
+                err = (got[0] - ref).abs().max().item()
+                assert err <= ACC_TOL[pair[1]] * max(
+                    ref.abs().max().item(), 1e-30), what
+
+
+@pytest.mark.parametrize("k", [1, 5, 64])
+@pytest.mark.parametrize("bs", [1, 4])
+@pytest.mark.parametrize("stream", ["dp", "sp", "hp"])
+def test_padded_fused_solve_equals_k_launches(cuda, stream, bs, k):
+    """The fused solve shares the row loop: on a padded stream it equals
+    k launches of the SpMV kernel bit for bit, for its three pairs."""
+    from uspmv_tpu_torch.ops import scs_solve
+
+    scs = padded_streams(32, 1)[stream]
+    n = scs.n_rows_padded
+    for pair in SOLVE_PAIRS:
+        dev = contraction(pair_dev(scs, pair, cuda))
+        x, _ = randn_pair((n,) if bs == 1 else (n, bs), pair[1], cuda, k)
+        prev, fin = scs_solve.solve_scs(dev, x, k)
+        want_prev, want = x, x
+        for _ in range(k):
+            want_prev, want = want, spmv_scs(dev, want)
+        torch.cuda.synchronize()
+        assert torch.equal(fin, want) and torch.equal(prev, want_prev), pair
+
+
+def uses_and_group_lengths(scs):
+    """Per permuted row: whether a stored element reads column
+    perm[0] (where the padding's column 0 went), its count, and its
+    group's length (groups of GROUP_ROWS rows within a chunk)."""
+    from uspmv_tpu_torch.ops.device_format import GROUP_ROWS
+
+    C, counts = scs.C, scs.row_counts_new.astype(np.int64)
+    pad_col = int(scs.old_to_new_idx[0])
+    real = ~scs.padding_mask()
+    rows = scs.flat_row_idx()
+    uses = np.zeros(scs.n_rows_padded, dtype=bool)
+    uses[rows[real & (scs.col_idxs == pad_col)]] = True
+    per = counts.reshape(-1, C)
+    groups = [per[:, g:g + GROUP_ROWS].max(axis=1, keepdims=True)
+              .repeat(min(GROUP_ROWS, C - g), axis=1)
+              for g in range(0, C, GROUP_ROWS)]
+    group_len = np.concatenate(groups, axis=1).ravel()
+    return pad_col, uses, counts, group_len
+
+
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_inf_at_the_padding_column_spares_rows_that_do_not_read_it(cuda,
+                                                                    pair):
+    """x = inf at column 0 (perm[0] after the column permutation, where
+    every padding slot points): the kernel reads padding only below a
+    group's length, so a row is non-finite exactly where it reads that
+    column or its group is longer than it; the plain version, as the JAX
+    kernels, multiplies every padding slot by x[0]. Groups of equal rows
+    (Laplace3D's interior) therefore stay finite."""
+    for stream, scs in padded_streams(1024, 1).items():
+        dev = pair_dev(scs, pair, cuda)
+        pad_col, uses, counts, group_len = uses_and_group_lengths(scs)
+        x, _ = randn_pair((scs.n_rows_padded,), pair[1], cuda, 3)
+        x[pad_col] = float("inf")
+        y = spmv_scs(dev, x).cpu().numpy()
+        bad = ~np.isfinite(y)
+        want = uses | (counts < group_len)
+        assert np.array_equal(bad, want), stream
+        chunk_len = np.repeat(scs.chunk_lengths.astype(np.int64), scs.C)
+        plain_bad = ~np.isfinite(spmv_scs_plain(dev, x).cpu().numpy())
+        assert np.array_equal(plain_bad, uses | (counts < chunk_len)), stream
+        # rows the group lengths spare: finite here, NaN in the plain version
+        assert (plain_bad & ~bad).any(), stream
 
 
 # ------------------------------------------------- row-sharded execution

@@ -22,6 +22,7 @@ from uspmv_tpu_torch import cli
 from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.scs import scs_from_reference
 from uspmv_tpu_torch.io import generators as tgen
+from uspmv_tpu_torch.ops.device_format import GROUP_ROWS, group_table
 from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
 from uspmv_tpu_torch.runtime.bench import bench_spmv
 from uspmv_tpu_torch.runtime.operator import (
@@ -100,14 +101,29 @@ def test_solve_matches_jax_operator(operators, name, value_type):
 def test_beta_and_metrics_match_jax(operators, name):
     jop, op, _, _ = operators(name, "sp")
     assert op.beta() == jop.beta()
-    assert op.device_beta() == op.beta()
     assert op.nnz == jop.nnz
     assert op.flops_per_spmv() == jop.flops_per_spmv()
     assert op.nnz_per_precision() == jop.nnz_per_precision()
-    (scs,) = op.scs.values()
-    # values + int32 columns + chunk_ptrs/lengths + x + y, all f32/int32
-    assert op.bytes_per_spmv() == 4 * (2 * scs.n_elements + 2 * scs.n_chunks
-                                       + 1 + 2 * scs.n_rows_padded)
+    (scs,), (dev,) = op.scs.values(), op.devs.values()
+    # the kernel reads each group of GROUP_ROWS rows up to its longest row:
+    # the table and the slots read from the JAX operator's row counts
+    table, read = group_table(jop.scs["sp"])
+    assert np.array_equal(dev.group_lengths.numpy(), table)
+    assert op.device_beta() == {"sp": scs.nnz / read}
+    xy = 4 * 2 * scs.n_rows_padded
+    if not table.size:
+        # the chunk form: values + int32 columns of every slot and
+        # chunk_ptrs/lengths are streamed
+        assert read == scs.n_elements
+        assert op.bytes_per_spmv() == 4 * (2 * scs.n_elements
+                                           + 2 * scs.n_chunks + 1) + xy
+    else:
+        # values + int32 columns of the slots read, chunk_ptrs, a uint8
+        # length per group of GROUP_ROWS rows, x + y, all f32/int32
+        assert read < scs.n_elements and table.dtype == np.uint8
+        assert table.size == scs.n_rows_padded // GROUP_ROWS
+        assert op.bytes_per_spmv() == 4 * (2 * read + scs.n_chunks + 1) + (
+            table.size) + xy
     assert op.impl_name() == "torch-plain-scs-sp"
 
 

@@ -20,6 +20,7 @@ from uspmv_tpu.runtime.operator import SpmvOperator as JOperator
 from uspmv_tpu_torch.config import Config, host_values
 from uspmv_tpu_torch.formats import coo as tcoo
 from uspmv_tpu_torch.io import generators as tgen
+from uspmv_tpu_torch.ops.device_format import GROUP_ROWS, group_table
 from uspmv_tpu_torch.precision import partition as tpart
 from uspmv_tpu_torch.runtime.operator import SpmvOperator
 
@@ -156,9 +157,22 @@ def test_operator_scs_bit_equal(name):
                                     "hp": torch.bfloat16}[p]
         assert np.array_equal(dev.values.float().numpy(),
                               ts.values.astype(np.float32))
-        # 2 B per hp value, 4 per sp, 8 per dp; int32 columns and metadata
-        assert dev.stream_bytes() == ts.n_elements * (
-            dev.values.element_size() + 4) + 4 * (2 * ts.n_chunks + 1)
+        # 2 B per hp value, 4 per sp, 8 per dp, and an int32 column, for
+        # each slot below its group's length (the table and the slots read
+        # from the JAX row counts); chunk_ptrs and a uint8 length per group
+        table, read = group_table(js)
+        assert np.array_equal(dev.group_lengths.numpy(), table)
+        size = dev.values.element_size() + 4
+        if not table.size:
+            # the chunk form: every slot, and chunk_ptrs/lengths
+            assert read == ts.n_elements
+            assert dev.stream_bytes() == ts.n_elements * size + 4 * (
+                2 * ts.n_chunks + 1)
+            continue
+        assert table.dtype == np.uint8
+        assert table.size == ts.n_rows_padded // GROUP_ROWS
+        assert dev.stream_bytes() == read * size + 4 * (ts.n_chunks + 1) + (
+            table.size)
 
 
 @pytest.mark.parametrize("C,sigma", [(32, 64), (1024, 1), (4, 16)])

@@ -135,7 +135,8 @@ def test_unit_accumulate_form_adds_into_y():
 
 def test_unit_stream_layout():
     """Padding slots get column -1, the values go, 4 B per element are
-    streamed, and x_len ignores the padding."""
+    streamed (the unit loop walks each chunk to its length, every slot),
+    and x_len ignores the padding."""
     jscs = jax_scs(UNIT_MATRICES["random_banded(2500,60,11)"](), 128, 32)
     dev = port_dev(jscs, unit_values=True)
     full = port_dev(jscs)
@@ -144,7 +145,9 @@ def test_unit_stream_layout():
     cols = dev.col_idxs.numpy()
     assert np.all(cols[pad] == -1)
     assert np.array_equal(cols[~pad], jscs.col_idxs[~pad])
-    assert dev.stream_bytes() == full.stream_bytes() - 4 * jscs.n_elements
+    assert dev.stream_bytes() == dev.chunk_stream_bytes() == (
+        full.chunk_stream_bytes() - 4 * jscs.n_elements)
+    assert dev.n_read == jscs.n_elements
     assert dev.x_len == int(jscs.col_idxs[~pad].max()) + 1
     assert torch.equal(dev.row_idxs, full.row_idxs)
 

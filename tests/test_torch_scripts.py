@@ -144,11 +144,16 @@ def test_tile_cost_rows(tmp_path):
     assert list(by) == [*tile_cost.scs_probe.VARIANTS, "spmv", "unit", "ones"]
     assert by["full"]["bit_equal_to_spmv"]
     assert by["unit"]["rel_err_vs_ones"] < tile_cost.TOL
-    # the unit stream moves 4 B per stored element less than explicit ones
-    assert by["ones"]["bound_bytes"] - by["unit"]["bound_bytes"] == \
+    # the unit stream moves 4 B per stored element less than the same
+    # walk of every slot with values (x_row: x and y once, as the unit's);
+    # explicit ones read what spmv reads, the slots below each group's
+    # length, and full is spmv's own kernel
+    assert by["x_row"]["bound_bytes"] - by["unit"]["bound_bytes"] == \
         4 * by["unit"]["n_elements"]
+    assert by["ones"]["bound_bytes"] == by["spmv"]["bound_bytes"] == \
+        by["full"]["bound_bytes"] < by["x_row"]["bound_bytes"]
     assert by["bare"]["bound_bytes"] < by["no_x"]["bound_bytes"] < \
-        by["full"]["bound_bytes"]
+        by["x_row"]["bound_bytes"]
     assert all(r["matrix"] == "Laplace3D,8" for r in rows)
 
 
@@ -233,9 +238,18 @@ def test_kernel_ab_arguments_and_turns(tmp_path):
     assert kernel_ab.pieces_abi(tmp_path) == "two_pass"
     assert len(kernel_ab._PIECES_ARGTYPES_TWO_PASS) + 4 \
         == len(kernel_ab.scs_pieces._ARGTYPES)
+    # the SELL row loop: group lengths here, none (and no group-length
+    # arguments) for a tree before them
+    assert kernel_ab.has_group_lengths(REPO / "uspmv_tpu_torch" / "csrc")
+    (tmp_path / "scs_row.cuh").write_text("constexpr int kBatchX = 4;")
+    assert not kernel_ab.has_group_lengths(tmp_path)
+    assert len(kernel_ab._SCS_ARGTYPES_CHUNKS) + 2 \
+        == len(kernel_ab.scs_spmv._ARGTYPES)
+    assert len(kernel_ab._SOLVE_ARGTYPES_CHUNKS) + 2 \
+        == len(kernel_ab.scs_solve._ARGTYPES)
     args = kernel_ab.build_parser().parse_args(["--lib", "a=b"])
     assert args.out is None
-    assert args.cases == "sell,packed,solve,pieces,gather,halo"
+    assert args.cases == "sell,padded,packed,solve,pieces,gather,halo"
     assert "halo" in kernel_ab.CASES
     assert _common.default_out("kernel_ab").parent \
         == REPO / "build" / "uspmv_tpu_torch"

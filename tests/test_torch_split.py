@@ -35,7 +35,11 @@ from uspmv_tpu_torch import cli
 from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.coo import MtxData, split_heavy_rows
 from uspmv_tpu_torch.io import generators as tgen
-from uspmv_tpu_torch.ops.device_format import DevicePacked, build_device_pieces
+from uspmv_tpu_torch.ops.device_format import (
+    DevicePacked,
+    build_device_pieces,
+    group_table,
+)
 from uspmv_tpu_torch.ops.scs_pieces import spmv_pieces
 from uspmv_tpu_torch.runtime.bench import bench_spmv
 from uspmv_tpu_torch.runtime.operator import SpmvOperator, split_threshold
@@ -399,7 +403,13 @@ def test_balanced_matrices_keep_the_scs_tier_and_arrays(spec, C, sigma):
     assert not op.pieces and op.n_pieces() == 0
     if op.beta()["sp"] >= 0.5:
         assert op.impl_name() == "torch-plain-scs-sp"
-        assert op.device_beta() == op.beta()
+        # the kernel reads the slots below each group's length, counted
+        # from the JAX package's SCS of the same matrix
+        js = j_convert(jgen.generate_matrix(spec), C, sigma, native=False)
+        assert np.array_equal(js.row_counts_new,
+                              op.scs["sp"].row_counts_new)
+        _, read = group_table(js)
+        assert op.device_beta() == off.device_beta() == {"sp": js.nnz / read}
         assert op.bytes_per_spmv() == off.bytes_per_spmv()
     for f in ("chunk_ptrs", "chunk_lengths", "col_idxs", "values",
               "old_to_new_idx"):
@@ -430,7 +440,16 @@ def test_metrics_and_report_carry_the_pieces(matrix):
     assert op.impl_name() == "torch-plain-scs+pieces-sp"
     assert op.nnz_per_precision() == {"sp": tm.nnz}
     assert scs.nnz + pc.nnz == tm.nnz and op.beta() == {"sp": scs.beta}
-    assert op.device_beta() == {"sp": tm.nnz / (scs.n_elements + pc.nnz)}
+    # the slots the kernel reads, from the JAX package's SCS of the parent
+    # rows the JAX split leaves (rows below n_rows, clamped)
+    jm = matrix[0]
+    j_out, _ = j_split(jm, op.split_threshold)
+    cut = int(np.searchsorted(j_out.I, jm.n_rows))
+    parents = JMtxData.from_arrays(j_out.I[:cut], j_out.J[:cut],
+                                   j_out.values[:cut], jm.n_rows, jm.n_cols)
+    _, read = group_table(j_convert(parents, 32, 64, native=False))
+    assert dev.n_read == read < scs.n_elements
+    assert op.device_beta() == {"sp": tm.nnz / (read + pc.nnz)}
     # per vector: the pieces' stream, the parents' runs and rows and the
     # work records once, each long record's slot (an 8 B word per float
     # sum: written, read and cleared), and each long parent's entry and

@@ -42,8 +42,13 @@
 // kBatchX elements, values and columns first (evict-first), then the
 // trip's x (or what replaces it), then the FMAs in order of j, under the
 // same launch bounds, so that `full` minus a variant is the cost of one
-// part of the production kernel. They live in a source of their own so that
-// the production kernel's code and ptxas report stay as they are. One
+// part of the production kernel. The variants walk each chunk to its
+// longest row (chunk_lengths), the row loop as it stood when they were
+// written; the production loop stops each group of kGroupRows rows at its
+// own longest row where the stream takes group lengths. The headline
+// takes none (its groups skip 0.45% of its slots), so there both read the
+// same slots. They live in a source of their own so that the production
+// kernel's code and ptxas report stay as they are. One
 // thread per padded row, 256 threads a block, as in scs_spmv.cu.
 //
 // Launch rules: the caller's stream, no allocation, no synchronisation; the
@@ -150,6 +155,7 @@ extern "C" {
 // The production entry point of scs_spmv.cu, which the full variant calls.
 int uspmv_scs_spmv_f32_f32(int64_t n_rows_padded, int C,
                            const void* chunk_ptrs, const void* chunk_lengths,
+                           const void* group_lengths, int group_length_bytes,
                            const void* col_idxs, const void* values,
                            const void* x, int64_t x_ld, int64_t x_vstride,
                            void* y, int64_t y_ld, int64_t y_vstride,
@@ -159,16 +165,19 @@ int uspmv_scs_spmv_f32_f32(int64_t n_rows_padded, int C,
 // One variant (0 full, 1 x_window, 2 no_store, 3 no_x, 4 bare, 5 x_row) on
 // one f32 SELL-C-sigma stream and one f32 vector. x_mask = W - 1 for
 // x_window; no_store and bare write y[r] and add one to *stored only where
-// the row's sum exceeds store_above.
+// the row's sum exceeds store_above. group_lengths and group_length_bytes
+// are read by full alone (the production kernel's arguments).
 int uspmv_scs_probe(int variant, int64_t n_rows_padded, int C,
                     const void* chunk_ptrs, const void* chunk_lengths,
+                    const void* group_lengths, int group_length_bytes,
                     const void* col_idxs, const void* values, const void* x,
                     int x_mask, float store_above, void* y, void* stored,
                     void* stream) {
   if (variant == kFullSum) {
     return uspmv_scs_spmv_f32_f32(n_rows_padded, C, chunk_ptrs,
-                                  chunk_lengths, col_idxs, values, x, 1, 0,
-                                  y, 1, 0, 1, 1, 0, stream);
+                                  chunk_lengths, group_lengths,
+                                  group_length_bytes, col_idxs, values, x, 1,
+                                  0, y, 1, 0, 1, 1, 0, stream);
   }
   if (n_rows_padded <= 0) {
     return static_cast<int>(cudaSuccess);
@@ -180,7 +189,8 @@ int uspmv_scs_probe(int variant, int64_t n_rows_padded, int C,
   const ScsMatrix m{n_rows_padded, C,
                     static_cast<const int32_t*>(chunk_ptrs),
                     static_cast<const int32_t*>(chunk_lengths),
-                    static_cast<const int32_t*>(col_idxs), values};
+                    static_cast<const int32_t*>(col_idxs), values,
+                    nullptr, 0};
   const float* xf = static_cast<const float*>(x);
   float* yf = static_cast<float*>(y);
   int* count = static_cast<int*>(stored);

@@ -2,6 +2,8 @@
 // launch) and scs_solve.cu (k SpMVs in one launch). Both kernels take a
 // row's sum from `scs_row_product`, so they perform the same operations in
 // the same order and a fused solve equals k separate launches bit for bit.
+// The unit-value loop of scs_spmv.cu and the probes of scs_probe.cu keep
+// their own loops, which walk each chunk to its longest row.
 
 #pragma once
 
@@ -23,16 +25,57 @@ constexpr int kMinBlocksPerSm = 5;
 // kBatchX / BS elements of the row (4 for one vector, 1 for bs >= 4). A
 // trip of 8 needed 64 registers and lost to 4 on every (values, x) pair.
 constexpr int kBatchX = 4;
+// Rows of a group: the row loop of the rows c*C + g*kGroupRows .. (a group
+// ends at its chunk's end) stops at the longest of them, not at the
+// chunk's longest row. 16 rows are one 32-byte sector of bf16 values, two
+// of f32 values or int32 columns. In a paired run on an H100
+// (scripts/kernel_ab.py, PERF.md) 16 took 0.4-0.6% less time than 8, and
+// 32 more, summed over the padded streams of paths E and G and
+// Hubbard-13/6, though 8 read fewer slots (8 was 0.1-0.9% faster on E's
+// f64 stream alone). A power of two; must equal GROUP_ROWS of
+// ops/device_format.py.
+constexpr int kGroupRows = 16;
+static_assert((kGroupRows & (kGroupRows - 1)) == 0,
+              "kGroupRows must be a power of two");
 
 // One precision stream's SCS arrays. They are never written by a kernel.
 struct ScsMatrix {
   int64_t n_rows_padded;
   int C;
   const int32_t* chunk_ptrs;
-  const int32_t* chunk_lengths;
+  const int32_t* chunk_lengths;  // read by the unit-value loop and probes
   const int32_t* col_idxs;
   const void* values;
+  // the longest row of each group of kGroupRows rows (group_length), in
+  // the narrowest of uint8, int16 and int32 that holds the longest chunk,
+  // group_length_bytes = 1, 2 or 4 bytes each. 0: no table, the loop stops
+  // at the chunk's length (kGroupRows does not divide C, or the groups
+  // skip little, ops/device_format.GROUP_SKIP_PER_ROW; the kernels' kGroups
+  // false)
+  const void* group_lengths;
+  int group_length_bytes;
 };
+
+// The longest row of padded row r's group, at r / kGroupRows (a table is
+// passed only where kGroupRows divides C, so a group never crosses a
+// chunk). The index needs neither r's chunk nor its slot in it, so the
+// load leaves at once, beside the division r / C that the chunk pointer
+// waits for. (An index c * ceil(C / kGroupRows) + i / kGroupRows, after
+// that division, cost the headline 5-10% in a paired run on an H100:
+// scripts/kernel_ab.py, PERF.md.) The width is one per launch, so the
+// branch is uniform.
+__device__ __forceinline__ int32_t group_length(const ScsMatrix& m,
+                                                int64_t r) {
+  const uint64_t g = static_cast<uint64_t>(r) / kGroupRows;
+  switch (m.group_length_bytes) {
+    case 1:
+      return __ldg(static_cast<const uint8_t*>(m.group_lengths) + g);
+    case 2:
+      return __ldg(static_cast<const int16_t*>(m.group_lengths) + g);
+    default:
+      return __ldg(static_cast<const int32_t*>(m.group_lengths) + g);
+  }
+}
 
 __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ double widen(double v) { return v; }
@@ -68,10 +111,26 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
   return *p;
 }
 
-// acc[v] = sum_{j < chunk_lengths[c]} Tx(values[e]) * x[col_idxs[e]*x_ld + v],
+// acc[v] = sum_{j < L} Tx(values[e]) * x[col_idxs[e]*x_ld + v],
 // e = chunk_ptrs[c] + j*C + i, for padded row r = c*C + i, summed in order
-// of j as acc = fma(a, x, acc) from acc = 0. BS accumulators per thread;
-// kFull: ncols == BS (no column guard).
+// of j as acc = fma(a, x, acc) from acc = 0, L the length of r's group
+// (group_length) where kGroups, else of r's chunk. BS accumulators per
+// thread; kFull: ncols == BS (no column guard). kGroups is a template
+// argument, not a branch on group_length_bytes, so that a stream without
+// group lengths runs the code it ran before them: with both forms in one
+// kernel, at the 48-register cap, the chunk form cost the headline 2-3%
+// in a paired run on an H100 (scripts/kernel_ab.py, PERF.md).
+//
+// Why the group's length: a row's slots past its own count are padding
+// (value 0, column 0 as the operator's column permutation renumbers it:
+// "x[0]" below), and a chunk's rows are padded to its longest. The
+// slots of rows r..r+G-1 at one j are contiguous, so a loop that stops
+// each group at its longest row never asks for a sector that holds only
+// padding. The sum is that of the loop to the chunk's length with the
+// terms fma(0, x[0], acc) left out, which leave acc as it is for finite
+// x[0] (acc starts at +0 and never becomes -0): y is bit-equal to that
+// loop's. For a non-finite x[0] the rows of a group whose padding is no
+// longer read stay finite where 0 * x[0] made them NaN.
 //
 // What bounds it: a row's loads depend on each other (column, then x), and
 // a thread that walks them one element at a time waits a device-memory
@@ -83,16 +142,18 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 // result, is that of the element-by-element loop. With these loads in
 // flight the one-vector kernels run near the device-memory rate (the
 // numbers are in scs_spmv.cu and PERF.md).
-template <typename Tv, typename Tx, int BS, bool kFull, bool kReadOnlyX>
+template <typename Tv, typename Tx, int BS, bool kFull, bool kReadOnlyX,
+          bool kGroups>
 __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
                                                 const Tx* x, int64_t x_ld,
                                                 int64_t r, int ncols,
                                                 Tx (&acc)[BS]) {
   constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
+  const int32_t group_len = kGroups ? group_length(m, r) : 0;
   const int64_t c = r / C;
   const int64_t i = r - c * C;
-  const int32_t len = __ldg(m.chunk_lengths + c);
+  const int32_t len = kGroups ? group_len : __ldg(m.chunk_lengths + c);
   const int64_t base = static_cast<int64_t>(__ldg(m.chunk_ptrs + c)) + i;
   const Tv* vp = static_cast<const Tv*>(m.values) + base;
   const int32_t* cp = m.col_idxs + base;

@@ -70,7 +70,9 @@ struct SolveArgs {
   int k;           // iterations, >= 1
 };
 
-template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit>
+// kGroups: rows stop at their group's length (scs_row.cuh)
+template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit,
+          bool kGroups>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_solve_kernel(const SolveArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -86,8 +88,8 @@ scs_solve_kernel(const SolveArgs a) {
                             : ((it & 1) ? buf0 : buf1);
     for (int64_t r = first; r < a.m.n_rows_padded; r += stride) {
       Tx acc[BS];
-      uspmv::scs_row_product<Tv, Tx, BS, kFull, false>(a.m, src, ld, r,
-                                                       a.ncols, acc);
+      uspmv::scs_row_product<Tv, Tx, BS, kFull, false, kGroups>(
+          a.m, src, ld, r, a.ncols, acc);
       Tx* yr = dst + r * ld;
 #pragma unroll
       for (int v = 0; v < BS; ++v) {
@@ -105,8 +107,12 @@ scs_solve_kernel(const SolveArgs a) {
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit = false>
 cudaError_t launch_variant(SolveArgs a, int64_t blocks_needed,
                            cudaStream_t stream) {
-  const void* kernel = reinterpret_cast<const void*>(
-      &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit>);
+  const void* kernel =
+      a.m.group_length_bytes != 0
+          ? reinterpret_cast<const void*>(
+                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, true>)
+          : reinterpret_cast<const void*>(
+                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, false>);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) {
@@ -145,17 +151,21 @@ cudaError_t launch_variant(SolveArgs a, int64_t blocks_needed,
 
 template <typename Tv, typename Tx>
 int launch_scs_solve(int64_t n_rows_padded, int C, const void* chunk_ptrs,
-                     const void* chunk_lengths, const void* col_idxs,
+                     const void* chunk_lengths, const void* group_lengths,
+                     int group_length_bytes, const void* col_idxs,
                      const void* values, const void* x0, void* buf0,
                      void* buf1, int64_t ld, int ncols, int k, void* stream) {
   if (n_rows_padded <= 0 || C < 1 || ncols < 1 || ncols > kMaxCols ||
-      k < 1 || ld < ncols) {
+      k < 1 || ld < ncols || group_length_bytes < 0 ||
+      group_length_bytes == 3 || group_length_bytes > 4 ||
+      (group_length_bytes != 0 && group_lengths == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SolveArgs a{{n_rows_padded, C,
                      static_cast<const int32_t*>(chunk_ptrs),
                      static_cast<const int32_t*>(chunk_lengths),
-                     static_cast<const int32_t*>(col_idxs), values},
+                     static_cast<const int32_t*>(col_idxs), values,
+                     group_lengths, group_length_bytes},
                     x0, buf0, buf1, ld, ncols, k};
   const int64_t blocks = (n_rows_padded + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -195,39 +205,47 @@ int launch_scs_solve(int64_t n_rows_padded, int C, const void* chunk_ptrs,
 
 extern "C" {
 
-// Every entry point: k iterations for one precision stream. x0, buf0 and
+// Every entry point: k iterations for one precision stream, the arguments
+// of the matrix as scs_spmv.cu's entries take them. x0, buf0 and
 // buf1 are three distinct vectors of n_rows_padded rows, ld elements apart
 // (bs for rowwise block vectors, else 1), ncols <= 8 columns wide.
 
 int uspmv_scs_solve_f64_f64(int64_t n_rows_padded, int C,
                             const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* group_lengths, int group_length_bytes,
                             const void* col_idxs, const void* values,
                             const void* x0, void* buf0, void* buf1,
                             int64_t ld, int ncols, int k, void* stream) {
   return launch_scs_solve<double, double>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x0, buf0,
-      buf1, ld, ncols, k, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x0, buf0, buf1, ld, ncols, k,
+      stream);
 }
 
 int uspmv_scs_solve_f32_f32(int64_t n_rows_padded, int C,
                             const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* group_lengths, int group_length_bytes,
                             const void* col_idxs, const void* values,
                             const void* x0, void* buf0, void* buf1,
                             int64_t ld, int ncols, int k, void* stream) {
   return launch_scs_solve<float, float>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x0, buf0,
-      buf1, ld, ncols, k, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x0, buf0, buf1, ld, ncols, k,
+      stream);
 }
 
 int uspmv_scs_solve_bf16_f32(int64_t n_rows_padded, int C,
                              const void* chunk_ptrs,
-                             const void* chunk_lengths, const void* col_idxs,
+                             const void* chunk_lengths,
+                             const void* group_lengths,
+                             int group_length_bytes, const void* col_idxs,
                              const void* values, const void* x0, void* buf0,
                              void* buf1, int64_t ld, int ncols, int k,
                              void* stream) {
   return launch_scs_solve<__nv_bfloat16, float>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x0, buf0,
-      buf1, ld, ncols, k, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x0, buf0, buf1, ld, ncols, k,
+      stream);
 }
 
 }  // extern "C"

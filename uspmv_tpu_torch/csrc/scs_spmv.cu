@@ -16,15 +16,19 @@
 //
 // What it computes, for permuted row r = c*C + i (0 <= r < n_rows_padded)
 // and right-hand side v < ncols:
-//   acc[v] = sum_{j < chunk_lengths[c]} Tx(values[e]) * x[col_idxs[e]][v],
-//            e = chunk_ptrs[c] + j*C + i,
+//   acc[v] = sum_{j < L} Tx(values[e]) * x[col_idxs[e]][v],
+//            e = chunk_ptrs[c] + j*C + i, L = the longest row of r's group
+//            of kGroupRows rows (group_lengths, scs_row.cuh), or of r's
+//            chunk (chunk_lengths[c]) where no group lengths are passed,
 //   y[r][v] = acc[v]             (accumulate == 0)
 //   y[r][v] = y[r][v] + acc[v]   (accumulate != 0: the adaptive-precision
 //                                 sum y = y_p0 + y_p1 + ..., in the order of
 //                                 the JAX operator's closure)
 // summed in order of j in the accumulator type Tx. Each step is one FMA,
 // acc = fma(a, x, acc), so results differ from the plain PyTorch version
-// (ops/scs_spmv.py) in the last bits only.
+// (ops/scs_spmv.py) in the last bits only. Padding slots below L add
+// 0 * x[0], as the plain version's do; those past L are not read, so a
+// non-finite x[0] leaves more rows finite than in the plain version.
 //
 // The unit-value form (uspmv_scs_spmv_unit_f32) answers the `unit=True`
 // variant of `_kernel` / `_kernel_windowed` (pallas_scs.py:858-868 and
@@ -38,7 +42,9 @@
 // stored element where sp streams 8, so its time against sp's says whether
 // the kernel is bound by bytes or by loads in flight. It has its own row loop
 // (scs_ones_row_sum), batched as scs_row.cuh's is, since the solve kernel,
-// which shares scs_row.cuh, has no unit form.
+// which shares scs_row.cuh, has no unit form. That loop walks each chunk to
+// its longest row (chunk_lengths) as before: the group lengths of
+// scs_row.cuh are not applied to it.
 //
 // Instantiated (value type Tv, vector/accumulator type Tx) pairs:
 //   (double, double)        dp, -dp_emu, the dp stream of ap[dp_*]
@@ -77,8 +83,12 @@
 // the first design. The row loop (scs_row.cuh) therefore takes a row in
 // trips of kBatchX / BS elements, all values and columns of a trip first,
 // then all their x, then the FMAs in order of j; a row of Laplace3D's 7
-// elements is two trips. The matrix stream is read evict-first
-// (ld.global.cs) so that x stays in the 50 MB L2 while a 117 MB stream
+// elements is two trips. On a padded stream each group of kGroupRows rows
+// stops at its own longest row, so the sectors that hold only padding are
+// not fetched (one byte or two of group length per 16 rows); a stream whose
+// groups skip little (the headline) passes no lengths and stops at each
+// chunk's, as the group lengths' load costs short rows more than it saves.
+// The matrix stream is read evict-first (ld.global.cs) so that x stays in the 50 MB L2 while a 117 MB stream
 // passes through it, and __launch_bounds__ keeps kMinBlocksPerSm blocks
 // resident. The unit-value form batches its column loads the same way.
 // What bounds it now is the bytes: on an NVIDIA H100 80GB HBM3 at 700 W
@@ -123,8 +133,11 @@ struct ScsArgs {
 };
 
 // BS accumulators per thread; kFull: ncols == BS (no column guard);
-// kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV.
-template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit>
+// kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV;
+// kGroups: each row stops at its group's length (group_length_bytes != 0),
+// else at its chunk's.
+template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit,
+          bool kGroups>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_spmv_kernel(const ScsArgs a) {
   const int64_t r =
@@ -139,8 +152,8 @@ scs_spmv_kernel(const ScsArgs a) {
   const int64_t x_ld = kUnit ? 1 : a.x_ld;
   const int64_t y_ld = kUnit ? 1 : a.y_ld;
   Tx acc[BS];
-  uspmv::scs_row_product<Tv, Tx, BS, kFull, true>(a.m, x, x_ld, r, a.ncols,
-                                                  acc);
+  uspmv::scs_row_product<Tv, Tx, BS, kFull, true, kGroups>(a.m, x, x_ld, r,
+                                                           a.ncols, acc);
   Tx* yr = y + r * y_ld;
 #pragma unroll
   for (int v = 0; v < BS; ++v) {
@@ -237,15 +250,19 @@ template <typename Tv, typename Tx, bool kOnes, int BS, bool kFull,
 void launch_variant(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
   if constexpr (kOnes) {
     scs_ones_kernel<BS, kFull, kUnit><<<grid, kThreads, 0, stream>>>(a);
+  } else if (a.m.group_length_bytes != 0) {
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, true>
+        <<<grid, kThreads, 0, stream>>>(a);
   } else {
-    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit>
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, false>
         <<<grid, kThreads, 0, stream>>>(a);
   }
 }
 
 template <typename Tv, typename Tx, bool kOnes = false>
 int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
-                    const void* chunk_lengths, const void* col_idxs,
+                    const void* chunk_lengths, const void* group_lengths,
+                    int group_length_bytes, const void* col_idxs,
                     const void* values, const void* x, int64_t x_ld,
                     int64_t x_vstride, void* y, int64_t y_ld,
                     int64_t y_vstride, int ncols, int n_vec, int accumulate,
@@ -256,6 +273,11 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   if (C < 1 || ncols > kMaxCols || n_vec > kMaxGridY) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!kOnes && (group_length_bytes < 0 || group_length_bytes == 3 ||
+                 group_length_bytes > 4 ||
+                 (group_length_bytes != 0 && group_lengths == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int64_t blocks = (n_rows_padded + kThreads - 1) / kThreads;
   if (blocks > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -263,7 +285,8 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   const ScsArgs a{{n_rows_padded, C,
                    static_cast<const int32_t*>(chunk_ptrs),
                    static_cast<const int32_t*>(chunk_lengths),
-                   static_cast<const int32_t*>(col_idxs), values},
+                   static_cast<const int32_t*>(col_idxs), values,
+                   group_lengths, group_length_bytes},
                   x,
                   x_ld,
                   x_vstride,
@@ -303,16 +326,21 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
 }
 
 // Blocks of kThreads of the one-vector instantiation (BS 1, unit strides)
-// that stay resident on an SM, for a report of the launch.
+// that stay resident on an SM, for a report of the launch: the form with
+// group lengths where groups != 0, else the chunk form (launch_variant's
+// choice; the unit-value kernel has one form).
 template <typename Tv, typename Tx, bool kOnes = false>
-int blocks_per_sm(int* per_sm) {
+int blocks_per_sm(int* per_sm, int groups) {
   cudaError_t err;
   if constexpr (kOnes) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         per_sm, scs_ones_kernel<1, true, true>, kThreads, 0);
+  } else if (groups != 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true, true>, kThreads, 0);
   } else {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true>, kThreads, 0);
+        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true, false>, kThreads, 0);
   }
   if (err != cudaSuccess) {
     cudaGetLastError();
@@ -323,14 +351,15 @@ int blocks_per_sm(int* per_sm) {
 }  // namespace
 
 #define USPMV_BLOCKS_PER_SM(name, ...) \
-  int name##_blocks_per_sm(int* per_sm) { \
-    return blocks_per_sm<__VA_ARGS__>(per_sm); \
+  int name##_blocks_per_sm(int* per_sm, int groups) { \
+    return blocks_per_sm<__VA_ARGS__>(per_sm, groups); \
   }
 
 extern "C" {
 
 // <entry>_blocks_per_sm: resident blocks per SM of the entry's one-vector
-// kernel; the grid is ceil(n_rows_padded / 256) blocks by n_vec.
+// kernel, with group lengths where groups != 0; the grid is
+// ceil(n_rows_padded / 256) blocks by n_vec.
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f64_f64, double, double)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f32_f32, float, float)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_bf16_f32, __nv_bfloat16, float)
@@ -338,83 +367,99 @@ USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f32_f64, float, double)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_bf16_f64, __nv_bfloat16, double)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_unit_f32, float, float, true)
 
-// Every entry point: y (+)= A x for one precision stream. x_ld / y_ld are
+// Every entry point: y (+)= A x for one precision stream. group_lengths
+// holds the longest row of each group of kGroupRows rows in
+// group_length_bytes (1, 2 or 4) bytes each, or is not read
+// (group_length_bytes 0: each chunk's length bounds the loop). x_ld / y_ld are
 // the element strides between rows (bs for rowwise block vectors, else 1),
 // x_vstride / y_vstride the strides between the n_vec vectors of a colwise
 // block (gridDim.y), ncols <= 8 the rowwise columns of this pass.
 
 int uspmv_scs_spmv_f64_f64(int64_t n_rows_padded, int C,
                            const void* chunk_ptrs, const void* chunk_lengths,
+                           const void* group_lengths, int group_length_bytes,
                            const void* col_idxs, const void* values,
                            const void* x, int64_t x_ld, int64_t x_vstride,
                            void* y, int64_t y_ld, int64_t y_vstride,
                            int ncols, int n_vec, int accumulate,
                            void* stream) {
   return launch_scs_spmv<double, double>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 int uspmv_scs_spmv_f32_f32(int64_t n_rows_padded, int C,
                            const void* chunk_ptrs, const void* chunk_lengths,
+                           const void* group_lengths, int group_length_bytes,
                            const void* col_idxs, const void* values,
                            const void* x, int64_t x_ld, int64_t x_vstride,
                            void* y, int64_t y_ld, int64_t y_vstride,
                            int ncols, int n_vec, int accumulate,
                            void* stream) {
   return launch_scs_spmv<float, float>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 int uspmv_scs_spmv_bf16_f32(int64_t n_rows_padded, int C,
                             const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* group_lengths, int group_length_bytes,
                             const void* col_idxs, const void* values,
                             const void* x, int64_t x_ld, int64_t x_vstride,
                             void* y, int64_t y_ld, int64_t y_vstride,
                             int ncols, int n_vec, int accumulate,
                             void* stream) {
   return launch_scs_spmv<__nv_bfloat16, float>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 int uspmv_scs_spmv_f32_f64(int64_t n_rows_padded, int C,
                            const void* chunk_ptrs, const void* chunk_lengths,
+                           const void* group_lengths, int group_length_bytes,
                            const void* col_idxs, const void* values,
                            const void* x, int64_t x_ld, int64_t x_vstride,
                            void* y, int64_t y_ld, int64_t y_vstride,
                            int ncols, int n_vec, int accumulate,
                            void* stream) {
   return launch_scs_spmv<float, double>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 int uspmv_scs_spmv_bf16_f64(int64_t n_rows_padded, int C,
                             const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* group_lengths, int group_length_bytes,
                             const void* col_idxs, const void* values,
                             const void* x, int64_t x_ld, int64_t x_vstride,
                             void* y, int64_t y_ld, int64_t y_vstride,
                             int ncols, int n_vec, int accumulate,
                             void* stream) {
   return launch_scs_spmv<__nv_bfloat16, double>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 // y (+)= A x for an all-ones matrix built with unit_values: the arguments
-// of the entries above, float x and y; values is not read (may be null).
+// of the entries above, float x and y; values, group_lengths and
+// group_length_bytes are not read (may be null and 0).
 int uspmv_scs_spmv_unit_f32(int64_t n_rows_padded, int C,
                             const void* chunk_ptrs, const void* chunk_lengths,
+                            const void* group_lengths, int group_length_bytes,
                             const void* col_idxs, const void* values,
                             const void* x, int64_t x_ld, int64_t x_vstride,
                             void* y, int64_t y_ld, int64_t y_vstride,
                             int ncols, int n_vec, int accumulate,
                             void* stream) {
   return launch_scs_spmv<float, float, true>(
-      n_rows_padded, C, chunk_ptrs, chunk_lengths, col_idxs, values, x, x_ld,
-      x_vstride, y, y_ld, y_vstride, ncols, n_vec, accumulate, stream);
+      n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths,
+      group_length_bytes, col_idxs, values, x, x_ld, x_vstride, y, y_ld,
+      y_vstride, ncols, n_vec, accumulate, stream);
 }
 
 const char* uspmv_cuda_error_string(int code) {

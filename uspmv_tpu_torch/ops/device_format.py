@@ -4,8 +4,10 @@ Port of ``uspmv_tpu/ops/device_format.py``. The JAX package re-tiles the
 host ``ScsData`` into static-shape bricks for XLA and lane tiles for the
 TPU; on a GPU the hand-written kernel (csrc/scs_spmv.cu) reads the SCS
 arrays as they are, so ``DeviceScs`` is the host layout moved onto a
-``torch.device``, plus the permuted row of each flat element, which only
-the plain PyTorch version (ops/scs_spmv.spmv_scs_plain) reads.
+``torch.device``, plus the longest row of each group of GROUP_ROWS rows,
+where the kernel's row loop stops (``group_lengths``), and the permuted row
+of each flat element, which only the plain PyTorch version
+(ops/scs_spmv.spmv_scs_plain) reads.
 
 Two more streams serve matrices whose rows are badly imbalanced:
 ``DevicePacked`` is the same ``ScsData`` with its padding dropped, cut into
@@ -26,6 +28,26 @@ import torch
 
 from ..formats.scs import ScsData
 
+# Rows of a group (csrc/scs_row.cuh kGroupRows): the SELL row loop stops the
+# rows of a group at the longest of them, found at r / GROUP_ROWS. The
+# groups tile the chunks only where GROUP_ROWS divides C; for any other C
+# the kernel stops at each chunk's length (below 16 a chunk is no longer
+# than a group, so nothing would be skipped).
+GROUP_ROWS = 16
+# The group lengths are passed only where the slots they skip come to at
+# least this many per padded row; elsewhere the kernel reads each chunk's
+# length, as it did before them. Their load is one L2 access per row where
+# the chunk's length is an L1 hit, so it weighs on short rows: in a paired
+# run on an H100 (scripts/kernel_ab.py --cases padded, PERF.md) reading by
+# group lengths lost 4.4% on the headline (Laplace3D-128, 0.016 slots
+# skipped per row) and 0.8% on StokesSaddle-64 (0.12), and won 1.4% on
+# FemTet3D-55 at sigma=65536 (0.49) and 1.2-3.3% at 0.89-3.2.
+GROUP_SKIP_PER_ROW = 1 / 4
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
 
 @dataclasses.dataclass
 class DeviceScs:
@@ -33,6 +55,12 @@ class DeviceScs:
 
     chunk_ptrs: torch.Tensor  # int32 [n_chunks + 1]
     chunk_lengths: torch.Tensor  # int32 [n_chunks]
+    # the longest row of each group (``group_table``), in the narrowest of
+    # uint8, int16 and int32 that holds the longest chunk; empty where
+    # GROUP_ROWS does not divide C, where the groups skip too little
+    # (GROUP_SKIP_PER_ROW) or for a unit stream: the kernel then stops at
+    # each chunk's length
+    group_lengths: torch.Tensor
     col_idxs: torch.Tensor  # int32 [n_elements]
     # [n_elements]: float64, float32 or bfloat16; empty float32 for a unit
     # stream
@@ -45,6 +73,9 @@ class DeviceScs:
     n_chunks: int
     n_elements: int
     nnz: int
+    # slots the SpMV kernel reads: each group's rows up to its length, or
+    # every stored slot where it stops at each chunk's length
+    n_read: int
     # smallest x length the column indices allow (largest column + 1)
     x_len: int
     # an all-ones matrix without a value stream: col_idxs is -1 at padding
@@ -55,21 +86,77 @@ class DeviceScs:
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def group_length_bytes(self) -> int:
+        """The kernel's group_length_bytes: 1, 2 or 4, or 0 where it stops
+        at each chunk's length."""
+        lengths = self.group_lengths
+        return lengths.element_size() if lengths.numel() else 0
+
     def stream_bytes(self) -> int:
-        """Matrix bytes the kernel streams per SpMV: values (8, 4 or 2 B;
-        none for a unit stream) + col_idxs + chunk metadata (x and y are
-        counted by the caller)."""
-        return sum(
-            t.numel() * t.element_size()
-            for t in (self.values, self.col_idxs, self.chunk_ptrs,
-                      self.chunk_lengths)
-        )
+        """Matrix bytes the SpMV kernel streams per pass: the value (8, 4
+        or 2 B) and int32 column of each slot it reads, chunk_ptrs and the
+        group lengths (x and y are counted by the caller). Where it stops
+        at each chunk's length (a unit stream's loop, or groups that skip
+        too little): ``chunk_stream_bytes``."""
+        if not self.group_length_bytes:
+            return self.chunk_stream_bytes()
+        return (self.n_read * (self.values.element_size() + 4)
+                + _nbytes(self.chunk_ptrs) + _nbytes(self.group_lengths))
+
+    def chunk_stream_bytes(self) -> int:
+        """Matrix bytes of a loop that walks each chunk to its longest row
+        (the unit-value loop and the probes of csrc/scs_probe.cu): every
+        stored slot's value (none for a unit stream) and column, and the
+        chunk metadata."""
+        return sum(_nbytes(t) for t in (self.values, self.col_idxs,
+                                        self.chunk_ptrs, self.chunk_lengths))
 
     @property
     def device_beta(self) -> float:
-        """nnz / elements the kernel streams — the format's own beta, since
-        the kernel reads the SCS layout without re-tiling."""
-        return self.nnz / self.n_elements if self.n_elements else 1.0
+        """nnz / slots the kernel reads: above the format's beta wherever
+        a group is shorter than its chunk."""
+        return self.nnz / self.n_read if self.n_read else 1.0
+
+
+def row_group_lengths(row_counts: np.ndarray, C: int) -> np.ndarray:
+    """int64 [n_rows_padded]: the longest row of each permuted row's group
+    of GROUP_ROWS consecutive rows. GROUP_ROWS must divide C, so that a
+    group lies within one chunk."""
+    if C % GROUP_ROWS:
+        raise ValueError(f"groups of {GROUP_ROWS} rows need C a multiple "
+                         f"of {GROUP_ROWS}, not {C}")
+    counts = np.asarray(row_counts, dtype=np.int64).reshape(-1, GROUP_ROWS)
+    return np.repeat(counts.max(axis=1), GROUP_ROWS)
+
+
+def group_table(scs: ScsData, skip_per_row: float = GROUP_SKIP_PER_ROW):
+    """(the kernel's table of group lengths, the slots the kernel reads)
+    for ``scs``: one entry per group, at r / GROUP_ROWS, in
+    ``length_dtype`` of the longest chunk; an empty table, and every
+    stored slot read, where GROUP_ROWS does not divide C or the groups
+    skip fewer than ``skip_per_row`` slots per padded row
+    (scripts/kernel_ab.py passes 0 to time the groups under
+    GROUP_SKIP_PER_ROW)."""
+    if scs.row_counts_new is None:
+        raise ValueError("the group lengths need ScsData.row_counts_new")
+    every_slot = np.zeros(0, dtype=np.uint8), int(scs.n_elements)
+    if scs.C % GROUP_ROWS:
+        return every_slot
+    per_row = row_group_lengths(scs.row_counts_new, scs.C)
+    n_read = int(per_row.sum())
+    if scs.n_elements - n_read < skip_per_row * scs.n_rows_padded:
+        return every_slot
+    dtype = length_dtype(int(scs.chunk_lengths.max(initial=0)))
+    return per_row[::GROUP_ROWS].astype(dtype), n_read
+
+
+def length_dtype(longest: int) -> np.dtype:
+    """The narrowest of uint8, int16 and int32 that holds ``longest``."""
+    for dt in (np.uint8, np.int16):
+        if longest <= np.iinfo(dt).max:
+            return np.dtype(dt)
+    return np.dtype(np.int32)
 
 
 _VALUE_DTYPES = (torch.float64, torch.float32, torch.bfloat16)
@@ -106,7 +193,11 @@ def build_device_scs(
     valid slots (the counterpart of ``build_device_lane_tiles(
     unit_values=True)``, uspmv_tpu/ops/pallas_scs.py:353-371). A slot
     whose value is 0 is padding; its column becomes -1, as the TPU
-    tables mark it with bit 15. Only float32 values are taken, as there."""
+    tables mark it with bit 15. Only float32 values are taken, as there.
+
+    The group lengths come from ``scs.row_counts_new`` (``group_table``;
+    none for a unit stream, whose loop walks each chunk to its length)."""
+    lengths, n_read = group_table(scs)
     col_idxs = scs.col_idxs.astype(np.int32)
     values = _put_values(scs.values, device, dtype)
     if unit_values:
@@ -117,9 +208,11 @@ def build_device_scs(
             raise ValueError("unit_values requires an all-ones matrix")
         col_idxs = np.where(valid, col_idxs, np.int32(-1))
         values = values.new_empty(0)
+        lengths, n_read = lengths[:0], scs.n_elements
     return DeviceScs(
         chunk_ptrs=_put(scs.chunk_ptrs.astype(np.int32), device),
         chunk_lengths=_put(scs.chunk_lengths.astype(np.int32), device),
+        group_lengths=_put(lengths, device),
         col_idxs=_put(col_idxs, device),
         values=values,
         row_idxs=_put(scs.flat_row_idx(), device),
@@ -129,6 +222,7 @@ def build_device_scs(
         n_chunks=scs.n_chunks,
         n_elements=scs.n_elements,
         nnz=scs.nnz,
+        n_read=n_read,
         x_len=int(col_idxs.max()) + 1 if scs.n_elements else 0,
         unit_vals=unit_values,
     )

@@ -15,6 +15,9 @@ returns ``(y, stored)``:
     x_row     y[r] = sum_j val * x[r], the load still behind the column's
               (the kernel reads x[r ^ (col >> 31)]; every column is >= 0)
 
+Every variant but full walks each chunk to its longest row, the row loop
+before it stopped each group of rows at the group's longest (the kernel's
+comment says why they were left so).
 ``store_above`` defaults to -inf, which stores every finite sum, so no_store
 and bare can be held against their plain versions; +inf stores none, the
 form they are timed in. ``y`` is a zero vector unless the caller passes one
@@ -38,8 +41,12 @@ VARIANTS = ("full", "x_window", "no_store", "no_x", "bare", "x_row")
 THRESHOLDED = ("no_store", "bare")  # the variants that take store_above
 WINDOW = 4096  # the largest x window of x_window, in elements
 _ENTRY = "uspmv_scs_probe"
+# variant, then the matrix as csrc/scs_spmv.cu takes it
+# (scs_spmv.matrix_args; full alone reads the group lengths), x, x_mask,
+# store_above, y, stored, stream
 _ARGTYPES = ([ctypes.c_int, ctypes.c_int64, ctypes.c_int]
-             + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float]
              + [ctypes.c_void_p] * 3)
 
 _launches: Dict[str, int] = {f"{_ENTRY}_{v}": 0 for v in VARIANTS}
@@ -145,8 +152,8 @@ def probe_scs(dev: DeviceScs, x: torch.Tensor, variant: str,
         return y_new, count
     if x.device.type != "cuda":
         raise ValueError(f"probe_scs runs on cuda or cpu tensors, not {x.device}")
-    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values, x)
-    if not all(t.is_contiguous() for t in tensors):
+    scs_spmv.check_matrix_tensors(dev, "probe_scs")
+    if not x.is_contiguous():
         raise ValueError("probe_scs needs contiguous tensors")
     if y is None:
         y = torch.zeros(dev.n_rows_padded, dtype=torch.float32,
@@ -159,9 +166,7 @@ def probe_scs(dev: DeviceScs, x: torch.Tensor, variant: str,
     name = f"{_ENTRY}_{variant}"
     with torch.cuda.device(x.device):
         rc = getattr(lib, _ENTRY)(
-            VARIANTS.index(variant), dev.n_rows_padded, dev.C,
-            dev.chunk_ptrs.data_ptr(), dev.chunk_lengths.data_ptr(),
-            dev.col_idxs.data_ptr(), dev.values.data_ptr(), x.data_ptr(),
+            VARIANTS.index(variant), *scs_spmv.matrix_args(dev), x.data_ptr(),
             x_window(x.numel()) - 1, float(store_above), y.data_ptr(),
             stored.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )

@@ -27,7 +27,13 @@ import torch
 
 from . import scs_spmv
 from .device_format import DeviceScs
-from .scs_spmv import LAYOUTS, MAX_COLS_PER_PASS, spmv_scs_plain
+from .scs_spmv import (
+    LAYOUTS,
+    MAX_COLS_PER_PASS,
+    check_matrix_tensors,
+    matrix_args,
+    spmv_scs_plain,
+)
 
 # (value dtype, x dtype) -> entry point of csrc/scs_solve.cu
 _ENTRY_POINTS = {
@@ -35,8 +41,11 @@ _ENTRY_POINTS = {
     (torch.float32, torch.float32): "uspmv_scs_solve_f32_f32",
     (torch.bfloat16, torch.float32): "uspmv_scs_solve_bf16_f32",
 }
+# the matrix as csrc/scs_spmv.cu takes it (scs_spmv.matrix_args), x0,
+# buf0, buf1, ld, ncols, k, stream
 _ARGTYPES = (
-    [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 7
+    [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 5
     + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -142,22 +151,17 @@ def solve_scs(dev: DeviceScs, x: torch.Tensor, k: int,
     if x.device.type != "cuda":
         raise ValueError(f"solve_scs runs on cuda or cpu tensors, not {x.device}")
     name = entry_point(dev.values.dtype, x.dtype)
-    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values, x)
-    if not all(t.is_contiguous() for t in tensors):
+    check_matrix_tensors(dev, "solve_scs")
+    if not x.is_contiguous():
         raise ValueError("solve_scs needs contiguous tensors")
-    if not (dev.chunk_ptrs.dtype == dev.chunk_lengths.dtype
-            == dev.col_idxs.dtype == torch.int32):
-        raise TypeError("chunk_ptrs, chunk_lengths and col_idxs must be int32")
     bufs = (torch.empty_like(x), torch.empty_like(x))
     bs = 1 if x.dim() == 1 else x.shape[1]
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
-            dev.n_rows_padded, dev.C,
-            dev.chunk_ptrs.data_ptr(), dev.chunk_lengths.data_ptr(),
-            dev.col_idxs.data_ptr(), dev.values.data_ptr(),
-            x.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(),
-            bs, bs, k, torch.cuda.current_stream(x.device).cuda_stream,
+            *matrix_args(dev), x.data_ptr(), bufs[0].data_ptr(),
+            bufs[1].data_ptr(), bs, bs, k,
+            torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc != 0:
         msg = lib.uspmv_cuda_error_string(rc).decode(errors="replace")

@@ -44,10 +44,13 @@ _ENTRY_POINTS = {
 }
 # the all-ones matrix without a value stream (DeviceScs.unit_vals)
 UNIT_ENTRY = "uspmv_scs_spmv_unit_f32"
+# n_rows_padded, C, chunk_ptrs, chunk_lengths, group_lengths, their bytes,
+# col_idxs, values, x, x_ld, x_vstride, y, y_ld, y_vstride, ncols, n_vec,
+# accumulate, stream
 _ARGTYPES = (
-    [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 5
-    + [ctypes.c_int64] * 2 + [ctypes.c_void_p] + [ctypes.c_int64] * 2
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    [ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p]
+    + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 THREADS = 256  # threads per block of every row-sum kernel (kThreads)
 MAX_COLS_PER_PASS = 8  # rowwise columns one launch carries (kMaxCols)
@@ -140,7 +143,7 @@ def _kernel_lib() -> ctypes.CDLL:
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
             query = getattr(lib, f"{name}_blocks_per_sm")
-            query.argtypes = [ctypes.c_void_p]
+            query.argtypes = [ctypes.c_void_p, ctypes.c_int]
             query.restype = ctypes.c_int
         lib.uspmv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uspmv_cuda_error_string.restype = ctypes.c_char_p
@@ -159,14 +162,17 @@ def raise_for(lib, rc: int, what: str) -> None:
 def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype) -> Dict[str, int]:
     """How ``spmv_scs`` launches ``dev`` for one vector of ``x_dtype`` on
     the current GPU: threads per block, blocks resident per SM (the
-    occupancy of that instantiation) and the grid."""
+    occupancy of that instantiation, in the loop form ``dev`` runs: by
+    group lengths where it has them, else by chunk lengths), the form and
+    the grid."""
     name = entry_for(dev, x_dtype)
     lib = _kernel_lib()
     per_sm = ctypes.c_int(0)
+    groups = int(dev.group_length_bytes != 0)
     raise_for(lib, getattr(lib, f"{name}_blocks_per_sm")(
-        ctypes.byref(per_sm)), f"{name} occupancy query")
+        ctypes.byref(per_sm), groups), f"{name} occupancy query")
     return dict(threads_per_block=THREADS, blocks_per_sm=per_sm.value,
-                grid=-(-dev.n_rows_padded // THREADS))
+                groups=groups, grid=-(-dev.n_rows_padded // THREADS))
 
 
 def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
@@ -222,8 +228,9 @@ def spmv_scs_plain(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
                    y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version: gather x[col_idxs], multiply by the values
     widened to x's dtype, ``index_add_`` over each flat element's permuted
-    row, in x's dtype (like uspmv_tpu/ops/spmv_xla.spmv_flat). Padding
-    elements add 0 * x[0]. With ``y`` given, adds the product into it in
+    row, in x's dtype (like uspmv_tpu/ops/spmv_xla.spmv_flat). Every
+    padding element adds 0 * x[0], the kernel's only those below its
+    group's length. With ``y`` given, adds the product into it in
     place and returns it. A unit stream sums x[col] over the slots whose
     column is >= 0."""
     if dev.unit_vals:
@@ -247,13 +254,37 @@ def spmv_scs_plain(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
     return y.add_(part)
 
 
+def matrix_args(dev: DeviceScs) -> tuple:
+    """The matrix arguments of an entry point of csrc/scs_spmv.cu or
+    scs_solve.cu, in order: n_rows_padded, C, chunk_ptrs, chunk_lengths,
+    group_lengths, their bytes each (0: none), col_idxs, values."""
+    return (dev.n_rows_padded, dev.C, dev.chunk_ptrs.data_ptr(),
+            dev.chunk_lengths.data_ptr(), dev.group_lengths.data_ptr(),
+            dev.group_length_bytes, dev.col_idxs.data_ptr(),
+            dev.values.data_ptr())
+
+
+def check_matrix_tensors(dev: DeviceScs, what: str) -> None:
+    """Raise unless the kernels can read ``dev``'s arrays: contiguous,
+    int32 chunk metadata and columns, group lengths of 1, 2 or 4 bytes."""
+    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.group_lengths,
+               dev.col_idxs, dev.values)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous tensors")
+    if not (dev.chunk_ptrs.dtype == dev.chunk_lengths.dtype
+            == dev.col_idxs.dtype == torch.int32):
+        raise TypeError("chunk_ptrs, chunk_lengths and col_idxs must be int32")
+    if dev.group_lengths.dtype not in (torch.uint8, torch.int16,
+                                       torch.int32):
+        raise TypeError("group_lengths must be uint8, int16 or int32, not "
+                        f"{dev.group_lengths.dtype}")
+
+
 def _launch(lib, name: str, dev: DeviceScs, x_ptr: int, x_ld: int,
             x_vstride: int, y_ptr: int, y_ld: int, y_vstride: int,
             ncols: int, n_vec: int, accumulate: bool, stream: int) -> None:
     rc = getattr(lib, name)(
-        dev.n_rows_padded, dev.C,
-        dev.chunk_ptrs.data_ptr(), dev.chunk_lengths.data_ptr(),
-        dev.col_idxs.data_ptr(), dev.values.data_ptr(),
+        *matrix_args(dev),
         x_ptr, x_ld, x_vstride, y_ptr, y_ld, y_vstride,
         ncols, n_vec, int(accumulate), stream,
     )
@@ -279,17 +310,13 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
         return spmv_scs_plain(dev, x, layout, y)
     if x.device.type != "cuda":
         raise ValueError(f"spmv_scs runs on cuda or cpu tensors, not {x.device}")
-    tensors = (dev.chunk_ptrs, dev.chunk_lengths, dev.col_idxs, dev.values)
     accumulate = y is not None
     if out is not None:
         y = out
-    if not all(t.is_contiguous() for t in tensors) or not addressable(
-        x, layout
-    ) or (y is not None and not addressable(y, layout)):
+    check_matrix_tensors(dev, "spmv_scs")
+    if not addressable(x, layout) or (y is not None
+                                      and not addressable(y, layout)):
         raise ValueError("spmv_scs needs contiguous tensors")
-    if not (dev.chunk_ptrs.dtype == dev.chunk_lengths.dtype
-            == dev.col_idxs.dtype == torch.int32):
-        raise TypeError("chunk_ptrs, chunk_lengths and col_idxs must be int32")
     if y is None:
         y = torch.empty(out_shape(dev, x, layout), dtype=x.dtype,
                         device=x.device)

@@ -185,7 +185,7 @@ class StreamSummary:
 
     packed: tuple  # per row stream (main, halo): packed row groups?
     nnz: int  # stored nonzeros of the row streams
-    streamed: int  # elements they stream (packed: nnz; SELL: n_elements)
+    streamed: int  # elements they stream (packed: nnz; SELL: n_read)
     stream_bytes: int
     pieces_nnz: int = 0
     n_pieces: int = 0
@@ -199,7 +199,7 @@ class StreamSummary:
             packed=tuple(isinstance(d, DevicePacked) for d in devs),
             nnz=sum(d.nnz for d in devs),
             streamed=sum(d.nnz if isinstance(d, DevicePacked)
-                         else d.n_elements for d in devs),
+                         else d.n_read for d in devs),
             stream_bytes=sum(d.stream_bytes() for d in devs),
             pieces_nnz=pc.nnz if pc else 0,
             n_pieces=pc.n_pieces if pc else 0,

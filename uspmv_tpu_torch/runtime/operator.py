@@ -729,7 +729,8 @@ class SpmvOperator(OperatorBase):
 
     def bytes_per_spmv(self) -> int:
         """Minimum traffic: each precision's matrix stream (values +
-        int32 columns + chunk or row-group metadata), once per matrix pass,
+        int32 columns of the slots the kernel reads, chunk pointers and
+        group lengths or row-group metadata), once per matrix pass,
         its pieces (CSR stream, parents' runs, partial sums) once per
         vector, + x + y in the working dtype. Not comparable with the JAX
         package's count, whose lane tiles stream int16 gather tables."""
@@ -750,12 +751,13 @@ class SpmvOperator(OperatorBase):
 
     def device_beta(self) -> Dict[str, float]:
         """Nonzeros over the elements the kernels stream, pieces included
-        (they and the packed tier stream no padding)."""
+        (they and the packed tier stream no padding; the SELL kernel the
+        slots below each group's length)."""
         out = {}
         for p, d in self.devs.items():
             extra = self.pieces[p].nnz if p in self.pieces else 0
             streamed = (d.nnz if isinstance(d, DevicePacked)
-                        else d.n_elements) + extra
+                        else d.n_read) + extra
             out[p] = (d.nnz + extra) / streamed if streamed else 1.0
         return out
 

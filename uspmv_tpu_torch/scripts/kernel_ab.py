@@ -4,7 +4,7 @@ inputs in one process on one card: the paired comparison of a kernel change
 
     python -m uspmv_tpu_torch.scripts.kernel_ab --lib NAME=CSRC_DIR
         [--lib NAME=CSRC_DIR ...]
-        [--cases sell,packed,solve,pieces,gather,halo]
+        [--cases sell,padded,packed,solve,pieces,gather,halo]
         [--reps R] [--rounds N] [--out PATH]
 
 Each CSRC_DIR is a copy of ``uspmv_tpu_torch/csrc`` (the parent commit's,
@@ -16,6 +16,17 @@ and cuobjdump's registers per kernel are printed for each. The cases:
             (values, x) pair of scs_spmv.cu, its all-ones pattern as a
             unit stream, and sp with rowwise bs 4 and 8 and colwise bs 8;
             Laplace3D-160, sp
+    padded  the SELL-C-sigma streams with padding to skip, at C=1024,
+            sigma=1, each as the operator of its path builds it: path E's
+            three (WideSpectrum-55 ap[dp_sp_hp] -dp_emu, thresholds 1e-2 /
+            1e-5: f64, f32 and bf16 values with f64 x), Hubbard-13/6 sp
+            and FemTet3D-55 sp; then streams whose groups skip a few
+            percent, read by group lengths in the change's tree whatever
+            GROUP_SKIP_PER_ROW says: FemTet3D-55 sp at sigma 8192, 16384,
+            32768 and 65536, StokesSaddle-64 sp and the headline. The
+            bound is the function's own bytes (each nonzero's value and
+            column, x and y once over the real rows); each row carries the
+            slots its version reads and the share the groups skip
     packed  RandomImbalanced-500k at C=1024, sigma=1, split at the
             operator's automatic threshold: its packed rows as dp, sp, hp
     solve   the fused solve (scs_solve.cu), k=32, on the headline's matrix
@@ -52,8 +63,10 @@ gives the median ms, the samples, the byte bound, whether y equals the
 first library's bit for bit, and the error against the plain version. A
 tree whose pieces kernel is the pair of a piece pass and a fold pass (the
 design before the work records) takes that design's arguments (parent
-runs and rows, one partial per piece); the entry points of older designs
-are not bound.
+runs and rows, one partial per piece); so does a tree whose SELL row loop
+walks each chunk to its length (no ``kGroupRows`` in scs_row.cuh): its
+SpMV and solve entry points take no group lengths. The entry points of
+older designs are not bound.
 """
 
 from __future__ import annotations
@@ -82,13 +95,13 @@ from ..ops import (
     scs_spmv,
     x_access,
 )
-from ..ops.device_format import build_device_scs
+from ..ops.device_format import DeviceScs, build_device_scs, group_table
 from ..runtime import card
 from ..runtime.operator import SpmvOperator
 from . import _common, gather_probe
 
 NAME = "kernel_ab"
-CASES = ("sell", "packed", "solve", "pieces", "gather", "halo")
+CASES = ("sell", "padded", "packed", "solve", "pieces", "gather", "halo")
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SOLVE_K = 32
 # the pieces entry points of the two-pass design: (n_pieces, piece_ptr,
@@ -99,6 +112,10 @@ _PIECES_ARGTYPES_TWO_PASS = (
     + [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_void_p] * 2
     + [ctypes.c_int64] * 2 + [ctypes.c_int, ctypes.c_void_p]
 )
+# the SpMV and solve entry points of a row loop to each chunk's length: the
+# matrix arguments without group_lengths and their bytes
+_SCS_ARGTYPES_CHUNKS = (scs_spmv._ARGTYPES[:4] + scs_spmv._ARGTYPES[6:])
+_SOLVE_ARGTYPES_CHUNKS = (scs_solve._ARGTYPES[:4] + scs_solve._ARGTYPES[6:])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -136,6 +153,22 @@ def turns(names: List[str], rounds: int) -> List[str]:
     return [n for _ in range(rounds) for n in (*names, *reversed(names))]
 
 
+def has_group_lengths(csrc: Path) -> bool:
+    """Whether the tree's SELL row loop takes group lengths (else it walks
+    each chunk to its length: the design before them)."""
+    return "kGroupRows" in (csrc / "scs_row.cuh").read_text()
+
+
+def with_every_group(dev: DeviceScs, host, device) -> DeviceScs:
+    """``dev`` with the table of group lengths whatever share of its slots
+    they skip (GROUP_SKIP_PER_ROW passes none under a quarter of a slot
+    per row)."""
+    table, n_read = group_table(host, skip_per_row=0)
+    return dataclasses.replace(
+        dev, group_lengths=torch.as_tensor(table, device=device),
+        n_read=n_read)
+
+
 def pieces_abi(csrc: Path) -> str:
     """'records' where the tree's pieces kernel walks work records, else
     'two_pass' (a piece pass, then a fold pass)."""
@@ -150,12 +183,16 @@ class Version:
         self.name, self.path = name, lib_path
         self.lib = ctypes.CDLL(str(lib_path))
         self.pieces_abi = pieces_abi(csrc)
+        self.groups = has_group_lengths(csrc)
+        chunks = not self.groups
         for entry in [*scs_spmv._ENTRY_POINTS.values(), scs_spmv.UNIT_ENTRY]:
-            self._bind(entry, scs_spmv._ARGTYPES)
+            self._bind(entry, _SCS_ARGTYPES_CHUNKS if chunks
+                       else scs_spmv._ARGTYPES)
         for entry in scs_packed._ENTRY_POINTS.values():
             self._bind(entry, scs_packed._ARGTYPES)
         for entry in scs_solve._ENTRY_POINTS.values():
-            self._bind(entry, scs_solve._ARGTYPES)
+            self._bind(entry, _SOLVE_ARGTYPES_CHUNKS if chunks
+                       else scs_solve._ARGTYPES)
         for entry in scs_pieces._ENTRY_POINTS.values():
             self._bind(entry, scs_pieces._ARGTYPES
                        if self.pieces_abi == "records"
@@ -171,6 +208,20 @@ class Version:
         fn = getattr(self.lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+
+    def matrix_args(self, dev: DeviceScs) -> tuple:
+        """``dev``'s arguments to this tree's SpMV or solve entry point:
+        the wrapper's, or for a tree before group lengths those without
+        them."""
+        if self.groups:
+            return scs_spmv.matrix_args(dev)
+        return (dev.n_rows_padded, dev.C, dev.chunk_ptrs.data_ptr(),
+                dev.chunk_lengths.data_ptr(), dev.col_idxs.data_ptr(),
+                dev.values.data_ptr())
+
+    def slots_read(self, dev: DeviceScs) -> int:
+        """The slots this tree's row loop reads of ``dev``."""
+        return dev.n_read if self.groups else dev.n_elements
 
     def call(self, entry: str, *args) -> None:
         stream = torch.cuda.current_stream().cuda_stream
@@ -331,9 +382,7 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
 
             def run(v, y, dev=dev, x=x, entry=entry, strides=strides):
                 x_ld, x_vs, y_ld, y_vs, ncols, n_vec = strides
-                v.call(entry, dev.n_rows_padded, dev.C,
-                       dev.chunk_ptrs.data_ptr(), dev.chunk_lengths.data_ptr(),
-                       dev.col_idxs.data_ptr(), dev.values.data_ptr(),
+                v.call(entry, *v.matrix_args(dev),
                        x.data_ptr(), x_ld, x_vs, y.data_ptr(), y_ld, y_vs,
                        ncols, n_vec, 0)
 
@@ -353,6 +402,96 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
         del op, mtx
         torch.cuda.empty_cache()
     return rows
+
+
+# label, matrix, configuration beyond C=1024, sp, sigma, and the streams
+PADDED = (
+    ("E", "WideSpectrum,55",
+     dict(value_type="ap[dp_sp_hp]", dp_emulation=True, ap_threshold_1=1e-2,
+          ap_threshold_2=1e-5), 1, ("dp", "sp", "hp")),
+    ("Hubbard-13/6", "Hubbard,n_sites=13,n_fermions=6,U=1.3", {}, 1,
+     ("sp",)),
+    ("FemTet3D-55", "FemTet3D,55", dict(mixed_tiles=False), 1, ("sp",)),
+)
+# streams whose groups skip little, around GROUP_SKIP_PER_ROW slots per
+# row: the change's tree reads them by group lengths whatever the rule
+# says (``with_every_group``), a tree before them by chunk lengths.
+# FemTet3D-55 (rows of about 55) sorted over ever larger windows,
+# StokesSaddle-64 and the headline (rows of 7 or fewer) as they are
+NEAR_CUTOFF = (
+    *(("FemTet3D-55", "FemTet3D,55", dict(mixed_tiles=False), sigma,
+       ("sp",)) for sigma in (8192, 16384, 32768, 65536)),
+    ("StokesSaddle-64", "StokesSaddle,64", {}, 1, ("sp",)),
+    ("Laplace3D-128", "Laplace3D,128",
+     dict(split_rows_threshold=-1, mixed_tiles=False), 1, ("sp",)),
+)
+
+
+def padded_cases(versions, device, reps, rounds) -> List[dict]:
+    rows = []
+    rng = np.random.default_rng(5)
+    for forced, table in ((False, PADDED), (True, NEAR_CUTOFF)):
+        for label, spec, fields, sigma, streams in table:
+            mtx = generators.generate_matrix(spec)
+            op = SpmvOperator.from_mtx(
+                Config(kernel_format="scs", chunk_size=1024, sigma=sigma,
+                       backend="cuda", **{"value_type": "sp", **fields}),
+                mtx)
+            x = op.make_x(rng.standard_normal(op.n_rows))
+            if sigma > 1:
+                label = f"{label} sigma={sigma}"
+            for p in streams:
+                rows += padded_stream(versions, op, p, x, label, forced,
+                                      device, reps, rounds)
+            del op, mtx, x
+            torch.cuda.empty_cache()
+    return rows
+
+
+def padded_stream(versions, op, p, x, label, forced, device, reps,
+                  rounds) -> List[dict]:
+    """Stream ``p`` of ``op``, one vector, every version in turns with
+    cuSPARSE; the bound is the function's own bytes (each nonzero's value
+    and column, x and y once over the real rows). ``forced``: with the
+    group lengths whatever share they skip."""
+    dev, host = op.devs[p], op.scs[p]
+    if not isinstance(dev, DeviceScs):
+        raise RuntimeError(f"padded case {label} {p}: "
+                           f"{op.impl_name()} is not SELL")
+    by_rule = bool(dev.group_length_bytes)
+    if forced:
+        dev = with_every_group(dev, host, device)
+    entry = scs_spmv.entry_point(dev.values.dtype, x.dtype)
+
+    def run(v, y):
+        v.call(entry, *v.matrix_args(dev), x.data_ptr(), 1, 0, y.data_ptr(),
+               1, 0, 1, 1, 0)
+
+    keep = dev.values != 0
+    library = csr_call(dev.row_idxs[keep], dev.col_idxs[keep],
+                       dev.values[keep], op.n_rows_padded, x)
+    own = (dev.nnz * (dev.values.element_size() + 4)
+           + 2 * op.n_rows * x.element_size())
+    case = f"{label} {p} {entry.replace('uspmv_scs_spmv_', '')}"
+    out = paired(case, versions, run, scs_spmv.spmv_scs_plain(dev, x), own,
+                 reps, rounds, library)
+    skipped = 1 - dev.n_read / dev.n_elements
+    per_row = (dev.n_elements - dev.n_read) / dev.n_rows_padded
+    for r in out:
+        r.update(nnz=dev.nnz, n_elements=dev.n_elements,
+                 n_rows_padded=dev.n_rows_padded, skipped_share=skipped,
+                 skipped_per_row=per_row, groups_by_rule=by_rule,
+                 forced=forced)
+        if r["lib"] in versions:
+            read = versions[r["lib"]].slots_read(dev)
+            r.update(slots_read=read, device_beta=dev.nnz / read)
+            print(f"{'':28s} {r['lib']:10s} slots read {read:,} "
+                  f"(beta {dev.nnz / read:.4f})")
+    print(f"{'':28s} groups skip {100 * skipped:.2f}% of the slots, "
+          f"{per_row:.3f} per row; "
+          f"by the rule: {'group' if by_rule else 'chunk'} lengths"
+          + ("; read by group lengths here" if forced else ""))
+    return out
 
 
 def packed_cases(versions, device, reps, rounds) -> List[dict]:
@@ -484,10 +623,8 @@ def solve_cases(versions, device, reps, rounds) -> List[dict]:
     entry = scs_solve.entry_point(torch.float32, torch.float32)
 
     def run(v, y):
-        v.call(entry, n, dev.C, dev.chunk_ptrs.data_ptr(),
-               dev.chunk_lengths.data_ptr(), dev.col_idxs.data_ptr(),
-               dev.values.data_ptr(), x0.data_ptr(), buf[0].data_ptr(),
-               buf[1].data_ptr(), 1, 1, SOLVE_K)
+        v.call(entry, *v.matrix_args(dev), x0.data_ptr(),
+               buf[0].data_ptr(), buf[1].data_ptr(), 1, 1, SOLVE_K)
         y.copy_(buf[(SOLVE_K - 1) & 1])
 
     def timer(fn):  # a cooperative launch of ~2 ms: events, few calls
@@ -674,7 +811,8 @@ def run(args: argparse.Namespace) -> List[dict]:
     card_line = card.card_name_and_power_limit()
     print(card_line)
     for case in cases:
-        fn = {"sell": sell_cases, "packed": packed_cases,
+        fn = {"sell": sell_cases, "padded": padded_cases,
+              "packed": packed_cases,
               "solve": solve_cases, "pieces": pieces_cases,
               "gather": gather_cases, "halo": halo_cases}[case]
         rows += fn(versions, device, args.reps, args.rounds)

@@ -87,10 +87,12 @@ def measure(mtx, spec: str, device: torch.device, reps: int) -> CostSplit:
     n_pad = dev.n_rows_padded
     vec = 4 * n_pad  # one f32 vector, read or written once
     win = 4 * scs_probe.x_window(x.numel())
-    stream = dev.stream_bytes()
-    bytes_of = {"full": stream + 2 * vec, "x_window": stream + win + vec,
-                "no_store": stream + vec, "no_x": stream + vec,
-                "bare": stream, "x_row": stream + 2 * vec,
+    # full and spmv read the slots below each group's length; the other
+    # variants walk each chunk to its length
+    stream, chunks = dev.stream_bytes(), dev.chunk_stream_bytes()
+    bytes_of = {"full": stream + 2 * vec, "x_window": chunks + win + vec,
+                "no_store": chunks + vec, "no_x": chunks + vec,
+                "bare": chunks, "x_row": chunks + 2 * vec,
                 "spmv": stream + 2 * vec}
     print(f"matrix {spec}: rows={op.n_rows} nnz={op.nnz} "
           f"elements={dev.n_elements} C=1024 sigma=1 [{platform}]")

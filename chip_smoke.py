@@ -12,9 +12,11 @@ nvidia-smi. Phases, each printing JSON lines:
   3. kernel vs plain, small shapes:
      a. the sp and dp operators on Laplace3D-32 at (C, sigma) in
         {(1024, 1), (32, 512), (1, 1)} and RandomBanded-200k at (1024, 1);
-     b. every instantiated (values, x) dtype pair of the kernel, one vector
-        and bs in {4, 8} rowwise and colwise, each plain and in the
-        accumulate form y += A x, on Laplace3D-32 and RandomBanded-200k;
+     b. every instantiated (values, x) dtype pair of the kernel, one vector,
+        bs in {4, 8} rowwise and bs in {3, 4, 8, 16} colwise, each plain and
+        in the accumulate form y += A x, on Laplace3D-32 and
+        RandomBanded-200k; each colwise block bit-equal to one launch per
+        vector and to the rowwise form of the same block (3d likewise);
      c. the heavy-row pieces and packed-row kernels (slice 5) through
         operators on a 4,600-row imbalanced matrix at C=32, sigma=64 (one
         row of 3,000+ elements, 600 empty rows at the end: whole row groups
@@ -49,8 +51,12 @@ nvidia-smi. Phases, each printing JSON lines:
        A  Laplace3D-128  ap[dp_sp] -dp_emu, ap_threshold_1 = 2.44
        B  Laplace3D-128  ap[sp_hp], ap_threshold_1 = 2.44
        C  Laplace3D-128  hp
-       D  Laplace3D-128  sp, block vectors bs=8 and bs=4 rowwise, bs=8
-          colwise
+       D  Laplace3D-128  sp, block vectors bs=8 and bs=4, rowwise and
+          colwise (each read the matrix once: the kernel carries 8
+          columns or vectors), with cuSPARSE's SpMM in turns: A @ X
+          rowwise, A @ X.t() colwise, and A @ X.t().contiguous() made
+          beforehand, beside the CUDA kernels the profiler sees in the
+          former (does PyTorch copy X first?)
        E  WideSpectrum-55  ap[dp_sp_hp] -dp_emu, thresholds 1e-2 / 1e-5
           (all three streams must be non-empty)
      all at C=1024, sigma=1;
@@ -102,8 +108,10 @@ nvidia-smi. Phases, each printing JSON lines:
      with the launch counts of all three wrappers set to 0 before and read
      after. FemTet3D-55 is the control: it must stay on cuda-scs. Then
      RandomImbalanced-500k at (1024, 1) as hp, dp, ap[dp_sp], ap[dp_hp]
-     and sp with rowwise bs=4, and a CUDA-graph solve of k=64 bit-equal to
-     the loop. In the driven runs each kernel and cuSPARSE on its
+     and sp with rowwise and colwise bs=4 (the packed kernel's colwise
+     vectors read each group once; cuSPARSE's SpMM beside the block
+     vectors' kernels), and a CUDA-graph solve of k=64 bit-equal to the
+     loop. In the driven runs each kernel and cuSPARSE on its
      sub-matrix are timed in turns (kernel, library, library, kernel), as
      are op.spmv and cuSPARSE on the whole matrix; each packed stream
      carries its launch geometry, and each packed and pieces stream its
@@ -374,13 +382,18 @@ PATHS = [
                                           vector_layout="rowwise")),
     ("D-colwise-8", "Laplace3D,128", dict(value_type="sp", block_vec_size=8,
                                           vector_layout="colwise")),
+    ("D-colwise-4", "Laplace3D,128", dict(value_type="sp", block_vec_size=4,
+                                          vector_layout="colwise")),
     ("E", "WideSpectrum,55", dict(value_type="ap[dp_sp_hp]",
                                   dp_emulation=True, ap_threshold_1=1e-2,
                                   ap_threshold_2=1e-5)),
 ]
-# (layout, bs) of the small-shape checks; bs=1 is one vector [n_pad]
-SHAPES = [("rowwise", 1), ("rowwise", 4), ("rowwise", 8), ("colwise", 4),
-          ("colwise", 8)]
+# (layout, bs) of the small-shape checks; bs=1 is one vector [n_pad];
+# colwise 3 runs the guard, 16 two passes of 8
+SHAPES = [("rowwise", 1), ("rowwise", 4), ("rowwise", 8), ("colwise", 3),
+          ("colwise", 4), ("colwise", 8), ("colwise", 16)]
+# the SpMMV forms of path D, each a line of its own in the kernels line
+SPMMV_PATHS = ("D-rowwise-8", "D-rowwise-4", "D-colwise-8", "D-colwise-4")
 
 
 def emit(phase, **fields):
@@ -471,12 +484,15 @@ def csr_library(dev, old_to_new, n_rows, x, y, reps=100, tol=None):
     return (time_ms(call, reps), None) if call else (None, err)
 
 
-def csr_library_call(dev, old_to_new, n_rows, x, y, tol=None):
+def csr_library_call(dev, old_to_new, n_rows, x, y, tol=None,
+                     layout="rowwise"):
     """``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) on the matrix of
     ``dev`` in the original row order (``library_csr_call``). ``y`` is the
     kernel's result for the same x: the library's must agree with it within
     ``tol`` (default: the tolerance of x's dtype)."""
     import torch
+
+    rows_dim = 1 if layout == "colwise" and x.dim() == 2 else 0
 
     keep = dev.values != 0  # drops the padding (and explicit zeros)
     new_to_old = torch.full((dev.n_rows_padded,), -1, dtype=torch.int64,
@@ -488,8 +504,9 @@ def csr_library_call(dev, old_to_new, n_rows, x, y, tol=None):
     require(rows.min().item() >= 0 and cols.min().item() >= 0,
             "csr_library: a nonzero outside the original rows")
     return library_csr_call(rows, cols, dev.values[keep], n_rows,
-                            x.index_select(0, o2n).contiguous(),
-                            y.index_select(0, o2n), tol or acc_tol(x))
+                            x.index_select(rows_dim, o2n).contiguous(),
+                            y.index_select(rows_dim, o2n), tol or acc_tol(x),
+                            layout)
 
 
 def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
@@ -500,14 +517,19 @@ def library_csr_ms(rows, cols, vals, n, x, want, tol, reps):
     return (time_ms(call, reps), None) if call else (None, err)
 
 
-def library_csr_call(rows, cols, vals, n, x, want, tol):
+def library_csr_call(rows, cols, vals, n, x, want, tol, layout="rowwise"):
     """``torch.sparse_csr_tensor(...) @ x`` (cuSPARSE) for the n x n matrix
     of the given triples (device tensors, in the index space of x, int32
     indices in the CSR), values widened to x's dtype (bf16 values too, the
     rule of ops/spmv_bcoo.py: cuSPARSE takes no bf16 matrix with an f32
-    x); its result must agree with ``want``. Returns (the call, None), or
-    (None, error text) where PyTorch has no CSR product for the dtypes."""
+    x); its result must agree with ``want``. Colwise block vectors x
+    [bs, n] are given as ``x.t()``, the view (``want`` [bs, n] too).
+    Returns (the call, None), or (None, error text) where PyTorch has no
+    CSR product for the dtypes."""
     import torch
+
+    if layout == "colwise" and x.dim() == 2:
+        x, want = x.t(), want.t()
 
     vals = vals.to(x.dtype)
     try:
@@ -524,6 +546,42 @@ def library_csr_call(rows, cols, vals, n, x, want, tol):
     compare(y_lib.to(want.dtype), want, tol, "library CSR product vs the "
             "kernel")
     return (lambda: A @ x), None
+
+
+def cuda_kernel_names(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs, as
+    torch.profiler (CUPTI) records them; [] where it records none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA})
+
+
+def spmm_library_calls(dev, op, x, y, layout):
+    """cuSPARSE on stream ``dev``'s matrix for x in ``layout``, as calls to
+    time in turns: {"library": the one PyTorch call on the same inputs}
+    (A @ X rowwise; colwise A @ X.t(), a column-major view that PyTorch may
+    copy first), and colwise also {"library_x_copied": A @ X.t()
+    made contiguous beforehand, the same product without that copy}.
+    Returns (calls, error, the CUDA kernels of the colwise call)."""
+    call, err = csr_library_call(dev, op.old_to_new, op.n_rows, x, y,
+                                 layout=layout)
+    if not call:
+        return {}, err, None
+    calls = {"library": call}
+    if layout != "colwise" or x.dim() == 1:
+        return calls, None, None
+    copied, _ = csr_library_call(dev, op.old_to_new, op.n_rows,
+                                 x.t().contiguous(), y.t())
+    calls["library_x_copied"] = copied
+    return calls, None, cuda_kernel_names(call)
 
 
 def time_ms(fn, reps):
@@ -705,6 +763,26 @@ def plain_spmv(op, x):
     return y
 
 
+def colwise_bits(dev, x, y, y0, what):
+    """A colwise block's y (``y0``: the y it was added into, or None)
+    against one launch per vector and against the rowwise form of the same
+    block, bit for bit: the kernel sums each vector in the same order
+    whatever the vectors beside it."""
+    import torch
+
+    from uspmv_tpu_torch.ops.scs_spmv import spmv_scs
+
+    for v in range(x.shape[0]):
+        one = spmv_scs(dev, x[v].contiguous(),
+                       y=None if y0 is None else y0[v].clone())
+        require(torch.equal(y[v], one), f"{what}: vector {v} differs from "
+                "its own launch")
+    rows = spmv_scs(dev, x.t().contiguous(), "rowwise",
+                    None if y0 is None else y0.t().contiguous())
+    require(torch.equal(y.t(), rows), f"{what}: differs from the rowwise "
+            "form")
+
+
 def small_shapes(cuda, rng_seed=0):
     """Phase 3b: every instantiation, layout and the accumulate form."""
     import numpy as np
@@ -746,6 +824,8 @@ def small_shapes(cuda, rng_seed=0):
                         dev, x, layout, y0.clone() if acc else None)
                     require(tuple(y.shape) == shape, f"{what}: shape")
                     _, rel = compare(y, ref, acc_tol(x), what)
+                    if layout == "colwise":
+                        colwise_bits(dev, x, y, y0 if acc else None, what)
                     key = f"{layout}-{bs}{'-acc' if acc else ''}"
                     worst[key] = rel
             emit("kernel_vs_plain_pairs", matrix=name, C=1024, sigma=1,
@@ -818,6 +898,8 @@ def padded_small(cuda, rng_seed=3):
                     ref = scs_spmv.spmv_scs_plain(
                         dev, x, layout, y0.clone() if acc else None)
                     _, rel = compare(y, ref, acc_tol(x), what)
+                    if layout == "colwise":
+                        colwise_bits(dev, x, y, y0 if acc else None, what)
                     worst[f"{layout}-{bs}{'-acc' if acc else ''}"] = rel
             x = torch.randn(n, generator=gen,
                             dtype=torch.float64).to(xdt).to(cuda)
@@ -912,22 +994,29 @@ def run_path(name, spec, mtx, fields, rng):
     layout = cfg.vector_layout
     stream_rec = {}
     for p, dev in op.devs.items():
-        s_ms, s_plain_ms, _ = time_pair(
-            lambda: spmv_scs(dev, x, layout, out=out),
-            lambda: spmv_scs_plain(dev, x, layout), graph=True)
-        s_abs, s_rel = compare(spmv_scs(dev, x, layout),
-                               spmv_scs_plain(dev, x, layout), acc_tol(x),
-                               f"{name} {p} stream")
+        y_s = spmv_scs(dev, x, layout)
+        s_abs, s_rel = compare(y_s, spmv_scs_plain(dev, x, layout),
+                               acc_tol(x), f"{name} {p} stream")
         # moved: the stored stream, padding included, once per pass;
         # bound: the function's own bytes
         s_bytes = (op.matrix_passes() * dev.stream_bytes()
                    + 2 * op.n_rows_padded * bs * x.element_size())
         fn_bytes = own_bytes(dev, op.n_rows, x, bs)
         b_ms, b_by = bound(fn_bytes, 2 * dev.nnz * bs, x.dtype)
-        lib_ms, lib_err = (None, "colwise block vectors: not timed")
-        if layout == "rowwise" or bs == 1:
-            lib_ms, lib_err = csr_library(dev, op.old_to_new, op.n_rows, x,
-                                          spmv_scs(dev, x, layout))
+        calls, lib_err, lib_kernels = spmm_library_calls(dev, op, x, y_s,
+                                                         layout)
+        # plain version and cuSPARSE by events, the kernel by a replayed
+        # graph, in turns: plain, kernel, library .., .. library, kernel,
+        # plain
+        timers = {"plain": lambda: time_ms(
+                      lambda: spmv_scs_plain(dev, x, layout), 100),
+                  "kernel": lambda: graph_ms(
+                      lambda: spmv_scs(dev, x, layout, out=out), 100)}
+        timers.update({k: (lambda c=c: time_ms(c, 100))
+                       for k, c in calls.items()})
+        med, turns = time_turns(timers)
+        s_ms, s_plain_ms, lib_ms = (med["kernel"], med["plain"],
+                                    med.get("library"))
         stream_rec[p] = dict(
             entry=entry_point(dev.values.dtype, wd), nnz=dev.nnz,
             n_elements=dev.n_elements, slots_read=dev.n_read,
@@ -936,7 +1025,9 @@ def run_path(name, spec, mtx, fields, rng):
             gbps=s_bytes / s_ms / 1e6, plain_gbps=s_bytes / s_plain_ms / 1e6,
             moved_bytes=s_bytes, bound_bytes=fn_bytes,
             max_abs_err=s_abs, rel_err=s_rel, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, library_error=lib_err)
+            library_ms=lib_ms, library_error=lib_err,
+            library_x_copied_ms=med.get("library_x_copied"),
+            library_kernels=lib_kernels, **turns)
     emit("path", path=name, matrix=spec, C=1024, sigma=1,
          config={k: v for k, v in fields.items()}, impl=op.impl_name(),
          n_rows=op.n_rows, nnz=op.nnz, nnz_per_precision=npp,
@@ -1542,14 +1633,17 @@ G_EXTRAS = {
                       ap_threshold_1=0.5),
     "sp-rowwise-4": dict(value_type="sp", block_vec_size=4,
                          vector_layout="rowwise"),
+    "sp-colwise-4": dict(value_type="sp", block_vec_size=4,
+                         vector_layout="colwise"),
 }
 
 
 def tier_stream_records(op, x, reps, tol, with_library):
     """Each kernel of ``op.spmv`` on its own, on x (one vector or block
     vectors): ms by a replayed CUDA graph, its plain version's ms, the
-    bound of the bytes it moves and, for one vector, cuSPARSE's ms on the
-    same sub-matrix. Returns {entry point: record}."""
+    bound of the bytes it moves and cuSPARSE's ms on the same sub-matrix
+    (SpMM for block vectors, colwise on the view X.t()). Returns {entry
+    point: record}."""
     import torch
 
     from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
@@ -1574,15 +1668,15 @@ def tier_stream_records(op, x, reps, tol, with_library):
         plain_ms = time_ms(lambda: plain(dev, x, layout), reps)
         # bound: the function's own bytes; moved: the stored stream with
         # its row-group records (or padding) once per pass
-        moved = op.matrix_passes() * dev.stream_bytes() + xy_bytes
+        moved = op.matrix_passes(packed) * dev.stream_bytes() + xy_bytes
         nbytes = own_bytes(dev, op.n_rows, x, bs)
         b_ms, b_by = bound(nbytes, 2 * dev.nnz * bs, x.dtype)
-        call, lib_err = None, "block vectors: not timed"
-        if with_library and x.dim() == 1:
+        call, lib_err = None, "not timed in this run"
+        if with_library:
             keep = slice(None) if packed else dev.values != 0
             call, lib_err = library_csr_call(
                 dev.row_idxs[keep], dev.col_idxs[keep], dev.values[keep], n,
-                x, y, tol)
+                x, y, tol, layout)
         # the kernel by a replayed graph and the library by events, in
         # turns: kernel, library, library, kernel
         timers = {"kernel": lambda: graph_ms(
@@ -1621,11 +1715,11 @@ def tier_stream_records(op, x, reps, tol, with_library):
         xy = x.element_size() * (min(n, pc.nnz) + 2 * pc.n_parents)
         nbytes = bs * (pc.bound_bytes() + xy)
         b_ms, b_by = bound(nbytes, 2 * pc.nnz * bs, x.dtype)
-        call, lib_err = None, "block vectors: not timed"
-        if with_library and x.dim() == 1:
+        call, lib_err = None, "not timed in this run"
+        if with_library:
             call, lib_err = library_csr_call(
                 pc.piece_rows[pc.piece_idxs.long()], pc.col_idxs, pc.values,
-                n, x, y, tol)
+                n, x, y, tol, layout)
         # as the stream kernels above: kernel, library, library, kernel
         timers = {"kernel": lambda: graph_ms(
             lambda: scs_pieces.spmv_pieces(pc, x, layout, out), reps)}
@@ -1890,6 +1984,7 @@ def path_g(matrices, card):
         add_launches(rec)
         require("+pieces" in rec["impl"], f"path G {label}: {rec['impl']}")
         for entry, k in rec["kernels"].items():
+            k["run_launches"] = rec["main_path_launches"].get(entry, 0)
             tier_records[(label, entry)] = k
         emit("path_g", **rec)
         del op, x, y
@@ -4106,6 +4201,7 @@ def main():
 
     # ---- 6. the paths of slice 2
     matrices = {"Laplace3D,128": mtx}
+    path_launches = {}
     for name, spec, fields in PATHS:
         if spec not in matrices:
             t0 = time.perf_counter()
@@ -4113,6 +4209,7 @@ def main():
             emit("generate", matrix=spec, n_rows=matrices[spec].n_rows,
                  nnz=matrices[spec].nnz, seconds=time.perf_counter() - t0)
         counts, streams = run_path(name, spec, matrices[spec], fields, rng)
+        path_launches[name] = counts
         for entry, n in counts.items():
             main_launches[entry] = main_launches.get(entry, 0) + n
         for p, rec in streams.items():
@@ -4213,6 +4310,30 @@ def main():
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "library_error": rec["library_error"],
             "timed_on": f"path {path}, {prec} stream",
+        })
+    # the SpMMV forms of the SELL kernel (path D) and the packed kernel's
+    # colwise form (path G), each with the launches of its own run
+    spmmv = [(name, "uspmv_scs_spmv_f32_f32", stream_records[(name, "sp")],
+              path_launches[name].get("uspmv_scs_spmv_f32_f32", 0),
+              KERNEL_SOURCE, ":820", f"path {name}, sp stream")
+             for name in SPMMV_PATHS]
+    rec = tier_records[("sp-colwise-4", "uspmv_scs_packed_f32_f32")]
+    spmmv.append(("G-colwise-4", "uspmv_scs_packed_f32_f32", rec,
+                  rec["run_launches"], PACKED_SOURCE, ":1347",
+                  "path G, RandomImbalanced-500k C=1024 sigma=1 sp, "
+                  "colwise bs=4, by a replayed CUDA graph"))
+    for form, entry, rec, n, source, replaces, timed_on in spmmv:
+        require(n > 0, f"{entry} never launched in {form}")
+        kernels.append({
+            "name": f"{entry.replace('uspmv_', '')} {form[2:]}",
+            "route": "cuda", "source": source,
+            "replaces": PALLAS + replaces, "launches": n,
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library_error": rec["library_error"],
+            "library_x_copied_ms": rec.get("library_x_copied_ms"),
+            "timed_on": timed_on,
         })
     for entry, value_type in SOLVE_INSTANTIATIONS.items():
         rec = solve_records[entry]

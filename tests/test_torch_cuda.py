@@ -895,22 +895,166 @@ def test_packed_grid_matches_plain_and_repeats_bit_for_bit(cuda, pair, n,
 
 
 def test_launch_geometry_of_the_sell_kernel(cuda):
-    """Every entry's one-vector kernel keeps at least kMinBlocksPerSm (5)
-    blocks resident, in the form with group lengths and in the chunk form
-    (the same matrix without them), and launches a block per 256 padded
-    rows."""
+    """Every entry's one-vector kernel and its kernel of 8 colwise vectors
+    keep at least kMinBlocksPerSm (5) blocks resident, in the form with
+    group lengths and in the chunk form (the same matrix without them),
+    and launch a block per 256 padded rows by a grid row per pass of 8
+    vectors; no colwise instantiation spills to local memory."""
     import dataclasses
+
+    from uspmv_tpu_torch.ops import _build
 
     for (vdt, xdt), entry in scs_spmv._ENTRY_POINTS.items():
         dev = banded_dev(vdt, cuda)
         chunks = dataclasses.replace(dev, group_lengths=dev.group_lengths[:0])
         for form, d in ((1, dev), (0, chunks)):
-            geom = scs_spmv.launch_geometry(d, xdt)
-            assert geom["groups"] == form, entry
-            assert geom["blocks_per_sm"] >= 5, (entry, form)
-            assert geom["grid"] == -(-dev.n_rows_padded // 256)
+            for n_vec, passes in ((1, 1), (8, 1), (16, 2), (17, 3)):
+                geom = scs_spmv.launch_geometry(d, xdt, n_vec)
+                assert geom["groups"] == form, entry
+                assert geom["blocks_per_sm"] >= 5, (entry, form, n_vec)
+                assert geom["grid"] == -(-dev.n_rows_padded // 256)
+                assert geom["passes"] == passes
     unit, _ = ones_devs(cuda)
-    assert scs_spmv.launch_geometry(unit, torch.float32)["blocks_per_sm"] >= 5
+    for n_vec in (1, 8):
+        assert scs_spmv.launch_geometry(
+            unit, torch.float32, n_vec)["blocks_per_sm"] >= 5
+    colwise = []
+    for r in _build.kernel_resources(_build.load_library().path):
+        for kernel, n_args in (("scs_spmv_kernel<", 7),
+                               ("scs_ones_kernel<", 4)):
+            if kernel in r["function"]:
+                args = r["function"].split(kernel)[1].split(">")[0]
+                args = [a.strip() for a in args.split(",")]
+                if len(args) == n_args and args[-1] == "true":
+                    colwise.append(r)
+    # every (values, x) pair and the unit stream, BS 2, 4 (full, guarded)
+    # and 8 (full, guarded), with and without group lengths
+    assert len(colwise) == 5 * 5 * 2 + 5
+    assert all(r["local"] == 0 and r["registers"] <= 48
+               for r in colwise), colwise
+
+
+def colwise_stream(name, device):
+    """(DeviceScs, x dtype) of stream ``name``: path E's padded dp stream
+    (WideSpectrum-8 at C=32) as a (values, x) pair read by its group lengths
+    ("groups") or by its chunks' ("chunks"), or the unit stream."""
+    import dataclasses
+
+    if name == "unit":
+        return ones_devs(device)[0], torch.float32
+    pair_name, form = name.rsplit("-", 1)
+    pair = next(p for p in PAIRS if f"{p[0]}-{p[1]}" == pair_name)
+    dev = pair_dev(padded_streams(32, 1)["dp"], pair, device)
+    assert dev.group_length_bytes
+    if form == "chunks":
+        dev = dataclasses.replace(dev, group_lengths=dev.group_lengths[:0])
+    return dev, pair[1]
+
+
+def strided_view(t, pad):
+    """``t`` [bs, n] as a view into a wider buffer filled with NaN: each
+    vector contiguous, ``pad`` elements between them (a shard's part of a
+    sharded operator's x). Returns (view, buffer)."""
+    bs, n = t.shape
+    buf = torch.full((bs, n + pad), float("nan"), dtype=t.dtype,
+                     device=t.device)
+    view = buf[:, 3:3 + n]
+    view.copy_(t)
+    return view, buf
+
+
+COLWISE_STREAMS = [f"{v}-{x}-{form}" for v, x in PAIRS
+                   for form in ("groups", "chunks")] + ["unit"]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("bs", [2, 3, 8, 9, 16])
+@pytest.mark.parametrize("stream", COLWISE_STREAMS)
+def test_colwise_block_equals_one_vector_launches(cuda, stream, bs, strided):
+    """bs colwise vectors in one launch (a pass of 8 vectors per grid row)
+    are bs one-vector launches and the rowwise form's columns, bit for
+    bit, written and accumulated, on contiguous vectors and on views with
+    a stride of their own; within tolerance of the plain version; nothing
+    outside the views written."""
+    dev, xdt = colwise_stream(stream, cuda)
+    n = dev.n_rows_padded
+    x, y0 = randn_pair((bs, n), xdt, cuda, bs)
+    if strided:
+        x, _ = strided_view(x, 41)
+    name = scs_spmv.entry_for(dev, xdt)
+    for accumulate in (False, True):
+        what = f"{stream} bs={bs} strided={strided} acc={accumulate}"
+        out, buf = strided_view(y0, 23) if strided else (y0.clone(), None)
+        before = scs_spmv.launch_counts()[name]
+        if accumulate:
+            y = spmv_scs(dev, x, "colwise", y=out)
+        else:
+            y = spmv_scs(dev, x, "colwise", out=out)
+        torch.cuda.synchronize()
+        assert scs_spmv.launch_counts()[name] == before + 1, what
+        assert y.data_ptr() == out.data_ptr(), what
+        init = y0 if accumulate else None
+        ones = torch.stack([
+            spmv_scs(dev, x[v].contiguous(),
+                     y=None if init is None else init[v].clone())
+            for v in range(bs)])
+        assert torch.equal(y, ones), what
+        rows = spmv_scs(dev, x.t().contiguous(), "rowwise",
+                        None if init is None else init.t().contiguous())
+        assert torch.equal(y, rows.t()), what
+        ref = spmv_scs_plain(dev, x.contiguous(), "colwise",
+                             None if init is None else init.clone())
+        err = (y - ref).abs().max().item()
+        assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30), what
+        if buf is not None:
+            assert buf[:, :3].isnan().all() and buf[:, 3 + n:].isnan().all()
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("bs", [2, 3, 8, 9, 16])
+@pytest.mark.parametrize("pair", PACKED_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_packed_colwise_equals_one_vector_launches(cuda, pair, bs, strided):
+    """The packed kernel's colwise vectors, one launch that reads each
+    group once for all of them, against one launch per vector and the
+    rowwise form's columns bit for bit, written and accumulated, on
+    contiguous vectors and strided views; its grid is the one-vector
+    grid."""
+    from uspmv_tpu_torch.ops import scs_packed
+
+    vdt, xdt = pair
+    dev, _ = split_streams(imbalanced(), 32, 32, 64, vdt, xdt, 1, cuda,
+                           packed=True)
+    n = dev.n_rows_padded
+    assert scs_packed.launch_geometry(dev, xdt, bs)["grid"] == \
+        scs_packed.launch_geometry(dev, xdt)["grid"]
+    x, y0 = randn_pair((bs, n), xdt, cuda, bs)
+    if strided:
+        x, _ = strided_view(x, 41)
+    for accumulate in (False, True):
+        what = f"{pair} bs={bs} strided={strided} acc={accumulate}"
+        out, buf = strided_view(y0, 23) if strided else (y0.clone(), None)
+        if accumulate:
+            y = scs_packed.spmv_packed(dev, x, "colwise", y=out)
+        else:
+            y = scs_packed.spmv_packed(dev, x, "colwise", out=out)
+        torch.cuda.synchronize()
+        init = y0 if accumulate else None
+        ones = torch.stack([
+            scs_packed.spmv_packed(dev, x[v].contiguous(),
+                                   y=None if init is None else init[v].clone())
+            for v in range(bs)])
+        assert torch.equal(y, ones), what
+        rows = scs_packed.spmv_packed(
+            dev, x.t().contiguous(), "rowwise",
+            None if init is None else init.t().contiguous())
+        assert torch.equal(y, rows.t()), what
+        ref = scs_packed.spmv_packed_plain(dev, x.contiguous(), "colwise",
+                                           None if init is None
+                                           else init.clone())
+        err = (y - ref).abs().max().item()
+        assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30), what
+        if buf is not None:
+            assert buf[:, :3].isnan().all() and buf[:, 3 + n:].isnan().all()
 
 
 # ---------------------------------------- group lengths of the row loop

@@ -269,7 +269,8 @@ def test_kernel_ab_without_a_gpu_raises(tmp_path):
 
 def test_kernel_resources_reads_cuobjdump(monkeypatch):
     """The registers and local memory per kernel, from cuobjdump's
-    -res-usage text (demangled by c++filt where it is installed)."""
+    -res-usage text (demangled by c++filt where it is installed), and the
+    instructions of each kernel's SASS from its -sass text."""
     import subprocess
 
     text = ("Resource usage:\n Common:\n  GLOBAL:0\n"
@@ -277,6 +278,13 @@ def test_kernel_resources_reads_cuobjdump(monkeypatch):
             "CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0\n"
             " Function _Z6kernBPd:\n  REG:64 STACK:8 SHARED:1024 LOCAL:16 "
             "CONSTANT[0]:400 TEXTURE:0 SURFACE:0 SAMPLER:0\n")
+    sass = ("\tcode for sm_90a\n\t\tFunction : _Z6kernBPd\n"
+            "\t.headerflags\t@\"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\"\n"
+            "        /*0000*/  LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */\n"
+            "                                          /* 0x000fe40000000800 */\n"
+            "        /*0010*/  EXIT ;                  /* 0x000000000000794d */\n"
+            "\t\tFunction : _Z6kernAPf\n"
+            "        /*0000*/  EXIT ;                  /* 0x000000000000794d */\n")
     calls = []
 
     def fake_run(cmd, **kw):
@@ -284,7 +292,7 @@ def test_kernel_resources_reads_cuobjdump(monkeypatch):
         if cmd[0] == "c++filt":
             out = "kernA(float*)\nkernB(double*)\n"
         else:
-            out = text
+            out = sass if "-sass" in cmd else text
         return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
 
     monkeypatch.setattr(_build, "find_nvcc", lambda: "/cuda/bin/nvcc")
@@ -292,11 +300,12 @@ def test_kernel_resources_reads_cuobjdump(monkeypatch):
     monkeypatch.setattr(_build.shutil, "which", lambda name: name)
     got = _build.kernel_resources(Path("lib.so"))
     assert calls[0] == ["/cuda/bin/cuobjdump", "-res-usage", "lib.so"]
+    assert calls[1] == ["/cuda/bin/cuobjdump", "-sass", "lib.so"]
     assert got == [
         dict(function="kernA(float*)", registers=40, stack=0, shared=0,
-             local=0),
+             local=0, sass_instructions=1),
         dict(function="kernB(double*)", registers=64, stack=8, shared=1024,
-             local=16)]
+             local=16, sass_instructions=2)]
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     assert [r["function"] for r in _build.kernel_resources(Path("x"))] \
         == ["_Z6kernAPf", "_Z6kernBPd"]

@@ -43,6 +43,18 @@ CASES = {
 CASES["ap[dp_sp]-bs4-rowwise"] = dict(
     value_type="ap[dp_sp]", ap_threshold_1=1.0, block_vec_size=4,
     vector_layout="rowwise")
+# two passes of 8 in either layout, and a colwise block of 3 (guarded)
+CASES.update({
+    f"sp-bs{bs}-{layout}": dict(value_type="sp", block_vec_size=bs,
+                                vector_layout=layout)
+    for bs, layout in ((16, "rowwise"), (16, "colwise"), (3, "colwise"))})
+# the port's rows as packed row groups (one read of the matrix for every
+# vector), held against the JAX operator's default tier
+PORT_ONLY = dict(mixed_tiles=True, split_rows_threshold=-1)
+CASES.update({
+    f"sp-bs{bs}-{layout}-packed": dict(value_type="sp", block_vec_size=bs,
+                                       vector_layout=layout, **PORT_ONLY)
+    for bs, layout in ((16, "colwise"), (4, "rowwise"))})
 
 
 def config(cls, **kw):
@@ -60,8 +72,10 @@ def test_spmmv_matches_jax_operator(name):
     kw = CASES[name]
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        jop = JOperator.from_mtx(config(JConfig, **kw),
-                                 jgen.random_banded(3000, 40, 9))
+        jop = JOperator.from_mtx(
+            config(JConfig, **{k: v for k, v in kw.items()
+                               if k not in PORT_ONLY}),
+            jgen.random_banded(3000, 40, 9))
     op = SpmvOperator.from_mtx(config(Config, **kw),
                                tgen.random_banded(3000, 40, 9))
     bs, layout = kw["block_vec_size"], kw["vector_layout"]
@@ -74,12 +88,29 @@ def test_spmmv_matches_jax_operator(name):
     assert y.shape == ref.shape == (op.n_rows, bs) and y.dtype == ref.dtype
     assert per_column_rel(y, ref) <= TOL[kw["value_type"]]
     assert op.flops_per_spmv() == jop.flops_per_spmv()
-    passes = bs if layout == "colwise" else 1
-    assert op.matrix_passes() == passes
+    # the SELL kernel reads the matrix once per 8 vectors in either
+    # layout, the packed kernel once for all of them
+    packed = kw.get("mixed_tiles", False)
+    assert op.is_packed() == packed
+    passes = 1 if packed else -(-bs // 8)
+    assert op.matrix_passes(packed) == passes
+    assert op.matrix_passes(True) == 1
     xw = xd.element_size()
     assert op.bytes_per_spmv() == passes * sum(
         d.stream_bytes() for d in op.devs.values()
     ) + 2 * op.n_rows_padded * bs * xw
+
+
+@pytest.mark.parametrize("bs", [1, 3, 8, 9, 16, 17, 64])
+def test_vector_passes_cover_each_vector_once(bs):
+    passes = scs_spmv.vector_passes(bs)
+    assert [v for v0, k in passes for v in range(v0, v0 + k)] == list(
+        range(bs))
+    assert all(1 <= k <= scs_spmv.MAX_COLS_PER_PASS for _, k in passes)
+    # the kernel's colwise grid rows: vectors 8p .. 8p + 7 in row p
+    assert [v0 for v0, _ in passes] == [
+        scs_spmv.MAX_COLS_PER_PASS * p for p in range(len(passes))]
+    assert len(passes) == -(-bs // 8)
 
 
 @pytest.mark.parametrize("layout", ["rowwise", "colwise"])
@@ -193,3 +224,25 @@ def test_wrapper_rejects_unsupported_pairs_and_layouts():
         spmv_scs(dev, torch.zeros(dev.n_rows_padded, 2), "diagonal")
     with pytest.raises(ValueError, match="rows"):
         spmv_scs(dev, torch.zeros(dev.n_rows_padded, 2), "colwise")
+
+
+@pytest.mark.parametrize("layout", ["rowwise", "colwise"])
+@pytest.mark.parametrize("bs", [4, 16])
+def test_sharded_bytes_read_sell_parts_per_pass_and_packed_once(bs, layout):
+    """The sharded operator's byte count: its SELL-C-sigma parts once per
+    pass of 8 vectors, its packed parts once, in either layout (a Laplacian
+    at C=32 in 4 shards: packed halo parts beside SELL interiors)."""
+    from uspmv_tpu_torch.ops.device_format import DevicePacked
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+
+    op = DistributedSpmvOperator.from_mtx(Config(
+        backend="cpu", kernel_format="scs", chunk_size=32, sigma=1,
+        value_type="sp", n_shards=4, seg_method="seg-nnz",
+        split_rows_threshold=-1, block_vec_size=bs, vector_layout=layout),
+        tgen.laplace2d(16))
+    devs = op._devs("sp")
+    packed = [d for d in devs if isinstance(d, DevicePacked)]
+    assert packed and len(packed) < len(devs)
+    want = sum((1 if isinstance(d, DevicePacked) else -(-bs // 8))
+               * d.stream_bytes() for d in devs)
+    assert op.bytes_per_spmv() == want + 4 * op.n_rows_padded * bs * 4 * 2

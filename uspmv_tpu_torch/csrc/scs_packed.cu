@@ -27,10 +27,13 @@
 // threads stride over the group's elements, coalesced whatever the row
 // lengths, and write val * x[col] into shared memory. Phase b: thread t sums
 // row t's products from shared memory in order of k and writes, or with
-// `accumulate` adds into, y; a row with no elements writes 0. Rowwise block
-// vectors run one pass (a, b) per column inside the launch; the group's
-// values and columns are read again from L1/L2, so device memory sees them
-// once. Colwise block vectors: gridDim.y = vectors.
+// `accumulate` adds into, y; a row with no elements writes 0. Block
+// vectors, rowwise columns and colwise vectors alike, run one pass (a, b)
+// per column or vector inside the launch; the group's values and columns
+// are read again from L1/L2, so device memory sees them once for all of
+// them. (The JAX operator runs colwise vectors one kernel each, jax.vmap;
+// here they share the group's reads.) Each column's products and sums are
+// those of a launch for it alone, in the same order.
 //
 // What bounds it. The columns of the matrices this tier takes are
 // scattered, so each x load is an L2 sector of its own: the floor is the
@@ -68,7 +71,7 @@ namespace {
 using uspmv::kThreads;
 using uspmv::widen;
 
-constexpr int kMaxGridY = 65535;
+constexpr int kMaxVectors = 65535;  // ops/scs_spmv.MAX_VECTORS
 constexpr int kMaxStageBytes = 48 * 1024;
 
 // Elements per thread whose value and column phase a loads before their x.
@@ -92,15 +95,21 @@ struct PackedArgs {
   int64_t y_vstride;
   int ncols;
   int accumulate;
+  int n_vec;  // colwise vectors
 };
 
-template <typename Tv, typename Tx>
+// kColwise: the passes are those of n_vec colwise vectors, x[col +
+// v*x_vstride] (x_ld, y_ld and ncols 1), else of ncols rowwise columns.
+template <typename Tv, typename Tx, bool kColwise>
 __global__ void __launch_bounds__(kThreads)
 scs_packed_kernel(const PackedArgs a) {
   constexpr int B = kPhaseABatch<Tx>;
   extern __shared__ __align__(16) unsigned char stage_raw[];
   Tx* stage = reinterpret_cast<Tx*>(stage_raw);
   const Tv* __restrict__ values = static_cast<const Tv*>(a.values);
+  // gridDim.y is 1; the offsets stay so that the one-vector and rowwise
+  // kernel keeps its instructions (PERF.md: parent against change in
+  // cuobjdump, and its times in turns)
   const Tx* __restrict__ x = static_cast<const Tx*>(a.x) +
                              static_cast<int64_t>(blockIdx.y) * a.x_vstride;
   Tx* __restrict__ y =
@@ -122,7 +131,9 @@ scs_packed_kernel(const PackedArgs a) {
       end = __ldg(a.row_ptr + r + 1) - grp.z;
     }
     const int g_next = g + static_cast<int>(gridDim.x);
-    for (int v = 0; v < a.ncols; ++v) {
+    const int n_pass = kColwise ? a.n_vec : a.ncols;
+    for (int v = 0; v < n_pass; ++v) {
+      const Tx* __restrict__ xs = x + static_cast<int64_t>(v) * a.x_vstride;
       for (int32_t k0 = grp.z + t; k0 < grp.w; k0 += B * kThreads) {
         Tv val[B];
         int32_t col[B];
@@ -138,7 +149,11 @@ scs_packed_kernel(const PackedArgs a) {
 #pragma unroll
         for (int b = 0; b < B; ++b) {
           if (k0 + b * kThreads < grp.w) {
-            xv[b] = __ldg(x + static_cast<int64_t>(col[b]) * a.x_ld + v);
+            if constexpr (kColwise) {
+              xv[b] = __ldg(xs + col[b]);
+            } else {
+              xv[b] = __ldg(x + static_cast<int64_t>(col[b]) * a.x_ld + v);
+            }
           }
         }
 #pragma unroll
@@ -150,7 +165,7 @@ scs_packed_kernel(const PackedArgs a) {
         }
       }
       __syncthreads();
-      if (v + 1 == a.ncols && g_next < a.n_groups) {
+      if (v + 1 == n_pass && g_next < a.n_groups) {
         next = __ldg(a.groups + g_next);  // arrives while phase b sums
       }
       if (has_row) {
@@ -158,7 +173,9 @@ scs_packed_kernel(const PackedArgs a) {
         for (int32_t k = begin; k < end; ++k) {
           acc += stage[k];
         }
-        Tx* yr = y + static_cast<int64_t>(r) * a.y_ld + v;
+        Tx* yr = kColwise
+                     ? y + static_cast<int64_t>(v) * a.y_vstride + r
+                     : y + static_cast<int64_t>(r) * a.y_ld + v;
         *yr = a.accumulate ? *yr + acc : acc;
       }
       __syncthreads();  // the next pass or group overwrites the stage
@@ -167,9 +184,8 @@ scs_packed_kernel(const PackedArgs a) {
 }
 
 // The persistent grid of one instantiation: blocks resident per SM at
-// stage_bytes (per_sm), and the blocks along x of a launch (blocks): all
-// resident blocks shared among the n_vec colwise vectors, at most one per
-// group.
+// stage_bytes (per_sm), and the blocks of a launch (blocks): all resident
+// blocks, at most one per group. n_vec > 1: the colwise instantiation.
 template <typename Tv, typename Tx>
 cudaError_t packed_grid(int64_t n_groups, int n_vec, int stage_bytes,
                         int* per_sm, int64_t* blocks) {
@@ -181,8 +197,12 @@ cudaError_t packed_grid(int64_t n_groups, int n_vec, int stage_bytes,
                                  device);
   }
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, scs_packed_kernel<Tv, Tx>, kThreads, stage_bytes);
+    err = n_vec > 1 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          per_sm, scs_packed_kernel<Tv, Tx, true>, kThreads,
+                          stage_bytes)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          per_sm, scs_packed_kernel<Tv, Tx, false>, kThreads,
+                          stage_bytes);
   }
   if (err != cudaSuccess) {
     cudaGetLastError();  // reset it, or the next launch would report it
@@ -191,8 +211,7 @@ cudaError_t packed_grid(int64_t n_groups, int n_vec, int stage_bytes,
   if (*per_sm < 1) {
     return cudaErrorLaunchOutOfResources;
   }
-  int64_t b = static_cast<int64_t>(*per_sm) * n_sm / (n_vec > 0 ? n_vec : 1);
-  b = b < 1 ? 1 : b;
+  const int64_t b = static_cast<int64_t>(*per_sm) * n_sm;
   *blocks = b < n_groups ? b : n_groups;
   return cudaSuccess;
 }
@@ -206,7 +225,8 @@ int launch_packed(int64_t n_groups, const void* groups, const void* row_ptr,
   if (n_groups <= 0 || n_vec <= 0 || ncols <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (n_vec > kMaxGridY || n_groups > INT32_MAX || stage_bytes < 0 ||
+  if (n_vec > kMaxVectors || n_groups > INT32_MAX || stage_bytes < 0 ||
+      (n_vec > 1 && (ncols != 1 || x_ld != 1 || y_ld != 1)) ||
       stage_bytes > kMaxStageBytes ||
       stage_bytes % static_cast<int>(sizeof(Tx)) != 0 ||
       reinterpret_cast<uintptr_t>(groups) % alignof(int4) != 0) {
@@ -231,12 +251,16 @@ int launch_packed(int64_t n_groups, const void* groups, const void* row_ptr,
                      y_ld,
                      y_vstride,
                      ncols,
-                     accumulate};
-  const dim3 grid(static_cast<unsigned int>(blocks),
-                  static_cast<unsigned int>(n_vec));
-  scs_packed_kernel<Tv, Tx>
-      <<<grid, kThreads, static_cast<size_t>(stage_bytes),
-         static_cast<cudaStream_t>(stream)>>>(a);
+                     accumulate,
+                     n_vec};
+  const dim3 grid(static_cast<unsigned int>(blocks), 1u);
+  const size_t smem = static_cast<size_t>(stage_bytes);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_vec > 1) {
+    scs_packed_kernel<Tv, Tx, true><<<grid, kThreads, smem, s>>>(a);
+  } else {
+    scs_packed_kernel<Tv, Tx, false><<<grid, kThreads, smem, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

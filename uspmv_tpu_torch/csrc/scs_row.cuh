@@ -115,7 +115,11 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 // e = chunk_ptrs[c] + j*C + i, for padded row r = c*C + i, summed in order
 // of j as acc = fma(a, x, acc) from acc = 0, L the length of r's group
 // (group_length) where kGroups, else of r's chunk. BS accumulators per
-// thread; kFull: ncols == BS (no column guard). kGroups is a template
+// thread; kFull: ncols == BS (no column guard). kColwise: the BS values
+// of a column are those of BS colwise vectors, x[col_idxs[e] + v*x_vstride]
+// (x_ld is then 1 and not read), so that one pass over the matrix serves
+// them all; each vector's sum is the one a launch for it alone takes,
+// bit for bit (the same FMAs in the same order). kGroups is a template
 // argument, not a branch on group_length_bytes, so that a stream without
 // group lengths runs the code it ran before them: with both forms in one
 // kernel, at the 48-register cap, the chunk form cost the headline 2-3%
@@ -143,11 +147,12 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 // flight the one-vector kernels run near the device-memory rate (the
 // numbers are in scs_spmv.cu and PERF.md).
 template <typename Tv, typename Tx, int BS, bool kFull, bool kReadOnlyX,
-          bool kGroups>
+          bool kGroups, bool kColwise = false>
 __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
                                                 const Tx* x, int64_t x_ld,
                                                 int64_t r, int ncols,
-                                                Tx (&acc)[BS]) {
+                                                Tx (&acc)[BS],
+                                                int64_t x_vstride = 0) {
   constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
   const int32_t group_len = kGroups ? group_length(m, r) : 0;
@@ -175,11 +180,23 @@ __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (j0 + k < len) {
-        const Tx* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+        if constexpr (kColwise) {
+          // one pointer stepped by the stride: no offset per vector held
+          const Tx* xr = x + col[k];
 #pragma unroll
-        for (int v = 0; v < BS; ++v) {
-          if (kFull || v < ncols) {
-            xv[k][v] = load_x<Tx, kReadOnlyX>(xr + v);
+          for (int v = 0; v < BS; ++v) {
+            if (kFull || v < ncols) {
+              xv[k][v] = load_x<Tx, kReadOnlyX>(xr);
+            }
+            xr += x_vstride;
+          }
+        } else {
+          const Tx* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+#pragma unroll
+          for (int v = 0; v < BS; ++v) {
+            if (kFull || v < ncols) {
+              xv[k][v] = load_x<Tx, kReadOnlyX>(xr + v);
+            }
           }
         }
       }

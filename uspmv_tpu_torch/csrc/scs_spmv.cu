@@ -69,8 +69,15 @@
 //     keeps the accumulators in registers and the matrix element in one
 //     register for all columns, where a thread per (row, column) would load
 //     each element bs times.
-//   * colwise x[bs][n_pad]: gridDim.y = bs, one matrix pass per vector
-//     (x_vstride / y_vstride = n_pad), as the JAX operator vmaps per vector.
+//   * colwise x[bs][n_pad] (x_vstride / y_vstride between the vectors,
+//     n_pad or more for a view): the same, BS vectors per thread in place
+//     of BS columns, so one launch reads each matrix element once for up
+//     to 8 vectors; gridDim.y counts passes of 8 vectors (bs > 8). The JAX
+//     operator runs one kernel per vector (jax.vmap) because a TPU kernel
+//     keeps one right-hand side in VMEM; here a thread holds the vectors'
+//     accumulators in registers as the rowwise form holds its columns.
+//     Each vector's sum takes the FMAs of a launch for it alone, in the
+//     same order, so y equals bs one-vector launches bit for bit.
 //
 // Design: one thread per padded row. Elements are column-major within a
 // chunk, so the threads of a chunk read consecutive values and col_idxs at
@@ -95,7 +102,8 @@
 // the headline (Laplace3D-128, C=1024, sigma=1, sp) takes 0.0454 ms, 88% of
 // its byte bound and 0.68 of cuSPARSE's time (chip_smoke.py; PERF.md).
 // SpMMV with 8 rowwise columns stays at half its bound: a trip there is
-// one element with 8 x loads.
+// one element with 8 x loads; 8 colwise vectors are the same trip with the
+// 8 loads in 8 vectors.
 //
 // Launch rules: the caller's stream, no allocation, no synchronisation. Each
 // entry point returns cudaGetLastError() so the caller can raise when a
@@ -124,20 +132,22 @@ struct ScsArgs {
   ScsMatrix m;
   const void* x;
   int64_t x_ld;       // elements between the rows of x (bs rowwise, else 1)
-  int64_t x_vstride;  // elements between colwise vectors (gridDim.y)
+  int64_t x_vstride;  // elements between colwise vectors
   void* y;
   int64_t y_ld;
   int64_t y_vstride;
   int ncols;  // rowwise columns of this launch, <= kMaxCols
   int accumulate;
+  int n_vec;  // colwise vectors of this launch
 };
 
 // BS accumulators per thread; kFull: ncols == BS (no column guard);
 // kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV;
 // kGroups: each row stops at its group's length (group_length_bytes != 0),
-// else at its chunk's.
+// else at its chunk's; kColwise: the accumulators are those of BS colwise
+// vectors, blockIdx.y * BS .. of n_vec (kFull: every pass holds BS).
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit,
-          bool kGroups>
+          bool kGroups, bool kColwise = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_spmv_kernel(const ScsArgs a) {
   const int64_t r =
@@ -145,6 +155,29 @@ scs_spmv_kernel(const ScsArgs a) {
   if (r >= a.m.n_rows_padded) {
     return;
   }
+  if constexpr (kColwise) {
+    const int v0 = static_cast<int>(blockIdx.y) * BS;
+    const int nv = kFull ? BS : min(BS, a.n_vec - v0);
+    const Tx* __restrict__ x =
+        static_cast<const Tx*>(a.x) + static_cast<int64_t>(v0) * a.x_vstride;
+    Tx* __restrict__ y =
+        static_cast<Tx*>(a.y) + static_cast<int64_t>(v0) * a.y_vstride;
+    Tx acc[BS];
+    uspmv::scs_row_product<Tv, Tx, BS, kFull, true, kGroups, true>(
+        a.m, x, 1, r, nv, acc, a.x_vstride);
+    Tx* yr = y + r;
+#pragma unroll
+    for (int v = 0; v < BS; ++v) {
+      if (kFull || v < nv) {
+        *yr = a.accumulate ? *yr + acc[v] : acc[v];
+      }
+      yr += a.y_vstride;
+    }
+    return;
+  }
+  // gridDim.y is 1 here; the offset stays so that the one-vector and
+  // rowwise kernels keep their instructions (PERF.md: parent against
+  // change in cuobjdump, and their times in turns)
   const Tx* __restrict__ x = static_cast<const Tx*>(a.x) +
                              static_cast<int64_t>(blockIdx.y) * a.x_vstride;
   Tx* __restrict__ y =
@@ -165,12 +198,14 @@ scs_spmv_kernel(const ScsArgs a) {
 
 // The row sum of an all-ones matrix: acc[v] = sum of x[col*x_ld + v] over
 // the slots of row r whose column is >= 0 (-1 marks padding), in order of
-// j, in trips of kBatchX / BS columns as scs_row_product takes them.
-template <int BS, bool kFull>
+// j, in trips of kBatchX / BS columns as scs_row_product takes them;
+// kColwise: of x[col + v*x_vstride], BS colwise vectors.
+template <int BS, bool kFull, bool kColwise = false>
 __device__ __forceinline__ void scs_ones_row_sum(const ScsMatrix& m,
                                                  const float* x, int64_t x_ld,
                                                  int64_t r, int ncols,
-                                                 float (&acc)[BS]) {
+                                                 float (&acc)[BS],
+                                                 int64_t x_vstride = 0) {
   constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
   const int64_t c = r / C;
@@ -193,11 +228,22 @@ __device__ __forceinline__ void scs_ones_row_sum(const ScsMatrix& m,
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (col[k] >= 0) {
-        const float* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+        if constexpr (kColwise) {
+          const float* xr = x + col[k];
 #pragma unroll
-        for (int v = 0; v < BS; ++v) {
-          if (kFull || v < ncols) {
-            xv[k][v] = __ldg(xr + v);
+          for (int v = 0; v < BS; ++v) {
+            if (kFull || v < ncols) {
+              xv[k][v] = __ldg(xr);
+            }
+            xr += x_vstride;
+          }
+        } else {
+          const float* xr = x + static_cast<int64_t>(col[k]) * x_ld;
+#pragma unroll
+          for (int v = 0; v < BS; ++v) {
+            if (kFull || v < ncols) {
+              xv[k][v] = __ldg(xr + v);
+            }
           }
         }
       }
@@ -218,13 +264,32 @@ __device__ __forceinline__ void scs_ones_row_sum(const ScsMatrix& m,
 }
 
 // The unit-value form of scs_spmv_kernel (float x and y; m.values unread).
-// kOnesStride1: one vector with unit strides.
-template <int BS, bool kFull, bool kOnesStride1>
+// kOnesStride1: one vector with unit strides; kColwise as there.
+template <int BS, bool kFull, bool kOnesStride1, bool kColwise = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_ones_kernel(const ScsArgs a) {
   const int64_t r =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= a.m.n_rows_padded) {
+    return;
+  }
+  if constexpr (kColwise) {
+    const int v0 = static_cast<int>(blockIdx.y) * BS;
+    const int nv = kFull ? BS : min(BS, a.n_vec - v0);
+    const float* __restrict__ x = static_cast<const float*>(a.x) +
+                                  static_cast<int64_t>(v0) * a.x_vstride;
+    float* __restrict__ y =
+        static_cast<float*>(a.y) + static_cast<int64_t>(v0) * a.y_vstride;
+    float acc[BS];
+    scs_ones_row_sum<BS, kFull, true>(a.m, x, 1, r, nv, acc, a.x_vstride);
+    float* yr = y + r;
+#pragma unroll
+    for (int v = 0; v < BS; ++v) {
+      if (kFull || v < nv) {
+        *yr = a.accumulate ? *yr + acc[v] : acc[v];
+      }
+      yr += a.y_vstride;
+    }
     return;
   }
   const float* __restrict__ x = static_cast<const float*>(a.x) +
@@ -246,16 +311,47 @@ scs_ones_kernel(const ScsArgs a) {
 
 // kOnes: the unit-value kernel (Tv and Tx are then float and unused)
 template <typename Tv, typename Tx, bool kOnes, int BS, bool kFull,
-          bool kUnit = false>
+          bool kUnit = false, bool kColwise = false>
 void launch_variant(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
   if constexpr (kOnes) {
-    scs_ones_kernel<BS, kFull, kUnit><<<grid, kThreads, 0, stream>>>(a);
+    scs_ones_kernel<BS, kFull, kUnit, kColwise>
+        <<<grid, kThreads, 0, stream>>>(a);
   } else if (a.m.group_length_bytes != 0) {
-    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, true>
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, true, kColwise>
         <<<grid, kThreads, 0, stream>>>(a);
   } else {
-    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, false>
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, false, kColwise>
         <<<grid, kThreads, 0, stream>>>(a);
+  }
+}
+
+// Colwise: BS vectors per thread, the accumulators of up to kMaxCols;
+// n_vec > kMaxCols runs passes of kMaxCols (gridDim.y), the last one
+// guarded unless kMaxCols divides n_vec.
+template <typename Tv, typename Tx, bool kOnes>
+void launch_colwise(const ScsArgs& a, int64_t blocks, cudaStream_t s) {
+  const int passes = (a.n_vec + kMaxCols - 1) / kMaxCols;
+  const dim3 grid(static_cast<unsigned int>(blocks),
+                  static_cast<unsigned int>(passes));
+  switch (a.n_vec) {
+    case 2:
+      launch_variant<Tv, Tx, kOnes, 2, true, false, true>(a, grid, s);
+      break;
+    case 3:
+      launch_variant<Tv, Tx, kOnes, 4, false, false, true>(a, grid, s);
+      break;
+    case 4:
+      launch_variant<Tv, Tx, kOnes, 4, true, false, true>(a, grid, s);
+      break;
+    default:  // 5 and more
+      if (a.n_vec % kMaxCols == 0) {
+        launch_variant<Tv, Tx, kOnes, kMaxCols, true, false, true>(a, grid,
+                                                                   s);
+      } else {
+        launch_variant<Tv, Tx, kOnes, kMaxCols, false, false, true>(a, grid,
+                                                                    s);
+      }
+      break;
   }
 }
 
@@ -270,7 +366,11 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   if (n_rows_padded <= 0 || n_vec <= 0 || ncols <= 0) {
     return static_cast<int>(cudaSuccess);
   }
-  if (C < 1 || ncols > kMaxCols || n_vec > kMaxGridY) {
+  // several colwise vectors are one vector's columns each: unit row
+  // strides, one column
+  if (C < 1 || ncols > kMaxCols ||
+      (static_cast<int64_t>(n_vec) + kMaxCols - 1) / kMaxCols > kMaxGridY ||
+      (n_vec > 1 && (ncols != 1 || x_ld != 1 || y_ld != 1))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!kOnes && (group_length_bytes < 0 || group_length_bytes == 3 ||
@@ -294,10 +394,14 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
                   y_ld,
                   y_vstride,
                   ncols,
-                  accumulate};
-  const dim3 grid(static_cast<unsigned int>(blocks),
-                  static_cast<unsigned int>(n_vec));
+                  accumulate,
+                  n_vec};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_vec > 1) {
+    launch_colwise<Tv, Tx, kOnes>(a, blocks, s);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid(static_cast<unsigned int>(blocks), 1u);
   switch (ncols) {
     case 1:
       if (x_ld == 1 && y_ld == 1) {
@@ -325,23 +429,34 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of kThreads of the one-vector instantiation (BS 1, unit strides)
-// that stay resident on an SM, for a report of the launch: the form with
-// group lengths where groups != 0, else the chunk form (launch_variant's
-// choice; the unit-value kernel has one form).
-template <typename Tv, typename Tx, bool kOnes = false>
-int blocks_per_sm(int* per_sm, int groups) {
-  cudaError_t err;
+// Blocks of kThreads of one instantiation that stay resident on an SM, for
+// a report of the launch: the one-vector kernel (BS 1, unit strides), or
+// with colwise the kernel of 8 colwise vectors (BS 8, every pass full); the
+// form with group lengths where groups != 0, else the chunk form
+// (launch_variant's choice; the unit-value kernel has one form).
+template <typename Tv, typename Tx, bool kOnes, bool kColwise>
+cudaError_t occupancy(int* per_sm, int groups) {
+  constexpr int BS = kColwise ? kMaxCols : 1;
+  constexpr bool kUnit = !kColwise;
   if constexpr (kOnes) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, scs_ones_kernel<1, true, true>, kThreads, 0);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_ones_kernel<BS, true, kUnit, kColwise>, kThreads, 0);
   } else if (groups != 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true, true>, kThreads, 0);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_spmv_kernel<Tv, Tx, BS, true, kUnit, true, kColwise>,
+        kThreads, 0);
   } else {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        per_sm, scs_spmv_kernel<Tv, Tx, 1, true, true, false>, kThreads, 0);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, scs_spmv_kernel<Tv, Tx, BS, true, kUnit, false, kColwise>,
+        kThreads, 0);
   }
+}
+
+template <typename Tv, typename Tx, bool kOnes = false>
+int blocks_per_sm(int* per_sm, int groups, int colwise) {
+  const cudaError_t err =
+      colwise ? occupancy<Tv, Tx, kOnes, true>(per_sm, groups)
+              : occupancy<Tv, Tx, kOnes, false>(per_sm, groups);
   if (err != cudaSuccess) {
     cudaGetLastError();
   }
@@ -350,16 +465,17 @@ int blocks_per_sm(int* per_sm, int groups) {
 
 }  // namespace
 
-#define USPMV_BLOCKS_PER_SM(name, ...) \
-  int name##_blocks_per_sm(int* per_sm, int groups) { \
-    return blocks_per_sm<__VA_ARGS__>(per_sm, groups); \
+#define USPMV_BLOCKS_PER_SM(name, ...)                             \
+  int name##_blocks_per_sm(int* per_sm, int groups, int colwise) { \
+    return blocks_per_sm<__VA_ARGS__>(per_sm, groups, colwise);    \
   }
 
 extern "C" {
 
 // <entry>_blocks_per_sm: resident blocks per SM of the entry's one-vector
-// kernel, with group lengths where groups != 0; the grid is
-// ceil(n_rows_padded / 256) blocks by n_vec.
+// kernel, or with colwise != 0 of its kernel of 8 colwise vectors, with
+// group lengths where groups != 0; the grid is ceil(n_rows_padded / 256)
+// blocks by ceil(n_vec / 8) passes.
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f64_f64, double, double)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_f32_f32, float, float)
 USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_bf16_f32, __nv_bfloat16, float)
@@ -373,7 +489,9 @@ USPMV_BLOCKS_PER_SM(uspmv_scs_spmv_unit_f32, float, float, true)
 // (group_length_bytes 0: each chunk's length bounds the loop). x_ld / y_ld are
 // the element strides between rows (bs for rowwise block vectors, else 1),
 // x_vstride / y_vstride the strides between the n_vec vectors of a colwise
-// block (gridDim.y), ncols <= 8 the rowwise columns of this pass.
+// block, ncols <= 8 the rowwise columns of this pass. n_vec > 1 takes
+// x_ld == y_ld == 1 and ncols == 1, and reads the matrix once per 8
+// vectors.
 
 int uspmv_scs_spmv_f64_f64(int64_t n_rows_padded, int C,
                            const void* chunk_ptrs, const void* chunk_lengths,

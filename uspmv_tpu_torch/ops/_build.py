@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
@@ -73,20 +73,42 @@ def kernel_resources(library: Path) -> List[dict]:
     """Per kernel of a built library, as ``cuobjdump -res-usage`` reports
     it: the function (demangled by c++filt where it is installed),
     registers per thread, stack, static shared and local memory in bytes
-    (local memory > 0: registers spilled)."""
+    (local memory > 0: registers spilled), and the instructions of its
+    SASS (``cuobjdump -sass``; two builds of one kernel with the same
+    count and registers compiled to the same code, as a rule)."""
     tool = Path(find_nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-res-usage", str(library)],
                           capture_output=True, text=True, check=True).stdout
     found = re.findall(r"Function (\S+):\s*REG:(\d+) STACK:(\d+) "
                        r"SHARED:(\d+) LOCAL:(\d+)", text)
+    sizes = sass_instructions(subprocess.run(
+        [str(tool), "-sass", str(library)], capture_output=True, text=True,
+        check=True).stdout)
     names = [f[0] for f in found]
     if names and shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True,
                                check=True).stdout.splitlines()
     return [dict(function=name, registers=int(reg), stack=int(stack),
-                 shared=int(shared), local=int(local))
-            for name, (_, reg, stack, shared, local) in zip(names, found)]
+                 shared=int(shared), local=int(local),
+                 sass_instructions=sizes.get(mangled))
+            for name, (mangled, reg, stack, shared, local)
+            in zip(names, found)]
+
+
+def sass_instructions(sass: str) -> Dict[str, int]:
+    """Instructions per function of ``cuobjdump -sass`` output: the lines
+    that open with an address, ``/*0a40*/``, after its ``Function :``."""
+    sizes: Dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            sizes[name] = 0
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            sizes[name] += 1
+    return sizes
 
 
 def _sources() -> list:

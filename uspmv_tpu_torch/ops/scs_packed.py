@@ -16,11 +16,10 @@ CUDA tensors it launches the kernel, for CPU tensors it runs
 
 (values, x) dtype pairs: (f64, f64), (f32, f32), (bf16, f32): dp, sp and hp.
 The adaptive-precision streams do not take this tier, as in the JAX
-operator. x layouts: one vector [n_pad]; rowwise block vectors [n_pad, bs],
-one launch that makes one pass per column inside each block (the group's
-values and columns come from L1/L2 after the first, so the matrix bytes are
-counted once); colwise block vectors [bs, n_pad], one launch with one matrix
-pass per vector.
+operator. x layouts: one vector [n_pad]; rowwise block vectors [n_pad, bs]
+and colwise block vectors [bs, n_pad], one launch that makes one pass per
+column or vector inside each block (the group's values and columns come
+from L1/L2 after the first, so the matrix bytes are counted once).
 
 The kernel rounds each product and then sums (two roundings), as the plain
 version does, where the SELL-C-sigma kernel contracts to FMAs. Kernel and
@@ -97,8 +96,9 @@ def stage_bytes(dev: DevicePacked, x_dtype: torch.dtype) -> int:
 def launch_geometry(dev: DevicePacked, x_dtype: torch.dtype,
                     n_vec: int = 1) -> Dict[str, int]:
     """How ``spmv_packed`` launches ``dev`` for x of ``x_dtype`` (``n_vec``
-    colwise vectors) on the current GPU: threads per block, dynamic shared
-    memory, blocks resident per SM and the persistent grid along x."""
+    > 1: colwise vectors, their instantiation) on the current GPU: threads
+    per block, dynamic shared memory, blocks resident per SM and the
+    persistent grid, whatever the number of vectors."""
     name = entry_point(dev.values.dtype, x_dtype)
     lib = _kernel_lib()
     per_sm, blocks = ctypes.c_int(0), ctypes.c_int64(0)

@@ -17,17 +17,18 @@ takes f32 x and runs the kernel's unit-value entry, the counterpart of the
 ``unit=True`` form of the TPU kernel.
 
 x layouts (ops/vectors.py): one vector [n_pad]; rowwise block vectors
-[n_pad, bs], for which one launch streams the matrix once for up to 8
-columns (bs > 8 in passes of <= 8 columns); colwise block vectors
-[bs, n_pad], one launch with one matrix pass per vector. A colwise x or y
-may be a view whose vectors are each contiguous (``addressable``).
+[n_pad, bs] and colwise block vectors [bs, n_pad], for which the kernel
+streams the matrix once for up to 8 columns or vectors (``vector_passes``:
+rowwise bs > 8 as one launch per pass, colwise as one launch whose grid
+rows are the passes). A colwise x or y may be a view whose vectors are
+each contiguous (``addressable``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -53,8 +54,11 @@ _ARGTYPES = (
     + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 THREADS = 256  # threads per block of every row-sum kernel (kThreads)
-MAX_COLS_PER_PASS = 8  # rowwise columns one launch carries (kMaxCols)
-MAX_VECTORS = 65535  # colwise vectors in one launch (gridDim.y)
+# columns or colwise vectors one pass over the matrix carries (kMaxCols)
+MAX_COLS_PER_PASS = 8
+# colwise vectors one launch of a kernel takes (the pieces and halo
+# kernels: gridDim.y)
+MAX_VECTORS = 65535
 LAYOUTS = ("rowwise", "colwise")
 
 _launches: Dict[str, int] = {
@@ -143,7 +147,7 @@ def _kernel_lib() -> ctypes.CDLL:
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
             query = getattr(lib, f"{name}_blocks_per_sm")
-            query.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            query.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
             query.restype = ctypes.c_int
         lib.uspmv_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uspmv_cuda_error_string.restype = ctypes.c_char_p
@@ -159,20 +163,34 @@ def raise_for(lib, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: {msg} (cudaError {rc})")
 
 
-def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype) -> Dict[str, int]:
-    """How ``spmv_scs`` launches ``dev`` for one vector of ``x_dtype`` on
-    the current GPU: threads per block, blocks resident per SM (the
-    occupancy of that instantiation, in the loop form ``dev`` runs: by
-    group lengths where it has them, else by chunk lengths), the form and
-    the grid."""
+def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype,
+                    n_vec: int = 1) -> Dict[str, int]:
+    """How ``spmv_scs`` launches ``dev`` for one vector of ``x_dtype``, or
+    ``n_vec`` > 1 colwise vectors, on the current GPU: threads per block,
+    blocks resident per SM (the occupancy of the one-vector instantiation,
+    or of the one of 8 colwise vectors, in the loop form ``dev`` runs: by
+    group lengths where it has them, else by chunk lengths), the form, the
+    grid and its passes over the matrix (``vector_passes``)."""
     name = entry_for(dev, x_dtype)
     lib = _kernel_lib()
     per_sm = ctypes.c_int(0)
     groups = int(dev.group_length_bytes != 0)
     raise_for(lib, getattr(lib, f"{name}_blocks_per_sm")(
-        ctypes.byref(per_sm), groups), f"{name} occupancy query")
+        ctypes.byref(per_sm), groups, int(n_vec > 1)),
+        f"{name} occupancy query")
     return dict(threads_per_block=THREADS, blocks_per_sm=per_sm.value,
-                groups=groups, grid=-(-dev.n_rows_padded // THREADS))
+                groups=groups, grid=-(-dev.n_rows_padded // THREADS),
+                passes=len(vector_passes(n_vec)))
+
+
+def vector_passes(bs: int) -> List[Tuple[int, int]]:
+    """The passes of the SELL-C-sigma kernel over the matrix for a block
+    of ``bs`` vectors, in either layout: (first column or vector, count)
+    of each, at most MAX_COLS_PER_PASS, in order. Rowwise, each pass is a
+    launch; colwise, a launch runs them as its grid rows (vectors 8p ..
+    8p + 7 in row p, ``launch_colwise`` of csrc/scs_spmv.cu)."""
+    return [(v0, min(MAX_COLS_PER_PASS, bs - v0))
+            for v0 in range(0, bs, MAX_COLS_PER_PASS)]
 
 
 def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:
@@ -338,9 +356,8 @@ def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",
                     y.data_ptr(), 1, y.stride(0), 1, bs, accumulate, stream)
         else:
             bs = x.shape[1]
-            for c0 in range(0, bs, MAX_COLS_PER_PASS):
+            for c0, ncols in vector_passes(bs):
                 _launch(lib, name, dev, x.data_ptr() + c0 * esize, bs, 0,
-                        y.data_ptr() + c0 * esize, bs, 0,
-                        min(MAX_COLS_PER_PASS, bs - c0), 1, accumulate,
-                        stream)
+                        y.data_ptr() + c0 * esize, bs, 0, ncols, 1,
+                        accumulate, stream)
     return y

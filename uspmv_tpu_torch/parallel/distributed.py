@@ -187,6 +187,7 @@ class StreamSummary:
     nnz: int  # stored nonzeros of the row streams
     streamed: int  # elements they stream (packed: nnz; SELL: n_read)
     stream_bytes: int
+    packed_bytes: int  # the packed streams' part of stream_bytes
     pieces_nnz: int = 0
     n_pieces: int = 0
     pieces_bytes: int = 0
@@ -201,6 +202,8 @@ class StreamSummary:
             streamed=sum(d.nnz if isinstance(d, DevicePacked)
                          else d.n_read for d in devs),
             stream_bytes=sum(d.stream_bytes() for d in devs),
+            packed_bytes=sum(d.stream_bytes() for d in devs
+                             if isinstance(d, DevicePacked)),
             pieces_nnz=pc.nnz if pc else 0,
             n_pieces=pc.n_pieces if pc else 0,
             pieces_bytes=pc.stream_bytes() if pc else 0)
@@ -839,10 +842,13 @@ class DistributedSpmvOperator(OperatorBase):
         exchange is not counted, as in the JAX package."""
         bs = self.config.block_vec_size
         total = 0
+        sell_passes, packed_passes = (self.matrix_passes(False),
+                                      self.matrix_passes(True))
         for p in self.precisions:
-            total += self.matrix_passes() * sum(
-                sm.stream_bytes for sm in self.summaries[p])
-            total += bs * sum(sm.pieces_bytes for sm in self.summaries[p])
+            for sm in self.summaries[p]:
+                total += (sell_passes * (sm.stream_bytes - sm.packed_bytes)
+                          + packed_passes * sm.packed_bytes
+                          + bs * sm.pieces_bytes)
         xw = torch.empty((), dtype=self.working_dtype).element_size()
         return total + self.R * self.n_rows_padded * bs * xw * 2
 

@@ -66,7 +66,12 @@ from ..ops.device_format import (
 from ..ops.scs_packed import spmv_packed, spmv_packed_plain
 from ..ops.scs_pieces import spmv_pieces, spmv_pieces_plain
 from ..ops.scs_solve import solve_fits, solve_scs
-from ..ops.scs_spmv import record_captured_launches, spmv_scs, spmv_scs_plain
+from ..ops.scs_spmv import (
+    record_captured_launches,
+    spmv_scs,
+    spmv_scs_plain,
+    vector_passes,
+)
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
 from ..parallel import multihost
 from ..precision.partition import partition_precisions
@@ -301,12 +306,14 @@ class OperatorBase:
         """Useful flops only, padding excluded (reference main.cpp:521-526)."""
         return 2 * self.nnz * self.config.block_vec_size
 
-    def matrix_passes(self) -> int:
-        """Matrix streams per SpMV and precision: one, or one per vector
-        for colwise block vectors."""
-        if self.config.vector_layout == "colwise":
-            return self.config.block_vec_size
-        return 1
+    def matrix_passes(self, packed: bool = False) -> int:
+        """Reads of one row stream from device memory per SpMV, in either
+        layout: a SELL-C-sigma stream one per pass of <= 8 block vectors
+        (``vector_passes``), a packed stream (``packed``) one, its column
+        loop reading each group again from L1/L2."""
+        if packed:
+            return 1
+        return len(vector_passes(self.config.block_vec_size))
 
     def transport(self) -> Optional[str]:
         """The transport of the operator's transfer between processes
@@ -730,12 +737,14 @@ class SpmvOperator(OperatorBase):
     def bytes_per_spmv(self) -> int:
         """Minimum traffic: each precision's matrix stream (values +
         int32 columns of the slots the kernel reads, chunk pointers and
-        group lengths or row-group metadata), once per matrix pass,
-        its pieces (CSR stream, parents' runs, partial sums) once per
-        vector, + x + y in the working dtype. Not comparable with the JAX
-        package's count, whose lane tiles stream int16 gather tables."""
-        total = self.matrix_passes() * sum(
-            dev.stream_bytes() for dev in self.devs.values()
+        group lengths or row-group metadata), once per matrix pass
+        (``matrix_passes``), its pieces (CSR stream, parents' runs, partial
+        sums) once per vector, + x + y in the working dtype. Not comparable
+        with the JAX package's count, whose lane tiles stream int16 gather
+        tables."""
+        total = sum(
+            self.matrix_passes(isinstance(dev, DevicePacked))
+            * dev.stream_bytes() for dev in self.devs.values()
         ) + self.config.block_vec_size * sum(
             pc.stream_bytes() for pc in self.pieces.values()
         )

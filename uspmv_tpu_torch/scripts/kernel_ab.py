@@ -14,8 +14,10 @@ and cuobjdump's registers per kernel are printed for each. The cases:
 
     sell    Laplace3D-128 at C=1024, sigma=1 (the headline) with every
             (values, x) pair of scs_spmv.cu, its all-ones pattern as a
-            unit stream, and sp with rowwise bs 4 and 8 and colwise bs 8;
-            Laplace3D-160, sp
+            unit stream, and sp with rowwise and colwise bs 4 and 8
+            (cuSPARSE's SpMM beside them: A @ X, colwise A @ X.t());
+            Laplace3D-160, sp. The bound reads the matrix once: the
+            least any design of the kernel streams
     padded  the SELL-C-sigma streams with padding to skip, at C=1024,
             sigma=1, each as the operator of its path builds it: path E's
             three (WideSpectrum-55 ap[dp_sp_hp] -dp_emu, thresholds 1e-2 /
@@ -28,7 +30,8 @@ and cuobjdump's registers per kernel are printed for each. The cases:
             column, x and y once over the real rows); each row carries the
             slots its version reads and the share the groups skip
     packed  RandomImbalanced-500k at C=1024, sigma=1, split at the
-            operator's automatic threshold: its packed rows as dp, sp, hp
+            operator's automatic threshold: its packed rows as dp, sp, hp,
+            and sp with colwise bs 4 and 8
     solve   the fused solve (scs_solve.cu), k=32, on the headline's matrix
             scaled by 1/16 (row sums of |A| <= 1), sp
     pieces  the heavy-row pieces (scs_pieces.cu) of the same
@@ -360,7 +363,7 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
             runs = [(pair, "rowwise", 1) for pair in scs_spmv._ENTRY_POINTS]
             runs += [((None, torch.float32), "rowwise", 1),
                      (f32, "rowwise", 4), (f32, "rowwise", 8),
-                     (f32, "colwise", 8)]
+                     (f32, "colwise", 4), (f32, "colwise", 8)]
         rng = np.random.default_rng(0)
         for (vdt, xdt), layout, bs in runs:
             if vdt is None:  # the all-ones pattern without values
@@ -387,16 +390,16 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
                        ncols, n_vec, 0)
 
             library = None
-            if vdt == xdt and bs == 1:
+            if vdt == xdt:
                 keep = dev.values != 0
                 library = csr_call(dev.row_idxs[keep], dev.col_idxs[keep],
-                                   dev.values[keep], n, x)
-            passes = bs if layout == "colwise" else 1
+                                   dev.values[keep], n,
+                                   x.t() if layout == "colwise" else x)
             case = f"{spec} {entry.replace('uspmv_scs_spmv_', '')}" + (
                 f" {layout} bs={bs}" if bs > 1 else "")
             rows += paired(case, versions, run,
                            scs_spmv.spmv_scs_plain(dev, x, layout),
-                           passes * dev.stream_bytes() + 2 * x.numel() * esize,
+                           dev.stream_bytes() + 2 * x.numel() * esize,
                            reps, rounds, library)
             del dev
         del op, mtx
@@ -497,7 +500,8 @@ def padded_stream(versions, op, p, x, label, forced, device, reps,
 def packed_cases(versions, device, reps, rounds) -> List[dict]:
     rows = []
     mtx = generators.random_imbalanced(500_000, 8)
-    for value_type in ("dp", "sp", "hp"):
+    for value_type, bs in (("dp", 1), ("sp", 1), ("hp", 1), ("sp", 4),
+                           ("sp", 8)):
         op = SpmvOperator.from_mtx(
             Config(kernel_format="scs", chunk_size=1024, sigma=1,
                    value_type=value_type, backend="cuda"), mtx)
@@ -505,24 +509,32 @@ def packed_cases(versions, device, reps, rounds) -> List[dict]:
         if not op.is_packed():
             raise RuntimeError(f"packed case: {op.impl_name()} is not packed")
         xdt = torch.float64 if value_type == "dp" else torch.float32
-        x = torch.as_tensor(np.random.default_rng(1).standard_normal(
-            dev.n_rows_padded), device=device).to(xdt)
-        entry = scs_packed.entry_point(dev.values.dtype, xdt)
         n = dev.n_rows_padded
+        x = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (bs, n) if bs > 1 else n), device=device).to(xdt)
+        entry = scs_packed.entry_point(dev.values.dtype, xdt)
+        # x_ld, x_vstride, y_ld, y_vstride, n_vec of one vector or colwise
+        strides = (1, n, 1, n, bs) if bs > 1 else (1, 0, 1, 0, 1)
 
-        def run(v, y, dev=dev, x=x, entry=entry):
+        def run(v, y, dev=dev, x=x, entry=entry, strides=strides):
+            x_ld, x_vs, y_ld, y_vs, n_vec = strides
             v.call(entry, dev.n_groups, dev.groups.data_ptr(),
                    dev.row_ptr.data_ptr(), dev.col_idxs.data_ptr(),
-                   dev.values.data_ptr(), x.data_ptr(), 1, 0, y.data_ptr(),
-                   1, 0, 1, 1, 0, scs_packed.stage_bytes(dev, x.dtype))
+                   dev.values.data_ptr(), x.data_ptr(), x_ld, x_vs,
+                   y.data_ptr(), y_ld, y_vs, 1, n_vec, 0,
+                   scs_packed.stage_bytes(dev, x.dtype))
 
         library = None
         if dev.values.dtype == xdt:
-            library = csr_call(dev.row_idxs, dev.col_idxs, dev.values, n, x)
-        rows += paired(f"RandomImbalanced-500k packed {value_type}", versions,
-                       run, scs_packed.spmv_packed_plain(dev, x),
-                       dev.stream_bytes() + 2 * n * x.element_size(), reps,
-                       rounds, library)
+            library = csr_call(dev.row_idxs, dev.col_idxs, dev.values, n,
+                               x.t() if bs > 1 else x)
+        layout = "colwise" if bs > 1 else "rowwise"
+        case = f"RandomImbalanced-500k packed {value_type}" + (
+            f" colwise bs={bs}" if bs > 1 else "")
+        rows += paired(case, versions, run,
+                       scs_packed.spmv_packed_plain(dev, x, layout),
+                       dev.stream_bytes() + 2 * x.numel() * x.element_size(),
+                       reps, rounds, library)
         del op, dev
         torch.cuda.empty_cache()
     return rows
@@ -807,6 +819,7 @@ def run(args: argparse.Namespace) -> List[dict]:
     rows = resources(versions)
     for r in rows:
         print(f"{r['lib']:10s} REG {r['registers']:3d} LOCAL {r['local']:4d} "
+              f"SASS {r['sass_instructions']} "
               f"{r['function']}")
     card_line = card.card_name_and_power_limit()
     print(card_line)

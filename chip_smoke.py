@@ -7,7 +7,8 @@ Run from the root of a checkout, on a host with one CUDA device, nvcc and
 nvidia-smi. Phases, each printing JSON lines:
 
   1. environment: torch, CUDA, nvcc, and the card's name and power limit;
-  2. build: nvcc compiles uspmv_tpu_torch/csrc/*.cu for sm_90a; the
+  2. build: nvcc compiles uspmv_tpu_torch/csrc/*.cu for sm_90a, one
+     process per source, all at once (the seconds of each); the
      registers and local memory of the row-sum kernels (cuobjdump);
   3. kernel vs plain, small shapes:
      a. the sp and dp operators on Laplace3D-32 at (C, sigma) in
@@ -23,9 +24,11 @@ nvidia-smi. Phases, each printing JSON lines:
         without elements): sp, dp, hp and ap[dp_sp_hp] (all five dtype
         pairs of the pieces, all three of the packed rows), split
         thresholds 2 (a row with more pieces than a warp has lanes), 32
-        and 1024, one vector, rowwise and colwise bs=4, the write and the
-        accumulate form; each kernel against its plain version, and twice
-        in a row bit-equal (the pieces' counters and slots back at 0);
+        and 1024, one vector, rowwise bs 4 and 8 and colwise bs 4 and 9,
+        the write and the accumulate form; each kernel against its plain
+        version, and twice in a row bit-equal (the pieces' counters and
+        slots back at 0), each block vector of the pieces bit-equal to a
+        one-vector launch;
      d. padded streams: path E's configuration on WideSpectrum-20 (three
         streams whose groups of 16 rows are shorter than their chunks),
         every (values, x) pair, layout and the accumulate form against the
@@ -91,13 +94,11 @@ nvidia-smi. Phases, each printing JSON lines:
   8. path G (slice 5), imbalanced rows at full size: FemTet3D-55,
      BandedImbalanced-500k, PowerLawCols-500k and RandomImbalanced-500k at
      (C, sigma) = (1024, 1) and (32, 512), sp, through
-     SpmvOperator.from_mtx three times each: with the defaults ("auto":
-     rows split at the automatic threshold, the tier chosen by beta), with
+     SpmvOperator.from_mtx twice each: with the defaults ("auto": rows
+     split at the automatic threshold, the tier chosen by beta) and with
      the other tier forced ("other": mixed_tiles the opposite of what auto
-     chose, which locates the cross-over of the two tiers), and with
-     split_rows_threshold=-1, mixed_tiles=False ("before": the SELL-C-sigma
-     kernel alone, as this path stood before the slice). Each is compared
-     with its plain version, with scipy in f64, and run twice bit-equal;
+     chose, which locates the cross-over of the two tiers). Each is
+     compared with its plain version, with scipy in f64, and run twice bit-equal;
      op.spmv and each of its kernels are timed by replaying a CUDA graph
      (an op.spmv is up to three launches of ~2-30 us each, so events around
      a Python loop would time the host); beside them the bound of the bytes
@@ -108,10 +109,12 @@ nvidia-smi. Phases, each printing JSON lines:
      with the launch counts of all three wrappers set to 0 before and read
      after. FemTet3D-55 is the control: it must stay on cuda-scs. Then
      RandomImbalanced-500k at (1024, 1) as hp, dp, ap[dp_sp], ap[dp_hp]
-     and sp with rowwise and colwise bs=4 (the packed kernel's colwise
-     vectors read each group once; cuSPARSE's SpMM beside the block
-     vectors' kernels), and a CUDA-graph solve of k=64 bit-equal to the
-     loop. In the driven runs each kernel and cuSPARSE on its
+     and sp with rowwise and colwise bs 4 and 8 (the packed kernel's
+     colwise vectors read each group once, the pieces kernel's vectors of
+     either layout each record once; each pieces block bit-equal to a
+     launch per vector; cuSPARSE's SpMM beside the block vectors'
+     kernels), and a CUDA-graph solve of k=64 bit-equal to the loop. In
+     the driven runs each kernel and cuSPARSE on its
      sub-matrix are timed in turns (kernel, library, library, kernel), as
      are op.spmv and cuSPARSE on the whole matrix; each packed stream
      carries its launch geometry, and each packed and pieces stream its
@@ -318,7 +321,8 @@ LAUNCHES_COUNTED = ("launches through the kernel's wrapper plus its kernel "
                     "solves) on the main path")
 # the kernels whose registers the build phase reports (cuobjdump)
 ROW_SUM_KERNELS = ("scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
-                   "scs_solve_kernel")
+                   "scs_solve_kernel", "scs_pieces_kernel",
+                   "scs_pieces_block_kernel")
 # Solves judged on the relative L2 norm, not per element, and why. Every
 # other validated solve of this script must be OK per element (hp and the
 # ap[*_hp] mixes by validate's own bf16 bound). Keys: (phase, matrix,
@@ -1501,6 +1505,21 @@ TIER_SMALL = {
 }
 
 
+def pieces_one_by_one(pc, x, layout, y0):
+    """The pieces' block product as one launch of the pieces kernel per
+    vector, stacked in the block's layout."""
+    import torch
+
+    from uspmv_tpu_torch.ops import scs_pieces
+
+    cols = layout == "rowwise"
+    ones = [scs_pieces.spmv_pieces(
+        pc, (x[:, v] if cols else x[v]).contiguous(), "rowwise",
+        (y0[:, v] if cols else y0[v]).clone())
+        for v in range(x.shape[1] if cols else x.shape[0])]
+    return torch.stack(ones, dim=1 if cols else 0)
+
+
 def long_row_tol(x, longest):
     """Kernel vs plain where a row of ``longest`` products is summed in two
     orders: the tolerance of x's dtype, or 4 eps sqrt(longest) if larger."""
@@ -1526,7 +1545,9 @@ def small_tiers(rng_seed=2):
         is_ap = name.startswith("ap")
         worst = {}
         for th in (2, 32, 1024):
-            for layout, bs in (("rowwise", 1), ("rowwise", 4), ("colwise", 4)):
+            for layout, bs in (("rowwise", 1), ("rowwise", 4),
+                               ("rowwise", 8), ("colwise", 4),
+                               ("colwise", 9)):
                 for packed in ((False,) if is_ap else (False, True)):
                     op = SpmvOperator.from_mtx(Config(
                         kernel_format="scs", chunk_size=32, sigma=64,
@@ -1570,6 +1591,10 @@ def small_tiers(rng_seed=2):
                             pc, x, layout, y0.clone()), tol, f"{what} {entry}")
                         worst[entry] = max(worst.get(entry, 0.0), rel)
                         seen.add(entry)
+                        if bs > 1:
+                            require(torch.equal(got[0], pieces_one_by_one(
+                                pc, x, layout, y0)), f"{what}: {entry} "
+                                "differs from a launch per vector")
                         if not packed:
                             continue
                         entry = scs_packed.entry_point(dev.values.dtype,
@@ -1608,7 +1633,8 @@ def small_tiers(rng_seed=2):
                     compare(y[0], plain_spmv(op, x), tol, what)
         emit("tier_kernels_vs_plain", matrix="imbalanced_small (4,600 rows)",
              C=32, sigma=64, config=name, thresholds=[2, 32, 1024],
-             shapes=["rowwise-1", "rowwise-4", "colwise-4"],
+             shapes=["rowwise-1", "rowwise-4", "rowwise-8", "colwise-4",
+                     "colwise-9"],
              longest_row=longest, rel_err=worst, bit_equal_run_to_run=True,
              tol=tol)
     require(seen == set(TIER_INSTANTIATIONS),
@@ -1635,7 +1661,15 @@ G_EXTRAS = {
                          vector_layout="rowwise"),
     "sp-colwise-4": dict(value_type="sp", block_vec_size=4,
                          vector_layout="colwise"),
+    "sp-rowwise-8": dict(value_type="sp", block_vec_size=8,
+                         vector_layout="rowwise"),
+    "sp-colwise-8": dict(value_type="sp", block_vec_size=8,
+                         vector_layout="colwise"),
 }
+# the pieces kernel's block-vector forms, each timed in its own run of
+# path G (a kernel-line entry each)
+PIECES_SPMMV_RUNS = ("sp-rowwise-4", "sp-rowwise-8", "sp-colwise-4",
+                     "sp-colwise-8")
 
 
 def tier_stream_records(op, x, reps, tol, with_library):
@@ -1708,13 +1742,22 @@ def tier_stream_records(op, x, reps, tol, with_library):
             f"{entry} vs plain")
         plain_ms = time_ms(
             lambda: scs_pieces.spmv_pieces_plain(pc, x, layout, out), reps)
-        # bound, per vector: the function's own bytes (the CSR stream and
-        # the parents' runs and rows), the x entries the pieces can touch,
-        # the parents' rows of y read and written; moved: the same with
-        # the kernel's records, counters and long records' slots
-        xy = x.element_size() * (min(n, pc.nnz) + 2 * pc.n_parents)
-        nbytes = bs * (pc.bound_bytes() + xy)
+        # bound: the function's own bytes (the CSR stream and the parents'
+        # runs and rows) once, and per vector x at the distinct columns the
+        # pieces read and the parents' rows of y read and written; moved:
+        # the kernel's records and counters with the stream once per pass
+        # of 8 vectors, the long records' slots per vector
+        nbytes = pc.function_bytes(bs, x.element_size())
+        xy = (nbytes - pc.bound_bytes()) // bs
         b_ms, b_by = bound(nbytes, 2 * pc.nnz * bs, x.dtype)
+        one_by_one = None
+        if x.dim() == 2:
+            one_by_one = torch.equal(y, pieces_one_by_one(pc, x, layout, y0))
+            require(one_by_one, f"{entry} {layout} bs={bs}: differs from "
+                    "a launch per vector")
+            require(not pc.arrivals.any().item()
+                    and not pc.slots.any().item(),
+                    f"{entry}: a counter or slot left set")
         call, lib_err = None, "not timed in this run"
         if with_library:
             call, lib_err = library_csr_call(
@@ -1731,7 +1774,8 @@ def tier_stream_records(op, x, reps, tol, with_library):
             n_parents=pc.n_parents, n_records=pc.records.shape[0],
             n_long=pc.longs.shape[0], ms=med["kernel"], plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
-            moved_bytes=bs * (pc.stream_bytes() + xy),
+            moved_bytes=pc.stream_bytes(bs) + bs * xy,
+            bit_equal_to_one_vector_launches=one_by_one,
             max_abs_err=max_abs, rel_err=rel, library_ms=med.get("library"),
             library_error=lib_err, **turns)
         if with_library and x.dim() == 1:
@@ -1816,6 +1860,7 @@ def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
     import torch
 
     from uspmv_tpu_torch import Config, SpmvOperator
+    from uspmv_tpu_torch.ops.device_format import vector_pass_count
     from uspmv_tpu_torch.runtime.bench import bench_spmv
 
     what = f"path G {spec} C={C} s={sigma} {label}"
@@ -1844,7 +1889,7 @@ def path_g_operator(spec, mtx, C, sigma, label, fields, card, drive,
         require(res.timing == "graph", f"{what}: bench timed by {res.timing}")
         main = {k: v for k, v in with_replays(tier_launch_counts()).items()
                 if v}
-        per_spmv = (len(op.devs) * (-(-cfg.block_vec_size // 8)
+        per_spmv = (len(op.devs) * (vector_pass_count(cfg.block_vec_size)
                                     if cfg.vector_layout == "rowwise" else 1)
                     + len(op.pieces))
         require(sum(main.values()) >= res.n_iterations * per_spmv,
@@ -1958,15 +2003,12 @@ def path_g(matrices, card):
             recs["auto"] = auto
             del op, x, y
             torch.cuda.empty_cache()
-            for label, fields in (
-                    ("other", dict(mixed_tiles=not packed)),
-                    ("before", dict(split_rows_threshold=-1,
-                                    mixed_tiles=False))):
-                recs[label], op, x, y = path_g_operator(
-                    spec, mtx, C, sigma, label, fields, card, drive=False,
-                    with_library=False)
-                del op, x, y
-                torch.cuda.empty_cache()
+            # the other tier forced, where the two tiers cross over
+            recs["other"], op, x, y = path_g_operator(
+                spec, mtx, C, sigma, "other", dict(mixed_tiles=not packed),
+                card, drive=False, with_library=False)
+            del op, x, y
+            torch.cuda.empty_cache()
             for label, rec in recs.items():
                 emit("path_g", generate_s=gen_s, library_ms=lib_ms,
                      library_error=lib_err,
@@ -4026,7 +4068,7 @@ def main():
     lib = _build.load_library()
     host_lib.join()
     emit("build", seconds=lib.build_seconds, built=lib.built,
-         library=str(lib.path),
+         step_seconds=lib.step_seconds, library=str(lib.path),
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if "registers" in ln or "Compiling entry" in ln],
          native_host_library=native.available(),
@@ -4038,6 +4080,9 @@ def main():
              if any(k in r["function"] for r in resources)}
             == set(ROW_SUM_KERNELS),
             f"cuobjdump: row-sum kernels missing from {resources}")
+    spilled = [r["function"] for r in resources
+               if "scs_pieces_" in r["function"] and (r["local"] or r["stack"])]
+    require(not spilled, f"pieces kernels with local memory: {spilled}")
     emit("kernel_resources", kernels=resources)
     lap("1-2 environment and build")
 
@@ -4322,6 +4367,14 @@ def main():
                   rec["run_launches"], PACKED_SOURCE, ":1347",
                   "path G, RandomImbalanced-500k C=1024 sigma=1 sp, "
                   "colwise bs=4, by a replayed CUDA graph"))
+    # the pieces kernel's block-vector forms (path G), one per run
+    for run in PIECES_SPMMV_RUNS:
+        rec = tier_records[(run, "uspmv_scs_pieces_f32_f32")]
+        spmmv.append((f"G-{run[3:]}", "uspmv_scs_pieces_f32_f32", rec,
+                      rec["run_launches"], PIECES_SOURCE, ":960",
+                      f"path G, RandomImbalanced-500k C=1024 sigma=1 sp, "
+                      f"{run[3:].replace('-', ' bs=')}, by a replayed CUDA "
+                      "graph"))
     for form, entry, rec, n, source, replaces, timed_on in spmmv:
         require(n > 0, f"{entry} never launched in {form}")
         kernels.append({
@@ -4335,6 +4388,11 @@ def main():
             "library_x_copied_ms": rec.get("library_x_copied_ms"),
             "timed_on": timed_on,
         })
+        if source == PIECES_SOURCE:
+            kernels[-1].update(
+                also_replaces=[PALLAS + ":1201"],
+                bit_equal_to_one_vector_launches=rec[
+                    "bit_equal_to_one_vector_launches"])
     for entry, value_type in SOLVE_INSTANTIATIONS.items():
         rec = solve_records[entry]
         require(solve_launches[entry] > 0, f"{entry} never launched")

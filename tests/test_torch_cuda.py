@@ -16,7 +16,10 @@ from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.coo import MtxData
 from uspmv_tpu_torch.io.generators import laplace2d, random_banded, tridiag
 from uspmv_tpu_torch.ops import scs_spmv
-from uspmv_tpu_torch.ops.device_format import build_device_scs
+from uspmv_tpu_torch.ops.device_format import (
+    build_device_scs,
+    vector_pass_count,
+)
 from uspmv_tpu_torch.ops.scs_spmv import launch_count, spmv_scs, spmv_scs_plain
 from uspmv_tpu_torch.runtime.operator import SpmvOperator, graph_nodes_replayed
 
@@ -151,10 +154,52 @@ def test_every_instantiation_matches_plain(cuda, pair, layout, bs, accumulate):
     before = scs_spmv.launch_counts()[name]
     y = spmv_scs(dev, x, layout, y0.clone() if accumulate else None)
     torch.cuda.synchronize()
-    passes = -(-bs // 8) if layout == "rowwise" else 1
+    passes = vector_pass_count(bs) if layout == "rowwise" else 1
     assert scs_spmv.launch_counts()[name] == before + passes
     ref = spmv_scs_plain(dev, x, layout, y0.clone() if accumulate else None)
     assert y.dtype == xdt and y.shape == ref.shape == shape
+    err = (y - ref).abs().max().item()
+    assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
+
+
+def offset_copy(t):
+    """``t`` as a contiguous view one element into a buffer of its own: its
+    rows miss 16-byte boundaries, so the kernels read them by scalar
+    loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape).copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("bs", [4, 6, 8, 10, 12, 16])
+@pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_rowwise_16_byte_x_loads_equal_scalar_loads(cuda, pair, bs,
+                                                    accumulate):
+    """Rowwise x whose rows lie on 16-byte boundaries (bs 4, 8, 12, 16;
+    passes of 8 then 4 or 8 at a column offset) are read by 16-byte loads
+    (a pass of 8 doubles keeps scalar loads), the same x one element into
+    its buffer by the scalar loads of the parent design, and bs 6 and 10
+    never on 16-byte rows: the same bits, and those of one launch per
+    column; within tolerance of the plain version."""
+    vdt, xdt = pair
+    dev = banded_dev(vdt, cuda)
+    n = dev.n_rows_padded
+    x, y0 = randn_pair((n, bs), xdt, cuda, bs)
+    init = y0.clone() if accumulate else None
+    y = spmv_scs(dev, x, "rowwise", init)
+    scalar = spmv_scs(dev, offset_copy(x), "rowwise",
+                      None if init is None else y0.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(y, scalar)
+    ones = torch.stack([
+        spmv_scs(dev, x[:, v].contiguous(),
+                 y=None if init is None else y0[:, v].contiguous())
+        for v in range(bs)], dim=1)
+    assert torch.equal(y, ones)
+    ref = spmv_scs_plain(dev, x, "rowwise",
+                         None if init is None else y0.clone())
     err = (y - ref).abs().max().item()
     assert err <= ACC_TOL[xdt] * max(ref.abs().max().item(), 1e-30)
 
@@ -205,6 +250,29 @@ def test_fused_solve_equals_k_launches_bit_for_bit(cuda, pair, bs, k):
     assert (prev - p_prev).abs().max().item() <= ACC_TOL[xdt] * scale
 
 
+@pytest.mark.parametrize("k", [1, 2, 7])
+@pytest.mark.parametrize("bs", [4, 8])
+@pytest.mark.parametrize("pair", SOLVE_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_fused_solve_16_byte_loads_equal_scalar_loads(cuda, pair, bs, k):
+    """The fused solve with x0 on 16-byte rows (bs 4: 16-byte plain loads
+    of x0 and its buffers; bs 8 keeps scalar loads) and one element into
+    its buffer (scalar loads): the same bits, and those of k launches of
+    the SpMV kernel."""
+    from uspmv_tpu_torch.ops import scs_solve
+
+    vdt, xdt = pair
+    dev = contraction(banded_dev(vdt, cuda))
+    x, _ = randn_pair((dev.n_rows_padded, bs), xdt, cuda, k)
+    prev, fin = scs_solve.solve_scs(dev, x, k)
+    s_prev, s_fin = scs_solve.solve_scs(dev, offset_copy(x), k)
+    torch.cuda.synchronize()
+    assert torch.equal(fin, s_fin) and torch.equal(prev, s_prev)
+    want = x
+    for _ in range(k):
+        want = spmv_scs(dev, want)
+    assert torch.equal(fin, want)
+
+
 SOLVE_OPERATORS = {
     "sp": dict(value_type="sp"),
     "dp": dict(value_type="dp"),
@@ -230,8 +298,9 @@ def test_graph_solve_equals_loop_bit_for_bit(cuda, case, k):
     x = op.make_x(np.random.default_rng(k).standard_normal(
         (mtx.n_rows, bs) if bs > 1 else mtx.n_rows))
     a_prev, a = op.solve(x, k, impl="loop")
-    per_iter = len(op.devs) * (-(-bs // 8) if op.config.vector_layout
-                               == "rowwise" else 1)
+    per_iter = len(op.devs) * (vector_pass_count(bs)
+                               if op.config.vector_layout == "rowwise"
+                               else 1)
     for _ in range(2):  # the capture, then a replay of the cached graph
         n0, g0 = launch_count(), sum(graph_nodes_replayed().values())
         b_prev, b = op.solve(x, k)
@@ -373,19 +442,33 @@ def randn_pair(shape, xdt, device, seed):
 PIECES_TOL = {torch.float32: 2e-5, torch.float64: 1e-12}
 
 
-def check_pieces(pieces, x, y0, layout):
+def check_pieces(pieces, x, y0, layout, strided=False):
     """spmv_pieces twice against its plain version: one launch each, the
-    same bits, the counters back at 0, the rows of no parent untouched."""
+    same bits, the counters back at 0, the rows of no parent untouched;
+    block vectors: each vector bit-equal to a one-vector launch.
+    ``strided``: colwise x and y as views with a stride of their own."""
     from uspmv_tpu_torch.ops import scs_pieces
 
     name = scs_pieces.entry_point(pieces.values.dtype, x.dtype)
     before = scs_pieces.launch_counts()[name]
-    y = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
-    again = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
+
+    def block(t):
+        return strided_view(t, 41)[0] if strided else t.clone()
+
+    y = scs_pieces.spmv_pieces(pieces, block(x), layout, block(y0))
+    again = scs_pieces.spmv_pieces(pieces, block(x), layout, block(y0))
     torch.cuda.synchronize()
     assert scs_pieces.launch_counts()[name] == before + 2
     assert torch.equal(y, again)  # no float atomics: the same bits every run
     assert not pieces.arrivals.any() and not pieces.slots.any()
+    if x.dim() == 2:
+        cols = layout == "rowwise"
+        ones = [scs_pieces.spmv_pieces(
+            pieces, (x[:, v] if cols else x[v]).contiguous(), "rowwise",
+            (y0[:, v] if cols else y0[v]).clone())
+            for v in range(x.shape[1] if cols else x.shape[0])]
+        assert torch.equal(y, torch.stack(ones, dim=1 if cols else 0))
+        assert not pieces.arrivals.any() and not pieces.slots.any()
     ref = scs_pieces.spmv_pieces_plain(pieces, x, layout, y0.clone())
     err = (y - ref).abs().max().item()
     assert err <= PIECES_TOL[x.dtype] * max(ref.abs().max().item(), 1e-30)
@@ -397,18 +480,47 @@ def check_pieces(pieces, x, y0, layout):
     return y
 
 
+# (layout, bs, form): one vector; rowwise blocks whose rows lie on 16-byte
+# boundaries (bs 4, 8, 16) or not (bs 2, 3, 9; "offset": bs 8 at an odd
+# element offset); colwise blocks, contiguous or "strided" views. bs 2, 3
+# and 9 leave their last pass guarded, 16 takes two passes of 8.
+PIECES_SHAPES = (
+    [("rowwise", 1, "")]
+    + [(layout, bs, "") for layout in ("rowwise", "colwise")
+       for bs in (2, 3, 4, 8, 9, 16)]
+    + [("rowwise", 8, "offset"), ("colwise", 8, "strided"),
+       ("colwise", 9, "strided")])
+
+
+def pieces_shape_id(shape):
+    layout, bs, form = shape
+    return f"{layout}-{bs}" + (f"-{form}" if form else "")
+
+
+def pieces_block(pieces, shape, xdt, device, seed):
+    """x and y0 of ``shape`` for ``pieces``; "offset": x a contiguous view
+    one element into its buffer, so its rows miss 16-byte boundaries."""
+    layout, bs, form = shape
+    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
+                       device, seed)
+    if form == "offset":
+        x = offset_copy(x)
+    return x, y0
+
+
 @pytest.mark.parametrize("th", [2, 32, 1024])
-@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
-                                       ("rowwise", 8), ("colwise", 4),
-                                       ("colwise", 8)])
+@pytest.mark.parametrize("shape", PIECES_SHAPES, ids=pieces_shape_id)
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
-def test_pieces_match_plain_and_repeat_bit_for_bit(cuda, pair, layout, bs, th):
+def test_pieces_match_plain_and_repeat_bit_for_bit(cuda, pair, shape, th):
+    """One launch reads the pieces once per pass of 8 vectors; each
+    vector bit-equal to a one-vector launch, within tolerance of the plain
+    version, slots and counters back at 0."""
     vdt, xdt = pair
+    layout, bs, form = shape
     _, pieces = split_streams(imbalanced(), th, 32, 64, vdt, xdt, bs, cuda)
     assert pieces.n_pieces >= (1500 if th == 2 else 2)
-    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
-                       cuda, th)
-    check_pieces(pieces, x, y0, layout)
+    x, y0 = pieces_block(pieces, shape, xdt, cuda, th)
+    check_pieces(pieces, x, y0, layout, strided=form == "strided")
 
 
 def parents_of(pieces_per_parent, th=4, n=2000, seed=8):
@@ -430,46 +542,48 @@ def parents_of(pieces_per_parent, th=4, n=2000, seed=8):
                                n).sort_by_row()
 
 
-@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
-                                       ("colwise", 8)])
+@pytest.mark.parametrize("shape", PIECES_SHAPES, ids=pieces_shape_id)
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
-def test_pieces_short_and_long_parents(cuda, pair, layout, bs):
+def test_pieces_short_and_long_parents(cuda, pair, shape):
     """Parents of 1, 7, 8 (short: one record, up to full), 9 (two records),
     32, 33 and 300 pieces (a fold of 300 slots)."""
     from uspmv_tpu_torch.ops.device_format import RECORD_PIECES as R
 
     vdt, xdt = pair
+    layout, bs, form = shape
     runs = [1, R - 1, R, R + 1, 32, 33, 300]
     _, pieces = split_streams(parents_of(runs), 4, 32, 8, vdt, xdt, bs, cuda)
     got = np.diff(pieces.parent_ptr.cpu().numpy())
     assert sorted(got[got > 1]) == sorted(p for p in runs if p > 1)
     assert pieces.longs.shape[0] == sum(p > R for p in runs)
-    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
-                       cuda, bs)
-    check_pieces(pieces, x, y0, layout)
+    x, y0 = pieces_block(pieces, shape, xdt, cuda, bs)
+    check_pieces(pieces, x, y0, layout, strided=form == "strided")
 
 
+@pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("colwise", 8)])
 @pytest.mark.parametrize("pair", PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
-def test_pieces_graph_replays_equal_the_launch(cuda, pair):
+def test_pieces_graph_replays_equal_the_launch(cuda, pair, layout, bs):
     """Two replays of one captured graph give the launch's bits: the last
-    record of each long parent resets its counter."""
+    record of each long parent resets its counter (colwise bs=8: the
+    pass's counter, once for all 8 vectors)."""
     from uspmv_tpu_torch.ops import scs_pieces
 
     vdt, xdt = pair
-    _, pieces = split_streams(imbalanced(), 2, 32, 64, vdt, xdt, 1, cuda)
+    _, pieces = split_streams(imbalanced(), 2, 32, 64, vdt, xdt, bs, cuda)
     assert pieces.longs.shape[0] > 0
-    x, y0 = randn_pair(pieces.n_rows_padded, xdt, cuda, 5)
-    want = scs_pieces.spmv_pieces(pieces, x, "rowwise", y0.clone())
+    x, y0 = randn_pair(block_shape(pieces.n_rows_padded, layout, bs), xdt,
+                       cuda, 5)
+    want = scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
     y = y0.clone()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # a warm-up outside the capture
-        scs_pieces.spmv_pieces(pieces, x, "rowwise", y0.clone())
+        scs_pieces.spmv_pieces(pieces, x, layout, y0.clone())
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with scs_spmv.record_captured_launches() as nodes:
         with torch.cuda.graph(graph):
-            scs_pieces.spmv_pieces(pieces, x, "rowwise", y)
+            scs_pieces.spmv_pieces(pieces, x, layout, y)
     assert nodes == {scs_pieces.entry_point(vdt, xdt): 1}
     for _ in range(2):
         y.copy_(y0)
@@ -623,7 +737,7 @@ def test_unit_stream_matches_plain_and_repeats_bit_for_bit(cuda, layout, bs,
     got = [spmv_scs(unit, x, layout, y0.clone() if accumulate else None)
            for _ in range(2)]
     torch.cuda.synchronize()
-    passes = -(-bs // 8) if layout == "rowwise" else 1
+    passes = vector_pass_count(bs) if layout == "rowwise" else 1
     assert scs_spmv.launch_counts()[scs_spmv.UNIT_ENTRY] == before + 2 * passes
     assert torch.equal(got[0], got[1])
     ref = spmv_scs_plain(unit, x, layout, y0.clone() if accumulate else None)
@@ -918,20 +1032,68 @@ def test_launch_geometry_of_the_sell_kernel(cuda):
     for n_vec in (1, 8):
         assert scs_spmv.launch_geometry(
             unit, torch.float32, n_vec)["blocks_per_sm"] >= 5
-    colwise = []
+    colwise, vec_x = [], []
     for r in _build.kernel_resources(_build.load_library().path):
-        for kernel, n_args in (("scs_spmv_kernel<", 7),
-                               ("scs_ones_kernel<", 4)):
+        # (kernel, template arguments, index of kColwise)
+        for kernel, n_args, at in (("scs_spmv_kernel<", 8, 6),
+                                   ("scs_ones_kernel<", 4, 3)):
             if kernel in r["function"]:
                 args = r["function"].split(kernel)[1].split(">")[0]
                 args = [a.strip() for a in args.split(",")]
-                if len(args) == n_args and args[-1] == "true":
+                assert len(args) == n_args, r["function"]
+                if args[at] == "true":
                     colwise.append(r)
+                if kernel == "scs_spmv_kernel<" and args[-1] == "true":
+                    vec_x.append(r)
     # every (values, x) pair and the unit stream, BS 2, 4 (full, guarded)
     # and 8 (full, guarded), with and without group lengths
     assert len(colwise) == 5 * 5 * 2 + 5
+    # rowwise BS 4 by 16-byte x loads for every pair, BS 8 for f32 x (8
+    # doubles spilled), both loop forms
+    assert len(vec_x) == (5 + 2) * 2
     assert all(r["local"] == 0 and r["registers"] <= 48
-               for r in colwise), colwise
+               for r in colwise + vec_x), colwise + vec_x
+
+
+def pieces_block_shape(pair, n_vec):
+    """(threads per block, blocks per SM at least) of the pieces kernel
+    for ``n_vec`` vectors of a (values, x) pair: the one-vector kernel's
+    256 threads at up to 128 registers (98-123 on sm_90a) keep 2 blocks;
+    the block-vector kernels' __launch_bounds__ (csrc/scs_pieces.cu
+    BlockShape): f32 values and x 256 threads, 2 blocks, the other pairs
+    128 threads, 3 blocks."""
+    if n_vec == 1 or pair == (torch.float32, torch.float32):
+        return 256, 2
+    return 128, 3
+
+
+def test_launch_geometry_of_the_pieces_kernel(cuda):
+    """The pieces kernel's instantiations keep their blocks per SM: every
+    (values, x) pair at one vector and at 8 and 16 vectors (a grid row per
+    pass of 8, all resident blocks shared among them), by 16-byte and by
+    scalar x loads; none spills to local memory."""
+    from uspmv_tpu_torch.ops import _build, scs_pieces
+
+    for vdt, xdt in PAIRS:
+        _, pieces = split_streams(imbalanced(), 2, 32, 64, vdt, xdt, 16, cuda)
+        for n_vec, passes in ((1, 1), (8, 1), (16, 2)):
+            for vec_x in (False, True):
+                geom = scs_pieces.launch_geometry(pieces, xdt, n_vec, vec_x)
+                threads, blocks = pieces_block_shape((vdt, xdt), n_vec)
+                assert geom["passes"] == passes
+                assert geom["threads_per_block"] == threads
+                assert geom["blocks_per_sm"] >= blocks, (vdt, xdt, n_vec,
+                                                         vec_x, geom)
+                warps = geom["threads_per_block"] // 32
+                assert 1 <= geom["grid"] <= -(-pieces.records.shape[0]
+                                              // warps)
+    kernels = [r for r in _build.kernel_resources(
+        _build.load_library().path) if "scs_pieces_" in r["function"]]
+    # per pair: the one-vector kernel; 4 and 8, each full and full by
+    # 16-byte loads; 8 guarded
+    assert len(kernels) == 6 * 5
+    assert all(r["local"] == 0 and r["stack"] == 0 for r in kernels), [
+        r for r in kernels if r["local"] or r["stack"]]
 
 
 def colwise_stream(name, device):

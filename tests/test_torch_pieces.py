@@ -29,6 +29,7 @@ from uspmv_tpu_torch.ops.device_format import (
     RECORD_PIECES,
     build_device_pieces,
     piece_records,
+    vector_pass_count,
 )
 from uspmv_tpu_torch.ops.scs_pieces import spmv_pieces
 
@@ -115,7 +116,7 @@ def test_short_and_long_parents_follow_the_rule(case):
         assert (mine[:, 2] == mine[0, 2]).all() and ptr[mine[0, 2]] == first
 
 
-@pytest.mark.parametrize("n_vec", [1, 4])
+@pytest.mark.parametrize("n_vec", [1, 4, 8, 16])
 @pytest.mark.parametrize("dtype,acc", [(torch.float32, torch.float32),
                                        (torch.bfloat16, torch.float32),
                                        (torch.float64, torch.float64)])
@@ -124,7 +125,11 @@ def test_counters_and_slots_start_at_zero(dtype, acc, n_vec):
     n_long = pc.longs.shape[0]
     assert n_long > 0
     assert pc.arrivals.dtype == torch.int32
-    assert pc.arrivals.shape == (n_vec, n_long) and not pc.arrivals.any()
+    # a counter per (pass of 8 vectors, long parent): one warp counts a
+    # record once for every vector of its pass
+    passes = vector_pass_count(n_vec)
+    assert passes == (n_vec + 7) // 8
+    assert pc.arrivals.shape == (passes, n_long) and not pc.arrivals.any()
     # a 64-bit word per 32 bits of the accumulator
     words = torch.finfo(acc).bits // 32
     assert pc.slots.dtype == torch.int64 and not pc.slots.any()
@@ -148,6 +153,20 @@ def test_stream_bytes_counts_what_the_records_move(case):
     assert pc.stream_bytes() == want
 
 
+@pytest.mark.parametrize("n_vec", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("case", CASES[:3], ids=case_id)
+def test_stream_bytes_read_the_pieces_once_per_pass(case, n_vec):
+    pc = pieces_of(*case)
+    # the records, pieces, parents and counters once per pass of up to 8
+    # vectors; each vector's long-record slots written, read and cleared
+    long_records = int((pc.records[:, 3] >= 0).sum())
+    per_vector = 3 * 8 * long_records
+    assert pc.vector_bytes() == per_vector
+    assert pc.pass_bytes() == pc.stream_bytes() - per_vector
+    assert pc.stream_bytes(n_vec) == (vector_pass_count(n_vec)
+                                      * pc.pass_bytes() + n_vec * per_vector)
+
+
 @pytest.mark.parametrize("case", CASES, ids=case_id)
 def test_bound_bytes_counts_the_function_alone(case):
     pc = pieces_of(*case)
@@ -160,6 +179,20 @@ def test_bound_bytes_counts_the_function_alone(case):
     assert pc.stream_bytes() - pc.bound_bytes() == (
         16 * pc.records.shape[0] + 24 * pc.longs.shape[0]
         + 3 * 8 * long_records)
+
+
+@pytest.mark.parametrize("n_vec", [1, 4, 8])
+@pytest.mark.parametrize("case", CASES, ids=case_id)
+def test_function_bytes_read_x_at_the_columns_the_pieces_touch(case, n_vec):
+    pc = pieces_of(*case)
+    # the function once, then per vector x at each distinct column (not
+    # one per element, nor every row) and the parents' rows of y twice
+    columns = np.unique(pc.col_idxs.numpy()).size
+    assert columns <= min(pc.n_rows_padded, pc.nnz)
+    assert pc.function_bytes(n_vec, 4) == (pc.bound_bytes() + n_vec * 4 * (
+        columns + 2 * pc.n_parents))
+    assert pc.function_bytes(n_vec, 8) - pc.bound_bytes() == 2 * (
+        pc.function_bytes(n_vec, 4) - pc.bound_bytes())
 
 
 def greedy_short_records(q, ptr, cap):

@@ -162,6 +162,56 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load_library()
 
 
+def fake_nvcc(tmp_path, fail_on=None):
+    """An nvcc that logs its arguments, one line per call, and writes its
+    -o file; it fails on a source named ``fail_on``."""
+    calls = tmp_path / "calls.txt"
+    tool = tmp_path / "nvcc"
+    tool.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> {calls}\n'
+        + (f'case "$*" in *{fail_on}*) echo refused; exit 2;; esac\n'
+           if fail_on else "")
+        + 'while [ "$1" != "-o" ]; do shift; done\n'
+        'echo built > "$2"\n')
+    tool.chmod(0o755)
+    return str(tool), calls
+
+
+def test_build_runs_an_nvcc_per_source_then_links(monkeypatch, tmp_path):
+    tool, calls = fake_nvcc(tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: tool)
+    sources = [tmp_path / f"{name}.cu" for name in ("a", "b", "c")]
+    for src in sources:
+        src.write_text("")
+    out = tmp_path / "lib" / "lib.so"
+    out.parent.mkdir()
+    log, seconds = _build.compile_library(sources, out)
+    lines = calls.read_text().splitlines()
+    compiles = [ln for ln in lines if " -c " in f" {ln} "]
+    assert sorted(ln.split()[-1] for ln in compiles) == sorted(
+        map(str, sources))
+    assert all("arch=compute_90a,code=sm_90a" in ln for ln in compiles)
+    (link,) = [ln for ln in lines if ln not in compiles]
+    assert link.split()[:3] == ["-shared", "-o", str(out)]
+    assert [p.rsplit("/", 1)[-1] for p in link.split()[3:]] == [
+        "a.o", "b.o", "c.o"]
+    assert set(seconds) == {"a.cu", "b.cu", "c.cu", "link"}
+    assert out.read_text() == "built\n"
+    assert list(out.parent.iterdir()) == [out]  # the objects are gone
+
+
+def test_build_names_the_source_nvcc_refused(monkeypatch, tmp_path):
+    tool, calls = fake_nvcc(tmp_path, fail_on="b.cu")
+    monkeypatch.setattr(_build, "find_nvcc", lambda: tool)
+    sources = [tmp_path / f"{name}.cu" for name in ("a", "b")]
+    out = tmp_path / "lib.so"
+    with pytest.raises(_build.KernelBuildError, match=r"b\.cu \(rc 2\)"):
+        _build.compile_library(sources, out)
+    assert not out.exists()
+    assert not any("-shared" in ln for ln in calls.read_text().splitlines())
+
+
 def test_cuda_source_exports_the_bound_entry_points():
     src = (_build.CSRC_DIR / "scs_spmv.cu").read_text()
     body = src.split('extern "C" {', 1)[1]

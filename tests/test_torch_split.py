@@ -450,17 +450,20 @@ def test_metrics_and_report_carry_the_pieces(matrix):
     _, read = group_table(j_convert(parents, 32, 64, native=False))
     assert dev.n_read == read < scs.n_elements
     assert op.device_beta() == {"sp": tm.nnz / (read + pc.nnz)}
-    # per vector: the pieces' stream, the parents' runs and rows and the
-    # work records once, each long record's slot (an 8 B word per float
-    # sum: written, read and cleared), and each long parent's entry and
-    # counter (read and written)
+    # per pass of up to 8 vectors: the pieces' stream, the parents' runs
+    # and rows and the work records once, and each long parent's entry and
+    # counter (read and written); per vector: each long record's slot (an
+    # 8 B word per float sum: written, read and cleared)
     n_rec, n_long = pc.records.shape[0], pc.longs.shape[0]
     long_records = int((pc.records[:, 3] >= 0).sum())
     assert 0 < long_records < n_rec
-    assert pc.stream_bytes() == 4 * (2 * pc.nnz + pc.n_pieces + 1
-                                     + 2 * pc.n_parents + 1 + 4 * n_rec
-                                     + 6 * n_long + 6 * long_records)
-    assert op.bytes_per_spmv() == (dev.stream_bytes() + 2 * pc.stream_bytes()
+    assert pc.pass_bytes() == 4 * (2 * pc.nnz + pc.n_pieces + 1
+                                   + 2 * pc.n_parents + 1 + 4 * n_rec
+                                   + 6 * n_long)
+    assert pc.vector_bytes() == 4 * 6 * long_records
+    assert pc.stream_bytes() == pc.pass_bytes() + pc.vector_bytes()
+    assert op.bytes_per_spmv() == (dev.stream_bytes() + pc.pass_bytes()
+                                   + 2 * pc.vector_bytes()
                                    + 2 * 2 * 4 * op.n_rows_padded)
     res = bench_spmv(op, bench_time=1e-3, warmup=1, start_iters=2,
                      timing_reps=2)

@@ -26,7 +26,11 @@ from uspmv_tpu_torch.config import Config
 from uspmv_tpu_torch.formats.scs import scs_from_reference
 from uspmv_tpu_torch.io import generators as tgen
 from uspmv_tpu_torch.ops import scs_spmv
-from uspmv_tpu_torch.ops.device_format import build_device_scs
+from uspmv_tpu_torch.ops.device_format import (
+    VECTORS_PER_PASS,
+    build_device_scs,
+    vector_pass_count,
+)
 from uspmv_tpu_torch.ops.scs_spmv import spmv_scs
 from uspmv_tpu_torch.ops.vectors import init_x_host
 from uspmv_tpu_torch.runtime.bench import bench_spmv
@@ -92,7 +96,7 @@ def test_spmmv_matches_jax_operator(name):
     # layout, the packed kernel once for all of them
     packed = kw.get("mixed_tiles", False)
     assert op.is_packed() == packed
-    passes = 1 if packed else -(-bs // 8)
+    passes = 1 if packed else vector_pass_count(bs)
     assert op.matrix_passes(packed) == passes
     assert op.matrix_passes(True) == 1
     xw = xd.element_size()
@@ -101,16 +105,64 @@ def test_spmmv_matches_jax_operator(name):
     ) + 2 * op.n_rows_padded * bs * xw
 
 
-@pytest.mark.parametrize("bs", [1, 3, 8, 9, 16, 17, 64])
+# heavy rows split into pieces: random_imbalanced(2000, 8) at threshold 8
+# has parents of up to 62 pieces, so long parents (more than 8 pieces,
+# several records meeting in slots) beside short ones
+SPLIT_CASES = {
+    f"{vt}-bs{bs}-{layout}-split": dict(
+        value_type=vt, block_vec_size=bs, vector_layout=layout,
+        split_rows_threshold=8, mixed_tiles=False)
+    for vt in ("sp", "dp") for bs in (4, 8, 16)
+    for layout in ("rowwise", "colwise")}
+
+
+@pytest.fixture(scope="module")
+def imbalanced_pair():
+    return jgen.random_imbalanced(2000, 8), tgen.random_imbalanced(2000, 8)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_split_spmmv_matches_jax_operator(name, imbalanced_pair):
+    """Block vectors through the SELL-C-sigma rows and the heavy-row pieces
+    (C=32, sigma=64) against the JAX operator, which sorts the same
+    virtual rows into its SCS; the pieces' bytes count once per pass of 8
+    vectors, their long parents' slots once per vector."""
+    kw = SPLIT_CASES[name]
+    jm, tm = imbalanced_pair
+    cfg = dict(kw, chunk_size=32, sigma=64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jop = JOperator.from_mtx(config(JConfig, **cfg), jm)
+        op = SpmvOperator.from_mtx(config(Config, **cfg), tm)
+    assert op.impl_name().startswith("torch-plain-scs+pieces")
+    (pc,) = op.pieces.values()
+    assert pc.longs.shape[0] > 0 and (pc.records[:, 3] < 0).any()
+    bs, layout = kw["block_vec_size"], kw["vector_layout"]
+    x = np.random.default_rng(bs).standard_normal((op.n_rows, bs))
+    y = op.to_host(op.spmv(op.make_x(x)))
+    ref = np.asarray(jop.to_host(jop.spmv(jop.make_x(x))))
+    assert y.shape == ref.shape == (op.n_rows, bs) and y.dtype == ref.dtype
+    assert per_column_rel(y, ref) <= TOL[kw["value_type"]]
+    passes = vector_pass_count(bs)
+    assert pc.vector_bytes() > 0
+    pieces = passes * pc.pass_bytes() + bs * pc.vector_bytes()
+    assert pc.stream_bytes(bs) == pieces < bs * pc.stream_bytes()
+    assert op.bytes_per_spmv() == passes * sum(
+        d.stream_bytes() for d in op.devs.values()
+    ) + pieces + 2 * op.n_rows_padded * bs * op.make_x(x).element_size()
+
+
+@pytest.mark.parametrize("bs", list(range(1, 18)) + [64, 65535])
 def test_vector_passes_cover_each_vector_once(bs):
     passes = scs_spmv.vector_passes(bs)
     assert [v for v0, k in passes for v in range(v0, v0 + k)] == list(
         range(bs))
-    assert all(1 <= k <= scs_spmv.MAX_COLS_PER_PASS for _, k in passes)
-    # the kernel's colwise grid rows: vectors 8p .. 8p + 7 in row p
+    assert all(1 <= k <= VECTORS_PER_PASS for _, k in passes)
+    # the grid rows of the SELL kernel (colwise) and the pieces kernel
+    # (either layout): vectors 8p .. 8p + 7 in row p
     assert [v0 for v0, _ in passes] == [
-        scs_spmv.MAX_COLS_PER_PASS * p for p in range(len(passes))]
-    assert len(passes) == -(-bs // 8)
+        VECTORS_PER_PASS * p for p in range(len(passes))]
+    assert len(passes) == vector_pass_count(bs)
 
 
 @pytest.mark.parametrize("layout", ["rowwise", "colwise"])
@@ -243,6 +295,6 @@ def test_sharded_bytes_read_sell_parts_per_pass_and_packed_once(bs, layout):
     devs = op._devs("sp")
     packed = [d for d in devs if isinstance(d, DevicePacked)]
     assert packed and len(packed) < len(devs)
-    want = sum((1 if isinstance(d, DevicePacked) else -(-bs // 8))
+    want = sum((1 if isinstance(d, DevicePacked) else vector_pass_count(bs))
                * d.stream_bytes() for d in devs)
     assert op.bytes_per_spmv() == want + 4 * op.n_rows_padded * bs * 4 * 2

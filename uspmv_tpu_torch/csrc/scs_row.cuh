@@ -111,6 +111,53 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
   return *p;
 }
 
+// The BS contiguous values of x at p, 16-byte aligned, by 16-byte loads
+// (BS * sizeof(Tx) a multiple of 16); read-only loads where kReadOnlyX.
+template <int BS, bool kReadOnlyX>
+__device__ __forceinline__ void load_x_row16(const float* p,
+                                             float (&xv)[BS]) {
+  static_assert(BS % 4 == 0, "16-byte loads of whole float rows");
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int u = 0; u < BS / 4; ++u) {
+    float4 w;
+    if constexpr (kReadOnlyX) {
+      w = __ldg(q + u);
+    } else {
+      w = q[u];
+    }
+    xv[4 * u] = w.x;
+    xv[4 * u + 1] = w.y;
+    xv[4 * u + 2] = w.z;
+    xv[4 * u + 3] = w.w;
+  }
+}
+template <int BS, bool kReadOnlyX>
+__device__ __forceinline__ void load_x_row16(const double* p,
+                                             double (&xv)[BS]) {
+  static_assert(BS % 2 == 0, "16-byte loads of whole double rows");
+  const double2* q = reinterpret_cast<const double2*>(p);
+#pragma unroll
+  for (int u = 0; u < BS / 2; ++u) {
+    double2 w;
+    if constexpr (kReadOnlyX) {
+      w = __ldg(q + u);
+    } else {
+      w = q[u];
+    }
+    xv[2 * u] = w.x;
+    xv[2 * u + 1] = w.y;
+  }
+}
+
+// Whether the rows of a rowwise x (x_ld elements apart, from x) all start
+// on 16-byte boundaries, so that load_x_row16 may read them.
+template <typename Tx>
+inline bool rows_16b_aligned(const void* x, int64_t x_ld) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+         (x_ld * static_cast<int64_t>(sizeof(Tx))) % 16 == 0;
+}
+
 // acc[v] = sum_{j < L} Tx(values[e]) * x[col_idxs[e]*x_ld + v],
 // e = chunk_ptrs[c] + j*C + i, for padded row r = c*C + i, summed in order
 // of j as acc = fma(a, x, acc) from acc = 0, L the length of r's group
@@ -123,7 +170,14 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 // argument, not a branch on group_length_bytes, so that a stream without
 // group lengths runs the code it ran before them: with both forms in one
 // kernel, at the 48-register cap, the chunk form cost the headline 2-3%
-// in a paired run on an H100 (scripts/kernel_ab.py, PERF.md).
+// in a paired run on an H100 (scripts/kernel_ab.py, PERF.md). kVecX
+// (rowwise, kFull, BS * sizeof(Tx) a multiple of 16): the rows of x lie on
+// 16-byte boundaries (rows_16b_aligned), and a column's BS values load as
+// 16-byte vectors, where a warp's BS scalar loads each ask for a sector
+// per thread; a trip of BS 4 then takes two elements (with one it took 7%
+// longer than the scalar loads on the headline's matrix, with two 2% less,
+// in a paired run on an H100: PERF.md). The FMAs and their order are
+// those of the scalar loads.
 //
 // Why the group's length: a row's slots past its own count are padding
 // (value 0, column 0 as the operator's column permutation renumbers it:
@@ -147,13 +201,15 @@ __device__ __forceinline__ Tx load_x(const Tx* p) {
 // flight the one-vector kernels run near the device-memory rate (the
 // numbers are in scs_spmv.cu and PERF.md).
 template <typename Tv, typename Tx, int BS, bool kFull, bool kReadOnlyX,
-          bool kGroups, bool kColwise = false>
+          bool kGroups, bool kColwise = false, bool kVecX = false>
 __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
                                                 const Tx* x, int64_t x_ld,
                                                 int64_t r, int ncols,
                                                 Tx (&acc)[BS],
                                                 int64_t x_vstride = 0) {
-  constexpr int K = BS < kBatchX ? kBatchX / BS : 1;
+  static_assert(!kVecX || (kFull && !kColwise),
+                "16-byte x loads take whole rowwise rows");
+  constexpr int K = kVecX && BS == 4 ? 2 : BS < kBatchX ? kBatchX / BS : 1;
   const int C = m.C;
   const int32_t group_len = kGroups ? group_length(m, r) : 0;
   const int64_t c = r / C;
@@ -190,6 +246,9 @@ __device__ __forceinline__ void scs_row_product(const ScsMatrix& m,
             }
             xr += x_vstride;
           }
+        } else if constexpr (kVecX) {
+          load_x_row16<BS, kReadOnlyX>(
+              x + static_cast<int64_t>(col[k]) * x_ld, xv[k]);
         } else {
           const Tx* xr = x + static_cast<int64_t>(col[k]) * x_ld;
 #pragma unroll

@@ -24,8 +24,13 @@
 // nor __restrict__: iteration it + 1 reads what other blocks wrote in
 // iteration it of the same launch, which the read-only path (__ldg,
 // ld.global.nc) does not promise to see. The barrier's fence makes the
-// writes visible to ordinary loads. The matrix arrays are read as the SpMV
-// kernel reads them (scs_row.cuh: evict-first, in batched trips).
+// writes visible to ordinary loads. Rowwise bs 4 in f32 reads a column's
+// values by 16-byte ordinary loads where the rows of x0, buf0 and buf1 all
+// lie on 16-byte boundaries, as scs_spmv.cu's rowwise form does with
+// read-only ones; the FMAs are the same (bs 8, and bs 4 in f64, keep
+// scalar loads: under the 48-register cap the 16-byte ones spilled). The
+// matrix arrays are read as the SpMV kernel reads them (scs_row.cuh:
+// evict-first, in batched trips).
 //
 // No thread returns before the last barrier: every thread of every block
 // reaches every grid.sync(), rows or not.
@@ -70,9 +75,11 @@ struct SolveArgs {
   int k;           // iterations, >= 1
 };
 
-// kGroups: rows stop at their group's length (scs_row.cuh)
+// kGroups: rows stop at their group's length (scs_row.cuh); kVecX: x0,
+// buf0 and buf1 have their rows on 16-byte boundaries, read by 16-byte
+// loads (plain loads: the buffers are written during the launch)
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit,
-          bool kGroups>
+          bool kGroups, bool kVecX = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_solve_kernel(const SolveArgs a) {
   cg::grid_group grid = cg::this_grid();
@@ -88,8 +95,8 @@ scs_solve_kernel(const SolveArgs a) {
                             : ((it & 1) ? buf0 : buf1);
     for (int64_t r = first; r < a.m.n_rows_padded; r += stride) {
       Tx acc[BS];
-      uspmv::scs_row_product<Tv, Tx, BS, kFull, false, kGroups>(
-          a.m, src, ld, r, a.ncols, acc);
+      uspmv::scs_row_product<Tv, Tx, BS, kFull, false, kGroups, false,
+                             kVecX>(a.m, src, ld, r, a.ncols, acc);
       Tx* yr = dst + r * ld;
 #pragma unroll
       for (int v = 0; v < BS; ++v) {
@@ -104,15 +111,16 @@ scs_solve_kernel(const SolveArgs a) {
   }
 }
 
-template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit = false>
+template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit = false,
+          bool kVecX = false>
 cudaError_t launch_variant(SolveArgs a, int64_t blocks_needed,
                            cudaStream_t stream) {
   const void* kernel =
       a.m.group_length_bytes != 0
           ? reinterpret_cast<const void*>(
-                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, true>)
+                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, true, kVecX>)
           : reinterpret_cast<const void*>(
-                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, false>);
+                &scs_solve_kernel<Tv, Tx, BS, kFull, kUnit, false, kVecX>);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) {
@@ -169,6 +177,10 @@ int launch_scs_solve(int64_t n_rows_padded, int C, const void* chunk_ptrs,
                     x0, buf0, buf1, ld, ncols, k};
   const int64_t blocks = (n_rows_padded + kThreads - 1) / kThreads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // every vector the iterations read: 16-byte loads where all three allow
+  const bool vec_x = uspmv::rows_16b_aligned<Tx>(x0, ld) &&
+                     uspmv::rows_16b_aligned<Tx>(buf0, ld) &&
+                     uspmv::rows_16b_aligned<Tx>(buf1, ld);
   cudaError_t err;
   switch (ncols) {
     case 1:
@@ -184,10 +196,16 @@ int launch_scs_solve(int64_t n_rows_padded, int C, const void* chunk_ptrs,
     case 3:
       err = launch_variant<Tv, Tx, 4, false>(a, blocks, s);
       break;
-    case 4:
+    case 4:  // 16-byte loads of 4 doubles spilled (ptxas -v): scalar
+      if constexpr (sizeof(Tx) == 4) {
+        if (vec_x) {
+          err = launch_variant<Tv, Tx, 4, true, false, true>(a, blocks, s);
+          break;
+        }
+      }
       err = launch_variant<Tv, Tx, 4, true>(a, blocks, s);
       break;
-    case 8:
+    case 8:  // 16-byte loads spilled here (ptxas -v): scalar
       err = launch_variant<Tv, Tx, 8, true>(a, blocks, s);
       break;
     default:  // 5..7

@@ -145,9 +145,10 @@ struct ScsArgs {
 // kUnit: one vector with unit strides (x_ld == y_ld == 1), the plain SpMV;
 // kGroups: each row stops at its group's length (group_length_bytes != 0),
 // else at its chunk's; kColwise: the accumulators are those of BS colwise
-// vectors, blockIdx.y * BS .. of n_vec (kFull: every pass holds BS).
+// vectors, blockIdx.y * BS .. of n_vec (kFull: every pass holds BS);
+// kVecX: rowwise rows of x on 16-byte boundaries, read by 16-byte loads.
 template <typename Tv, typename Tx, int BS, bool kFull, bool kUnit,
-          bool kGroups, bool kColwise = false>
+          bool kGroups, bool kColwise = false, bool kVecX = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 scs_spmv_kernel(const ScsArgs a) {
   const int64_t r =
@@ -185,8 +186,8 @@ scs_spmv_kernel(const ScsArgs a) {
   const int64_t x_ld = kUnit ? 1 : a.x_ld;
   const int64_t y_ld = kUnit ? 1 : a.y_ld;
   Tx acc[BS];
-  uspmv::scs_row_product<Tv, Tx, BS, kFull, true, kGroups>(a.m, x, x_ld, r,
-                                                           a.ncols, acc);
+  uspmv::scs_row_product<Tv, Tx, BS, kFull, true, kGroups, false, kVecX>(
+      a.m, x, x_ld, r, a.ncols, acc);
   Tx* yr = y + r * y_ld;
 #pragma unroll
   for (int v = 0; v < BS; ++v) {
@@ -309,19 +310,35 @@ scs_ones_kernel(const ScsArgs a) {
   }
 }
 
-// kOnes: the unit-value kernel (Tv and Tx are then float and unused)
+// kOnes: the unit-value kernel (Tv and Tx are then float and unused; it
+// has no kVecX form)
 template <typename Tv, typename Tx, bool kOnes, int BS, bool kFull,
-          bool kUnit = false, bool kColwise = false>
+          bool kUnit = false, bool kColwise = false, bool kVecX = false>
 void launch_variant(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
   if constexpr (kOnes) {
     scs_ones_kernel<BS, kFull, kUnit, kColwise>
         <<<grid, kThreads, 0, stream>>>(a);
   } else if (a.m.group_length_bytes != 0) {
-    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, true, kColwise>
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, true, kColwise, kVecX>
         <<<grid, kThreads, 0, stream>>>(a);
   } else {
-    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, false, kColwise>
+    scs_spmv_kernel<Tv, Tx, BS, kFull, kUnit, false, kColwise, kVecX>
         <<<grid, kThreads, 0, stream>>>(a);
+  }
+}
+
+// Rowwise, BS 4 and 8 with every column: by 16-byte loads of x where its
+// rows lie on 16-byte boundaries, else scalar. Not the unit-value kernel,
+// nor 8 double columns: under the 48-register cap their four 16-byte loads
+// spilled where the scalar form does not (ptxas -v on sm_90a).
+template <typename Tv, typename Tx, bool kOnes, int BS>
+void launch_rowwise_full(const ScsArgs& a, dim3 grid, cudaStream_t stream) {
+  constexpr bool kVec = !kOnes && BS * sizeof(Tx) <= 32;
+  if (kVec && uspmv::rows_16b_aligned<Tx>(a.x, a.x_ld)) {
+    launch_variant<Tv, Tx, kOnes, BS, true, false, false, kVec>(a, grid,
+                                                                stream);
+  } else {
+    launch_variant<Tv, Tx, kOnes, BS, true>(a, grid, stream);
   }
 }
 
@@ -417,10 +434,10 @@ int launch_scs_spmv(int64_t n_rows_padded, int C, const void* chunk_ptrs,
       launch_variant<Tv, Tx, kOnes, 4, false>(a, grid, s);
       break;
     case 4:
-      launch_variant<Tv, Tx, kOnes, 4, true>(a, grid, s);
+      launch_rowwise_full<Tv, Tx, kOnes, 4>(a, grid, s);
       break;
     case 8:
-      launch_variant<Tv, Tx, kOnes, 8, true>(a, grid, s);
+      launch_rowwise_full<Tv, Tx, kOnes, 8>(a, grid, s);
       break;
     default:  // 5..7
       launch_variant<Tv, Tx, kOnes, 8, false>(a, grid, s);

@@ -2,8 +2,8 @@
 
 Every ``csrc/*.cu`` of this package is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, loaded with
-ctypes: one nvcc call, which compiles the sources in parallel (``--threads 0``).
-The build runs at first use, into ``build/uspmv_tpu_torch/`` at the
+ctypes: one nvcc per source, all started together, then one link, so the
+build takes about as long as its slowest source. The build runs at first use, into ``build/uspmv_tpu_torch/`` at the
 root of the checkout, under a name that carries a hash of the flags, the
 sources and the headers they share (``csrc/*.cuh``), so a changed source or
 header rebuilds and an unchanged tree loads at once.
@@ -21,6 +21,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -28,8 +29,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v", "--threads", "0",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -44,6 +44,8 @@ class KernelLibrary:
     built: bool  # False when an earlier build of the same sources was loaded
     build_seconds: float
     log: str  # nvcc's output, ptxas register/shared-memory report included
+    # seconds of each source's nvcc (all run at once) and of the link
+    step_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 _loaded: Optional[KernelLibrary] = None
@@ -64,9 +66,51 @@ def find_nvcc() -> str:
     )
 
 
-def nvcc_command(sources: list, out: Path) -> list:
-    """The nvcc call that builds ``sources`` into the library ``out``."""
-    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), *map(str, sources)]
+def compile_command(source: Path, obj: Path) -> list:
+    """The nvcc call that compiles ``source`` into the object ``obj``."""
+    return [find_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(source)]
+
+
+def link_command(objects: list, out: Path) -> list:
+    """The nvcc call that links ``objects`` into the library ``out``."""
+    return [find_nvcc(), "-shared", "-o", str(out), *map(str, objects)]
+
+
+def _timed_run(cmd: list) -> tuple:
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def compile_library(sources: list, out: Path) -> tuple:
+    """Build ``sources`` into the library ``out``: one nvcc per source, all
+    started together, into objects beside ``out``, then one link; the
+    objects are removed after it. Returns (nvcc's output, seconds per
+    source and of the link). Raises KernelBuildError if a step fails."""
+    objdir = out.with_name(f"{out.name}.obj")
+    objdir.mkdir(parents=True, exist_ok=True)
+    objects = [objdir / f"{src.stem}.o" for src in sources]
+    try:
+        with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+            runs = list(pool.map(_timed_run, [
+                compile_command(src, obj)
+                for src, obj in zip(sources, objects)]))
+        log = "".join(text for _, text, _ in runs)
+        seconds = {src.name: s for src, (_, _, s) in zip(sources, runs)}
+        failed = [(src, rc) for src, (rc, _, _) in zip(sources, runs) if rc]
+        if failed:
+            raise KernelBuildError(
+                "nvcc failed on "
+                + ", ".join(f"{src.name} (rc {rc})" for src, rc in failed)
+                + f"\n{log}")
+        rc, text, seconds["link"] = _timed_run(link_command(objects, out))
+        log += text
+        if rc != 0:
+            raise KernelBuildError(f"nvcc link failed (rc {rc})\n{log}")
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
+    return log, seconds
 
 
 def kernel_resources(library: Path) -> List[dict]:
@@ -134,26 +178,23 @@ def load_library() -> KernelLibrary:
         return _loaded
     sources = _sources()
     out = BUILD_DIR / f"libuspmv_tpu_torch_{_digest(sources)}.so"
-    built, seconds, log = False, 0.0, ""
+    built, seconds, log, steps = False, 0.0, "", {}
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: concurrent builds
         # never load a half-written library
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = nvcc_command(sources, tmp)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            log, steps = compile_library(sources, tmp)
+        except KernelBuildError:
             tmp.unlink(missing_ok=True)
-            raise KernelBuildError(
-                f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{log}"
-            )
+            raise
+        seconds = time.perf_counter() - t0
         os.replace(tmp, out)
         built = True
     _loaded = KernelLibrary(
         lib=ctypes.CDLL(str(out)), path=out, built=built,
-        build_seconds=seconds, log=log,
+        build_seconds=seconds, log=log, step_seconds=steps,
     )
     return _loaded

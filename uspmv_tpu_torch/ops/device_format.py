@@ -346,6 +346,18 @@ def group_records(row_ptr: np.ndarray, group_ptr: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------- heavy-row pieces
 
+# Vectors one pass over a stream carries (kMaxCols of csrc/scs_row.cuh):
+# the SELL-C-sigma kernel's columns or colwise vectors per pass, the pieces
+# kernel's vectors per grid row, in either layout.
+VECTORS_PER_PASS = 8
+
+
+def vector_pass_count(n_vec: int) -> int:
+    """Passes of at most VECTORS_PER_PASS vectors that ``n_vec`` (>= 1)
+    vectors take."""
+    return -(-max(int(n_vec), 1) // VECTORS_PER_PASS)
+
+
 # Pieces per work record of csrc/scs_pieces.cu (its kBatch). A parent with
 # at most this many pieces is short: whole in one record, with the
 # consecutive short parents that fit, whose warp sums and folds them in
@@ -378,9 +390,10 @@ class DevicePieces:
     # bits of the sum and a tag (csrc/scs_pieces.cu), one word for a float
     # sum, two for a double; 0 between launches (the kernel clears them)
     slots: torch.Tensor  # int64 [n_vec, long records, words]
-    # per (vector, long parent): records done in this launch, 0 between
-    # launches (the last record to finish resets it)
-    arrivals: torch.Tensor  # int32 [n_vec, n_long]
+    # per (pass of up to VECTORS_PER_PASS vectors, long parent): records
+    # done in this launch, each counted once for all the vectors of its
+    # pass; 0 between launches (the last record to finish resets it)
+    arrivals: torch.Tensor  # int32 [vector_pass_count(n_vec), n_long]
     piece_idxs: torch.Tensor  # int32 [nnz], piece of each element (plain)
     piece_rows: torch.Tensor  # int32 [n_pieces], parent's row (plain)
 
@@ -403,15 +416,35 @@ class DevicePieces:
                    for t in (self.values, self.col_idxs, self.piece_ptr,
                              self.parent_ptr, self.parent_row))
 
-    def stream_bytes(self) -> int:
-        """Bytes the kernel moves per vector: ``bound_bytes``, the records
-        once, each long parent's entry once and its counter read and
-        written, and each long record's slot written, read and cleared
-        once (a short parent's sums never leave the registers)."""
-        slots = self.slots[0].numel() * self.slots.element_size()
+    def function_bytes(self, n_vec: int, x_itemsize: int) -> int:
+        """The least bytes any kernel of the function moves for ``n_vec``
+        vectors of ``x_itemsize`` bytes: ``bound_bytes`` once, and per
+        vector x at each distinct column the pieces read and the parents'
+        rows of y read and written."""
+        columns = int(torch.unique(self.col_idxs).numel())
+        return self.bound_bytes() + int(n_vec) * x_itemsize * (
+            columns + 2 * self.n_parents)
+
+    def pass_bytes(self) -> int:
+        """Bytes the kernel moves once per pass of up to VECTORS_PER_PASS
+        vectors: ``bound_bytes``, the records once, each long parent's
+        entry once and its counter read and written."""
         n_long = self.longs.shape[0]
-        return (self.bound_bytes() + 3 * slots + 8 * n_long
+        return (self.bound_bytes() + 8 * n_long
                 + (self.records.numel() + self.longs.numel()) * 4)
+
+    def vector_bytes(self) -> int:
+        """Bytes the kernel moves per vector besides x and y: each long
+        record's slot written, read and cleared once (a short parent's
+        sums never leave the registers)."""
+        return 3 * self.slots[0].numel() * self.slots.element_size()
+
+    def stream_bytes(self, n_vec: int = 1) -> int:
+        """Bytes the kernel moves for ``n_vec`` vectors, x and y aside:
+        ``pass_bytes`` per pass (``vector_pass_count``), ``vector_bytes``
+        per vector."""
+        return (vector_pass_count(n_vec) * self.pass_bytes()
+                + n_vec * self.vector_bytes())
 
     @property
     def device_beta(self) -> float:
@@ -488,9 +521,9 @@ def build_device_pieces(
     DevicePieces. ``piece_parent_row[v]`` is the permuted row of virtual
     row v's parent; the virtual rows of one parent are consecutive ids
     (``split_heavy_rows``). Element order within a piece is kept.
-    ``acc_dtype`` and ``n_vec`` size the long parents' slots and the
-    counters (default: one vector of the values' dtype, float32 for
-    bfloat16)."""
+    ``acc_dtype`` and ``n_vec`` size the long parents' slots (per vector)
+    and the counters (per pass of up to VECTORS_PER_PASS vectors);
+    default: one vector of the values' dtype, float32 for bfloat16."""
     piece_ids = np.asarray(piece_ids, dtype=np.int64)
     order = np.argsort(piece_ids, kind="stable")
     present, counts = np.unique(piece_ids, return_counts=True)
@@ -525,8 +558,8 @@ def build_device_pieces(
         slots=torch.zeros((n_vec, int(longs[:, 3].sum()),
                            torch.finfo(acc_dtype).bits // 32),
                           dtype=torch.int64, device=device),
-        arrivals=torch.zeros((n_vec, longs.shape[0]), dtype=torch.int32,
-                             device=device),
+        arrivals=torch.zeros((vector_pass_count(n_vec), longs.shape[0]),
+                             dtype=torch.int32, device=device),
         piece_idxs=_put(np.repeat(np.arange(present.size, dtype=np.int32),
                                   counts), device),
         piece_rows=_put(piece_rows.astype(np.int32), device),

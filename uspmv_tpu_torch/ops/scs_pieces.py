@@ -27,8 +27,11 @@ longest row.
 
 (values, x) dtype pairs: those of the SELL-C-sigma kernel, so the split
 serves dp, sp, hp, -dp_emu and every adaptive-precision stream. Block
-vectors, rowwise [n_pad, bs] or colwise [bs, n_pad]: one launch, the pieces
-read once per vector.
+vectors, rowwise [n_pad, bs] or colwise [bs, n_pad]: one launch, a grid row
+per pass of up to 8 vectors (``vector_pass_count``), whose warps read each
+record's pieces once for all its vectors; each vector's y equals a
+one-vector launch's bit for bit. A rowwise x whose rows lie on 16-byte
+boundaries is read by 16-byte loads.
 """
 
 from __future__ import annotations
@@ -39,8 +42,14 @@ from typing import Dict
 import torch
 
 from . import scs_spmv
-from .device_format import DevicePieces
-from .scs_spmv import MAX_VECTORS, addressable, book_launch, check_args
+from .device_format import DevicePieces, vector_pass_count
+from .scs_spmv import (
+    MAX_VECTORS,
+    addressable,
+    book_launch,
+    check_args,
+    raise_for,
+)
 
 # (value dtype, x dtype) -> entry point of csrc/scs_pieces.cu
 _ENTRY_POINTS = {
@@ -97,6 +106,9 @@ def _kernel_lib() -> ctypes.CDLL:
         for name in _ENTRY_POINTS.values():
             fn = getattr(lib, name)
             fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, f"{name}_blocks_per_sm")
+            fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -160,13 +172,14 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
     if (dev.slots.dtype != torch.int64 or dev.slots.device != x.device
             or dev.slots.shape[0] < n_vec
             or dev.slots.shape[2] != x.element_size() // 4
-            or dev.arrivals.shape != (dev.slots.shape[0], n_long)):
+            or dev.arrivals.shape != (vector_pass_count(dev.slots.shape[0]),
+                                      n_long)):
         raise ValueError(
             f"the slots hold {tuple(dev.slots.shape)} {dev.slots.dtype} and "
             f"the counters {tuple(dev.arrivals.shape)}; this call needs "
             f"({n_vec}, {dev.slots.shape[1]}, {x.element_size() // 4}) "
-            f"int64 and ({n_vec}, {n_long}) (build_device_pieces: n_vec, "
-            "acc_dtype)"
+            f"int64 and ({vector_pass_count(n_vec)}, {n_long}), a row per "
+            "pass of 8 vectors (build_device_pieces: n_vec, acc_dtype)"
         )
     y_vstride = y.stride(0) if layout == "colwise" and x.dim() == 2 \
         else vstride
@@ -183,3 +196,26 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
         )
     book_launch(lib, rc, name, _launches, nodes=KERNELS_PER_LAUNCH)
     return y
+
+
+def launch_geometry(dev: DevicePieces, x_dtype: torch.dtype, n_vec: int = 1,
+                    vec_x: bool = False) -> Dict[str, int]:
+    """How ``spmv_pieces`` launches ``dev`` for ``n_vec`` vectors of
+    ``x_dtype`` on the current GPU: the instantiation it picks (``vec_x``:
+    a rowwise x whose rows lie on 16-byte boundaries, read by 16-byte
+    loads), its threads per block and blocks resident per SM, its passes
+    of up to 8 vectors (grid rows) and the blocks of a grid row (all
+    resident blocks shared among the passes, at most a warp per record)."""
+    name = entry_point(dev.values.dtype, x_dtype)
+    lib = _kernel_lib()
+    per_sm, threads = ctypes.c_int(0), ctypes.c_int(0)
+    raise_for(lib, getattr(lib, f"{name}_blocks_per_sm")(
+        ctypes.byref(per_sm), ctypes.byref(threads), n_vec, int(vec_x)),
+        f"{name} occupancy query")
+    passes = vector_pass_count(n_vec)
+    n_sm = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    needed = -(-dev.records.shape[0] // (threads.value // 32))
+    return dict(threads_per_block=threads.value,
+                blocks_per_sm=per_sm.value, passes=passes,
+                grid=min(max(per_sm.value * n_sm // passes, 1), needed))

@@ -26,10 +26,9 @@ from typing import Dict, Tuple
 import torch
 
 from . import scs_spmv
-from .device_format import DeviceScs
+from .device_format import VECTORS_PER_PASS, DeviceScs
 from .scs_spmv import (
     LAYOUTS,
-    MAX_COLS_PER_PASS,
     check_matrix_tensors,
     matrix_args,
     spmv_scs_plain,
@@ -94,7 +93,7 @@ def solve_fits(dev: DeviceScs, x_shape: Tuple[int, ...], x_dtype: torch.dtype,
         return x_shape[0] == dev.n_rows_padded
     return (len(x_shape) == 2 and layout == "rowwise"
             and x_shape[0] == dev.n_rows_padded
-            and 1 <= x_shape[1] <= MAX_COLS_PER_PASS)
+            and 1 <= x_shape[1] <= VECTORS_PER_PASS)
 
 
 def _check_args(dev: DeviceScs, x: torch.Tensor, k: int, layout: str) -> None:
@@ -111,7 +110,7 @@ def _check_args(dev: DeviceScs, x: torch.Tensor, k: int, layout: str) -> None:
         raise ValueError(
             "the fused solve kernel takes one vector "
             f"[{dev.n_rows_padded}] or rowwise block vectors "
-            f"[{dev.n_rows_padded}, bs <= {MAX_COLS_PER_PASS}] of a square "
+            f"[{dev.n_rows_padded}, bs <= {VECTORS_PER_PASS}] of a square "
             f"operator; got shape {tuple(x.shape)} in the {layout} layout "
             f"(largest column index + 1 = {dev.x_len})"
         )

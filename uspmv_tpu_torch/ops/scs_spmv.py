@@ -33,7 +33,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import torch
 
 from . import _build
-from .device_format import DeviceScs
+from .device_format import VECTORS_PER_PASS, DeviceScs, vector_pass_count
 
 # (value dtype, x dtype) -> entry point of csrc/scs_spmv.cu
 _ENTRY_POINTS = {
@@ -54,8 +54,6 @@ _ARGTYPES = (
     + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 )
 THREADS = 256  # threads per block of every row-sum kernel (kThreads)
-# columns or colwise vectors one pass over the matrix carries (kMaxCols)
-MAX_COLS_PER_PASS = 8
 # colwise vectors one launch of a kernel takes (the pieces and halo
 # kernels: gridDim.y)
 MAX_VECTORS = 65535
@@ -170,7 +168,7 @@ def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype,
     blocks resident per SM (the occupancy of the one-vector instantiation,
     or of the one of 8 colwise vectors, in the loop form ``dev`` runs: by
     group lengths where it has them, else by chunk lengths), the form, the
-    grid and its passes over the matrix (``vector_passes``)."""
+    grid and its passes over the matrix (``vector_pass_count``)."""
     name = entry_for(dev, x_dtype)
     lib = _kernel_lib()
     per_sm = ctypes.c_int(0)
@@ -180,17 +178,17 @@ def launch_geometry(dev: DeviceScs, x_dtype: torch.dtype,
         f"{name} occupancy query")
     return dict(threads_per_block=THREADS, blocks_per_sm=per_sm.value,
                 groups=groups, grid=-(-dev.n_rows_padded // THREADS),
-                passes=len(vector_passes(n_vec)))
+                passes=vector_pass_count(n_vec))
 
 
 def vector_passes(bs: int) -> List[Tuple[int, int]]:
     """The passes of the SELL-C-sigma kernel over the matrix for a block
     of ``bs`` vectors, in either layout: (first column or vector, count)
-    of each, at most MAX_COLS_PER_PASS, in order. Rowwise, each pass is a
+    of each, at most VECTORS_PER_PASS, in order. Rowwise, each pass is a
     launch; colwise, a launch runs them as its grid rows (vectors 8p ..
     8p + 7 in row p, ``launch_colwise`` of csrc/scs_spmv.cu)."""
-    return [(v0, min(MAX_COLS_PER_PASS, bs - v0))
-            for v0 in range(0, bs, MAX_COLS_PER_PASS)]
+    return [(v0, min(VECTORS_PER_PASS, bs - v0))
+            for v0 in range(0, bs, VECTORS_PER_PASS)]
 
 
 def out_shape(dev, x: torch.Tensor, layout: str) -> Tuple[int, ...]:

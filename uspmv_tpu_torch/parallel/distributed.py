@@ -104,6 +104,7 @@ from ..ops.device_format import (
     build_device_packed,
     build_device_pieces,
     build_device_scs,
+    vector_pass_count,
 )
 from ..ops.halo_exchange import (
     DeviceExchange,
@@ -190,7 +191,10 @@ class StreamSummary:
     packed_bytes: int  # the packed streams' part of stream_bytes
     pieces_nnz: int = 0
     n_pieces: int = 0
-    pieces_bytes: int = 0
+    # the pieces' bytes per pass of <= 8 vectors and per vector
+    # (DevicePieces.pass_bytes, vector_bytes)
+    pieces_pass_bytes: int = 0
+    pieces_vector_bytes: int = 0
 
     @classmethod
     def of(cls, sh: ShardStreams) -> "StreamSummary":
@@ -206,7 +210,8 @@ class StreamSummary:
                              if isinstance(d, DevicePacked)),
             pieces_nnz=pc.nnz if pc else 0,
             n_pieces=pc.n_pieces if pc else 0,
-            pieces_bytes=pc.stream_bytes() if pc else 0)
+            pieces_pass_bytes=pc.pass_bytes() if pc else 0,
+            pieces_vector_bytes=pc.vector_bytes() if pc else 0)
 
 
 def shard_owners(R: int) -> tuple:
@@ -844,11 +849,13 @@ class DistributedSpmvOperator(OperatorBase):
         total = 0
         sell_passes, packed_passes = (self.matrix_passes(False),
                                       self.matrix_passes(True))
+        pieces_passes = vector_pass_count(bs)
         for p in self.precisions:
             for sm in self.summaries[p]:
                 total += (sell_passes * (sm.stream_bytes - sm.packed_bytes)
                           + packed_passes * sm.packed_bytes
-                          + bs * sm.pieces_bytes)
+                          + pieces_passes * sm.pieces_pass_bytes
+                          + bs * sm.pieces_vector_bytes)
         xw = torch.empty((), dtype=self.working_dtype).element_size()
         return total + self.R * self.n_rows_padded * bs * xw * 2
 

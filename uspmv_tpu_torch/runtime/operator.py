@@ -62,6 +62,7 @@ from ..ops.device_format import (
     build_device_packed,
     build_device_pieces,
     build_device_scs,
+    vector_pass_count,
 )
 from ..ops.scs_packed import spmv_packed, spmv_packed_plain
 from ..ops.scs_pieces import spmv_pieces, spmv_pieces_plain
@@ -70,7 +71,6 @@ from ..ops.scs_spmv import (
     record_captured_launches,
     spmv_scs,
     spmv_scs_plain,
-    vector_passes,
 )
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
 from ..parallel import multihost
@@ -309,11 +309,11 @@ class OperatorBase:
     def matrix_passes(self, packed: bool = False) -> int:
         """Reads of one row stream from device memory per SpMV, in either
         layout: a SELL-C-sigma stream one per pass of <= 8 block vectors
-        (``vector_passes``), a packed stream (``packed``) one, its column
+        (``vector_pass_count``), a packed stream (``packed``) one, its column
         loop reading each group again from L1/L2."""
         if packed:
             return 1
-        return len(vector_passes(self.config.block_vec_size))
+        return vector_pass_count(self.config.block_vec_size)
 
     def transport(self) -> Optional[str]:
         """The transport of the operator's transfer between processes
@@ -738,15 +738,17 @@ class SpmvOperator(OperatorBase):
         """Minimum traffic: each precision's matrix stream (values +
         int32 columns of the slots the kernel reads, chunk pointers and
         group lengths or row-group metadata), once per matrix pass
-        (``matrix_passes``), its pieces (CSR stream, parents' runs, partial
-        sums) once per vector, + x + y in the working dtype. Not comparable
-        with the JAX package's count, whose lane tiles stream int16 gather
-        tables."""
+        (``matrix_passes``), its pieces (CSR stream, parents' runs, records,
+        counters) once per pass of <= 8 vectors and the long parents'
+        partial sums once per vector (``DevicePieces.stream_bytes``), + x +
+        y in the working dtype. Not comparable with the JAX package's
+        count, whose lane tiles stream int16 gather tables."""
         total = sum(
             self.matrix_passes(isinstance(dev, DevicePacked))
             * dev.stream_bytes() for dev in self.devs.values()
-        ) + self.config.block_vec_size * sum(
-            pc.stream_bytes() for pc in self.pieces.values()
+        ) + sum(
+            pc.stream_bytes(self.config.block_vec_size)
+            for pc in self.pieces.values()
         )
         xw = torch.empty((), dtype=self.working_dtype).element_size()
         total += self.n_rows_padded * self.config.block_vec_size * xw * 2

@@ -14,8 +14,10 @@ and cuobjdump's registers per kernel are printed for each. The cases:
 
     sell    Laplace3D-128 at C=1024, sigma=1 (the headline) with every
             (values, x) pair of scs_spmv.cu, its all-ones pattern as a
-            unit stream, and sp with rowwise and colwise bs 4 and 8
-            (cuSPARSE's SpMM beside them: A @ X, colwise A @ X.t());
+            unit stream, sp with rowwise bs 4, 8 and 12 (passes of 8
+            and 4) and colwise bs 4 and 8, and each pair with f64 x at
+            rowwise bs 4 (cuSPARSE's SpMM beside them where the types
+            agree: A @ X, colwise A @ X.t());
             Laplace3D-160, sp. The bound reads the matrix once: the
             least any design of the kernel streams
     padded  the SELL-C-sigma streams with padding to skip, at C=1024,
@@ -33,10 +35,14 @@ and cuobjdump's registers per kernel are printed for each. The cases:
             operator's automatic threshold: its packed rows as dp, sp, hp,
             and sp with colwise bs 4 and 8
     solve   the fused solve (scs_solve.cu), k=32, on the headline's matrix
-            scaled by 1/16 (row sums of |A| <= 1), sp
+            scaled by 1/16 (row sums of |A| <= 1), sp, one vector and
+            rowwise bs 4
     pieces  the heavy-row pieces (scs_pieces.cu) of the same
             RandomImbalanced-500k operators as dp, sp, hp, added into a
-            random y
+            random y; then sp with rowwise and colwise bs 4 and 8, slots
+            and counters sized for a row per vector (what a tree that
+            reads the pieces once per vector needs, more than one per
+            pass), cuSPARSE's SpMM on the pieces' sub-matrix beside them
     gather  x_access.cu's gather_store against index_select: 2^24
             banded and random indices into an x of 8.4 MB, and the
             columns of RandomImbalanced-500k's packed rows and pieces (sp,
@@ -78,9 +84,9 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
-import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
@@ -233,27 +239,28 @@ class Version:
 
 
 def build_all(libs: Dict[str, Path]) -> Dict[str, Version]:
-    """Every tree into build/uspmv_tpu_torch/kernel_ab/<name>/, at once."""
-    procs = {}
+    """Every tree into build/uspmv_tpu_torch/kernel_ab/<name>/, at once
+    (each tree an nvcc per source, ``_build.compile_library``)."""
     t0 = time.perf_counter()
+    outs = {}
     for name, csrc in libs.items():
         sources = sorted(csrc.glob("*.cu"))
         if not sources:
             raise _build.KernelBuildError(f"no CUDA sources under {csrc}")
         out = _build.BUILD_DIR / NAME / name / "lib.so"
         out.parent.mkdir(parents=True, exist_ok=True)
-        procs[name] = (out, subprocess.Popen(
-            _build.nvcc_command(sources, out), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    versions = {}
-    for name, (out, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise _build.KernelBuildError(f"{name}: nvcc failed\n{log}")
-        versions[name] = Version(name, libs[name], out)
-    print(f"built {len(procs)} libraries in "
+        outs[name] = (sources, out)
+    with ThreadPoolExecutor(max_workers=len(outs)) as pool:
+        done = dict(zip(outs, pool.map(
+            lambda so: _build.compile_library(*so), outs.values())))
+    for name, (_, steps) in done.items():
+        print(f"{name}: slowest source "
+              f"{max(v for k, v in steps.items() if k != 'link'):.1f} s, "
+              f"link {steps['link']:.1f} s")
+    print(f"built {len(outs)} libraries in "
           f"{time.perf_counter() - t0:.1f} s")
-    return versions
+    return {name: Version(name, libs[name], out)
+            for name, (_, out) in outs.items()}
 
 
 def resources(versions: Dict[str, Version]) -> List[dict]:
@@ -265,7 +272,7 @@ def resources(versions: Dict[str, Version]) -> List[dict]:
             if any(k in r["function"] for k in (
                     "scs_spmv_kernel", "scs_ones_kernel", "scs_packed_kernel",
                     "scs_solve_kernel", "scs_probe_kernel",
-                    "scs_pieces_kernel", "gather_store_kernel",
+                    "scs_pieces_", "gather_store_kernel",
                     "halo_")):
                 rows.append(dict(kind="resources", lib=v.name, **r))
     return rows
@@ -363,7 +370,11 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
             runs = [(pair, "rowwise", 1) for pair in scs_spmv._ENTRY_POINTS]
             runs += [((None, torch.float32), "rowwise", 1),
                      (f32, "rowwise", 4), (f32, "rowwise", 8),
+                     (f32, "rowwise", 12),
                      (f32, "colwise", 4), (f32, "colwise", 8)]
+            # rowwise bs 4 with f64 x: 16-byte loads of x, as bs 8 f32
+            runs += [(pair, "rowwise", 4) for pair in scs_spmv._ENTRY_POINTS
+                     if pair[1] == torch.float64]
         rng = np.random.default_rng(0)
         for (vdt, xdt), layout, bs in runs:
             if vdt is None:  # the all-ones pattern without values
@@ -378,16 +389,20 @@ def sell_cases(versions, device, reps, rounds) -> List[dict]:
             x = torch.as_tensor(rng.standard_normal(shape),
                                 device=device).to(xdt)
             esize = x.element_size()
-            # x_ld, x_vstride, y_ld, y_vstride, ncols, n_vec of the wrapper
-            strides = ((1, 0, 1, 0, 1, 1) if bs == 1 else
-                       (bs, 0, bs, 0, bs, 1) if layout == "rowwise" else
-                       (1, n, 1, n, 1, bs))
+            # per launch of the wrapper: column offset, x_ld, x_vstride,
+            # y_ld, y_vstride, ncols, n_vec (rowwise: a launch per pass)
+            launches = ([(0, 1, 0, 1, 0, 1, 1)] if bs == 1 else
+                        [(c0, bs, 0, bs, 0, k, 1)
+                         for c0, k in scs_spmv.vector_passes(bs)]
+                        if layout == "rowwise" else [(0, 1, n, 1, n, 1, bs)])
 
-            def run(v, y, dev=dev, x=x, entry=entry, strides=strides):
-                x_ld, x_vs, y_ld, y_vs, ncols, n_vec = strides
-                v.call(entry, *v.matrix_args(dev),
-                       x.data_ptr(), x_ld, x_vs, y.data_ptr(), y_ld, y_vs,
-                       ncols, n_vec, 0)
+            def run(v, y, dev=dev, x=x, entry=entry, launches=launches,
+                    esize=esize):
+                for c0, x_ld, x_vs, y_ld, y_vs, ncols, n_vec in launches:
+                    v.call(entry, *v.matrix_args(dev),
+                           x.data_ptr() + c0 * esize, x_ld, x_vs,
+                           y.data_ptr() + c0 * esize, y_ld, y_vs, ncols,
+                           n_vec, 0)
 
             library = None
             if vdt == xdt:
@@ -577,17 +592,66 @@ def pieces_cases(versions, device, reps, rounds) -> List[dict]:
         if pc.values.dtype == xdt:
             library = csr_call(pc.piece_rows[pc.piece_idxs.long()],
                                pc.col_idxs, pc.values, n, x)
-        # as chip_smoke.py path G: the function's own stream, the x entries
-        # the pieces can touch, the parents' rows of y read and written
-        nbytes = pc.bound_bytes() + x.element_size() * (
-            min(n, pc.nnz) + 2 * pc.n_parents)
+        # as chip_smoke.py path G: the function's own stream, x at the
+        # columns the pieces read, the parents' rows of y read and written
+        nbytes = pc.function_bytes(1, x.element_size())
         rows += paired(
             f"RandomImbalanced-500k pieces {value_type}", versions, run,
             scs_pieces.spmv_pieces_plain(pc, x, "rowwise", y0.clone()),
             nbytes, reps, rounds, library, y0=y0)
+        if value_type == "sp":
+            for layout, bs in (("rowwise", 4), ("rowwise", 8),
+                               ("colwise", 4), ("colwise", 8)):
+                rows += pieces_block_case(versions, pc, layout, bs, device,
+                                          reps, rounds)
         del op, pc
         torch.cuda.empty_cache()
     return rows
+
+
+def pieces_block_case(versions, pc, layout, bs, device, reps,
+                      rounds) -> List[dict]:
+    """The pieces ``pc`` (sp) for ``bs`` block vectors of ``layout``,
+    added into a random y, with slots and counters of a row per vector
+    (zero before and after every launch, in either design); cuSPARSE's
+    SpMM on the pieces' sub-matrix in turns. The bound reads the pieces
+    once, and x at their columns and the parents' rows of y once per
+    vector (``DevicePieces.function_bytes``)."""
+    n = pc.n_rows_padded
+    rng = np.random.default_rng(7)
+    shape = (n, bs) if layout == "rowwise" else (bs, n)
+    x, y0 = (torch.as_tensor(rng.standard_normal(shape), device=device,
+                             dtype=torch.float32) for _ in range(2))
+    slots = torch.zeros((bs, *pc.slots.shape[1:]), dtype=pc.slots.dtype,
+                        device=device)
+    arrivals = torch.zeros((bs, pc.longs.shape[0]), dtype=torch.int32,
+                           device=device)
+    entry = scs_pieces.entry_point(pc.values.dtype, x.dtype)
+    # x_ld, x_vstride (y alike)
+    ld, vs = (bs, 1) if layout == "rowwise" else (1, n)
+
+    def run(v, y):
+        if v.pieces_abi != "records":
+            raise RuntimeError(f"{v.name}: block vectors need work records")
+        v.call(entry, pc.records.shape[0], pc.records.data_ptr(),
+               pc.longs.shape[0], pc.longs.data_ptr(),
+               pc.piece_ptr.data_ptr(), pc.parent_ptr.data_ptr(),
+               pc.parent_row.data_ptr(), pc.col_idxs.data_ptr(),
+               pc.values.data_ptr(), x.data_ptr(), ld, vs, slots.data_ptr(),
+               slots[0].numel(), arrivals.data_ptr(), y.data_ptr(), ld, vs,
+               bs)
+
+    library = csr_call(pc.piece_rows[pc.piece_idxs.long()], pc.col_idxs,
+                       pc.values, n, x.t() if layout == "colwise" else x)
+    nbytes = pc.function_bytes(bs, x.element_size())
+    out = paired(
+        f"RandomImbalanced-500k pieces sp {layout} bs={bs}", versions, run,
+        scs_pieces.spmv_pieces_plain(pc, x, layout, y0.clone()), nbytes,
+        reps, rounds, library, y0=y0)
+    if slots.any() or arrivals.any():
+        raise RuntimeError(f"pieces {layout} bs={bs}: slots or counters "
+                           "left non-zero")
+    return out
 
 
 def gather_cases(versions, device, reps, rounds) -> List[dict]:
@@ -629,23 +693,30 @@ def solve_cases(versions, device, reps, rounds) -> List[dict]:
                mixed_tiles=False), mtx)
     dev = op.devs["sp"]
     n = dev.n_rows_padded
-    x0 = torch.as_tensor(np.random.default_rng(2).standard_normal(n),
-                         device=device, dtype=torch.float32)
-    buf = torch.empty(2, n, dtype=torch.float32, device=device)
     entry = scs_solve.entry_point(torch.float32, torch.float32)
+    rng = np.random.default_rng(2)
+    rows = []
+    # one vector, and rowwise bs 4 (16-byte loads of x)
+    for bs in (1, 4):
+        shape = (n,) if bs == 1 else (n, bs)
+        x0 = torch.as_tensor(rng.standard_normal(shape), device=device,
+                             dtype=torch.float32)
+        buf = torch.empty(2, *shape, dtype=torch.float32, device=device)
 
-    def run(v, y):
-        v.call(entry, *v.matrix_args(dev), x0.data_ptr(),
-               buf[0].data_ptr(), buf[1].data_ptr(), 1, 1, SOLVE_K)
-        y.copy_(buf[(SOLVE_K - 1) & 1])
+        def run(v, y, x0=x0, buf=buf, bs=bs):
+            v.call(entry, *v.matrix_args(dev), x0.data_ptr(),
+                   buf[0].data_ptr(), buf[1].data_ptr(), bs, bs, SOLVE_K)
+            y.copy_(buf[(SOLVE_K - 1) & 1])
 
-    def timer(fn):  # a cooperative launch of ~2 ms: events, few calls
-        return events_ms(fn, max(reps // 20, 1))
+        def timer(fn):  # a cooperative launch of ~2 ms: events, few calls
+            return events_ms(fn, max(reps // 20, 1))
 
-    _, want = scs_solve.solve_scs_plain(dev, x0, SOLVE_K)
-    nbytes = SOLVE_K * dev.stream_bytes() + 3 * n * 4
-    return paired(f"Laplace3D-128 fused solve sp k={SOLVE_K}", versions,
-                  run, want, nbytes, reps, rounds, None, timer)
+        _, want = scs_solve.solve_scs_plain(dev, x0, SOLVE_K)
+        nbytes = SOLVE_K * dev.stream_bytes() + 3 * n * bs * 4
+        rows += paired(f"Laplace3D-128 fused solve sp k={SOLVE_K}"
+                       + (f" rowwise bs={bs}" if bs > 1 else ""), versions,
+                       run, want, nbytes, reps, rounds, None, timer)
+    return rows
 
 
 @contextlib.contextmanager
@@ -819,7 +890,7 @@ def run(args: argparse.Namespace) -> List[dict]:
     rows = resources(versions)
     for r in rows:
         print(f"{r['lib']:10s} REG {r['registers']:3d} LOCAL {r['local']:4d} "
-              f"SASS {r['sass_instructions']} "
+              f"STACK {r['stack']:4d} SASS {r['sass_instructions']} "
               f"{r['function']}")
     card_line = card.card_name_and_power_limit()
     print(card_line)

@@ -253,7 +253,24 @@ nvidia-smi. Phases, each printing JSON lines:
         batches' length), while the card is busy: the partial record must
         parse, with value null and the watchdog's error, and the exit must
         be non-zero.
-     ``--only 14`` runs phases 1, 2, 13a's headline case and 14.
+     ``--only 14`` runs phases 1, 2, 13a's headline case and 14;
+ 15. one process over several card groups (the rows that cross
+     cards by pack, peer copy and unpack), the headline (Laplace3D-128,
+     C=1024, sigma=1, sp, seg-rows, overlap on); each driven run
+     (from_mtx, a validated solve of 5, bench_spmv 0.3 s by graph) sets
+     the launch counts to 0 before and needs the pack, the unpack and the
+     SELL kernel after:
+     a. on every host, R=4 as two groups on card 0: y bit-equal to the
+        one-group operator's and to phase 10's y; both SpMVs by a graph in
+        turns; the pack, copy, unpack and exchange each alone by graph;
+     b. with two or more cards, the peer access of every pair, then R=4
+        and R=8 over min(R, cards) cards by the default placement:
+        transport "peer", y bit-equal to the same R on one card (overlap
+        on and off), the SpMV by one graph across the cards in turns with
+        one card's, overlap off beside it, and the exchange's parts each
+        alone.
+     ``--only 15`` runs phases 1, 2 and 15 (on a host of four cards for b;
+     ``--only 12d`` in the same call gives NCCL's 4 x 1 beside it).
 
 Since the bench times replays of a captured graph, every driven run counts
 a kernel's launches through its wrapper plus its kernel nodes replayed from
@@ -2275,8 +2292,9 @@ def dist_plain(op, x):
     layout = op.config.vector_layout
     y = torch.zeros_like(x)
     for p in op.precisions:
-        xp = op.x_for(p, x)
-        ex = op.exchanges[p]
+        grp = op.groups[0]  # every shard on card 0
+        xp = op.x_for(p, x, grp)
+        ex = grp.exchanges[p]
         if ex is not None and ex.n and op.config.comm_halos:
             halo_exchange_plain(ex, xp, layout)
         for r, sh in enumerate(op.streams[p]):
@@ -2314,10 +2332,11 @@ def exchange_record(op, p, x, card, what):
 
     from uspmv_tpu_torch.ops import halo_exchange as hx
 
-    ex = op.exchanges[p]
+    grp = op.groups[0]  # every shard on card 0
+    ex = grp.exchanges[p]
     layout = op.config.vector_layout
     # precision p's own buffer, its halo rows cleared
-    x = op.x_for(p, x).clone()
+    x = op.x_for(p, x, grp).clone()
     flat, dim = hx.flat_view(ex, x, layout)
     flat.index_fill_(dim, ex.dst.long(), 0)
     got, want = hx.halo_exchange(ex, x.clone(), layout), \
@@ -2388,7 +2407,10 @@ def phase10(mtx, card):
 
     def build(m, **kw):
         t0 = time.perf_counter()
-        op = DistributedSpmvOperator.from_mtx(Config(**dict(base, **kw)), m)
+        # every shard on the first card, on a host with several too
+        op = DistributedSpmvOperator.from_mtx(
+            Config(**dict(base, **kw)), m,
+            devices=[torch.device("cuda", 0)])
         torch.cuda.synchronize()
         return op, time.perf_counter() - t0
 
@@ -2467,6 +2489,7 @@ def phase10(mtx, card):
     del ops
     x4 = op4.make_x(x_host)
     y4 = op4.to_host(op4.spmv(x4))
+    PHASE10_Y4["y"] = y4
 
     # overlap off (one launch per shard after the exchange) against on
     off, off_s = build(mtx, n_shards=4, overlap_comm=False)
@@ -2522,7 +2545,7 @@ def phase10(mtx, card):
                       TOL["sp"], "ap[dp_sp] R=4")
     # the sp stream's own x buffer takes the local rows of x every SpMV
     copy_bytes = 2 * ap.R * ap.n_rows_padded * xa.element_size()
-    copy_ms = graph_ms(lambda: ap.x_for("sp", xa), 50)
+    copy_ms = graph_ms(lambda: ap.x_for("sp", xa, ap.groups[0]), 50)
     emit("dist_ap_dp_sp", R=4, **info, **fields, copy_in_ms=copy_ms,
          copy_in_bound_ms=bound(copy_bytes, 0, xa.dtype)[0], card=card)
     rec = exchange_record(ap, "sp", ap.make_x(x_host), card,
@@ -3273,7 +3296,7 @@ def time_worker(op, x, reps):
         op.spmv(x, out=y)
     out = dict(spmv_loop_ms=events(lambda: op.spmv(x, out=y)),
                spmv_loop_host_ms=host(lambda: op.spmv(x, out=y)))
-    tr, b = op.transfers["sp"], op._tbufs["sp"]
+    tr, b = op.groups[0].transfers["sp"], op.groups[0].tbufs["sp"]
     layout = op.config.vector_layout
     out["pack_ms"] = events(lambda: hx.halo_pack(tr, x, b["send"], layout))
     out["unpack_ms"] = events(lambda: hx.halo_unpack(tr, b["recv"], x,
@@ -3563,7 +3586,8 @@ def references(mtx, x_seed):
     from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
 
     op4 = DistributedSpmvOperator.from_mtx(
-        Config(backend="cuda", **HEADLINE_R4), mtx)
+        Config(backend="cuda", **HEADLINE_R4), mtx,
+        devices=[torch.device("cuda", 0)])
     single = SpmvOperator.from_mtx(Config(
         backend="cuda", **{k: v for k, v in HEADLINE_R4.items()
                            if k != "n_shards"}), mtx)
@@ -3700,7 +3724,8 @@ def phase12(mtx, card):
     # reference's dp unit tolerance 1e-13 holds the relative L2 norm
     m64 = generate_matrix(c_spec["matrix"])
     one_cfg = Config(backend="cuda", **c_spec["config"])
-    one = DistributedSpmvOperator.from_mtx(one_cfg, m64)
+    one = DistributedSpmvOperator.from_mtx(
+        one_cfg, m64, devices=[torch.device("cuda", 0)])
     x0 = init_x_host(one_cfg, one.n_rows, one.matrix_stats,
                      dtype=np.float64)
     y1 = one.to_host(one.spmv(one.make_x(np.random.default_rng(
@@ -3787,10 +3812,12 @@ def bench_graph_case(label, spec, fields, m, card):
 
     cfg = Config(kernel_format="scs", chunk_size=1024, sigma=1,
                  backend="cuda", **{"value_type": "sp", **fields})
-    cls = (BcooSpmvOperator if cfg.impl == "bcoo"
-           else DistributedSpmvOperator if cfg.n_shards > 1
-           else SpmvOperator)
-    op = cls.from_mtx(cfg, m)
+    if cfg.n_shards > 1:  # every shard on card 0, on a host with several too
+        op = DistributedSpmvOperator.from_mtx(
+            cfg, m, devices=[torch.device("cuda", 0)])
+    else:
+        op = (BcooSpmvOperator if cfg.impl == "bcoo"
+              else SpmvOperator).from_mtx(cfg, m)
     x = op.make_x()
     out = torch.zeros_like(x)
     reps = 100 if time_ms(lambda: op.spmv(x, out=out), 3) < 1.0 else 20
@@ -3965,11 +3992,16 @@ def phase14(mtx, headline_gflops, card):
          HEADLINE_VS_13A of 13a's, its line appended to the record file;
       b. a run whose USPMV_BENCH_PHASE_DEADLINE_S fires the watchdog inside
          the headline's timed batches, while the card is busy: a's progress
-         lines say when its headline landed, and its last three batches took
-         3 n_iterations 2 nnz / GFLOP/s; the deadline falls in the middle of
-         them. The partial record must parse, with value null and the
-         watchdog's error; the exit non-zero; b's operator built and no
-         number landed."""
+         lines say when its headline operator was built, and its final
+         batch took t = n_iterations 2 nnz / GFLOP/s. The batches double
+         until one takes the bench time, then two more of that size run:
+         about 4 t from built to landed. The deadline is built + t, inside
+         a batch whether b stops doubling at a's size, one size earlier
+         (b's batches end near built + 2 t) or one later, so the batch
+         size's nearness to the bench time on the card moves nothing. The
+         partial record must parse, with value null and the watchdog's
+         error; the exit non-zero; b's operator built and no number
+         landed."""
     import torch
 
     t_phase = time.perf_counter()
@@ -4001,10 +4033,10 @@ def phase14(mtx, headline_gflops, card):
 
     t_batch = rec["n_iterations"] * 2 * mtx.nnz / (rec["value"] * 1e9)
     landed = progress[("headline", "landed")]
-    deadline = landed - 1.5 * t_batch
-    require(deadline > progress[("headline", "built")],
-            f"14b: a deadline of {deadline:.3f} s falls before the headline "
-            f"operator was built ({progress})")
+    deadline = progress[("headline", "built")] + t_batch
+    require(deadline < landed - t_batch,
+            f"14b: a deadline of {deadline:.3f} s falls in a's last batch "
+            f"({progress}, batch {t_batch:.3f} s)")
     rc, part, progress, seconds, err = bench_torch_run(
         {"USPMV_BENCH_PHASE_DEADLINE_S": f"{deadline:.3f}"}, 300)
     emit("bench_torch_watchdog", rc=rc, seconds=seconds, record=part,
@@ -4021,6 +4053,274 @@ def phase14(mtx, headline_gflops, card):
             f"14b: the watchdog fired outside the headline's bench "
             f"({progress})")
     emit("phase14", seconds=time.perf_counter() - t_phase)
+
+
+# ----------------------------------------------------------------- phase 15
+
+# phase 10's one-group y of the headline at R=4 (x from its seed 10), which
+# phase 15's two groups on one card must equal bit for bit
+PHASE10_Y4 = {}
+CARDS_R = (4, 8)
+
+
+def cards_graph_ms(devices, fn, reps):
+    """Milliseconds per call of ``fn``, which launches on the cards of
+    ``devices``: reps calls captured into one CUDA graph across the cards
+    (runtime/operator.capture_over: the first card's capture stream forks
+    to a stream of each other card and joins them back) and replayed on
+    the first card, timed by CUDA events there (a replay ends after every
+    card's nodes). ``fn`` allocates nothing."""
+    import torch
+
+    from uspmv_tpu_torch.ops.scs_spmv import record_captured_launches
+    from uspmv_tpu_torch.runtime.operator import capture_over
+
+    devices = list(dict.fromkeys(devices))
+    fn()  # built, loaded, peer access enabled before the capture
+    for d in devices:
+        torch.cuda.synchronize(d)
+    graph = torch.cuda.CUDAGraph()
+    with record_captured_launches(), capture_over(graph, devices):
+        for _ in range(reps):
+            fn()
+    with torch.cuda.device(devices[0]):
+        return time_ms(graph.replay, 3) / reps
+
+
+def op_graph_ms(op, x, out, reps=50):
+    """op.spmv(x, out=out) by ``cards_graph_ms`` on the op's cards."""
+    return cards_graph_ms(op.devices(), lambda: op.spmv(x, out=out), reps)
+
+
+def exchange_parts_ms(op, x, y, reps=200):
+    """The exchange of the sp stream of a sharded operator over several
+    card groups, each part alone by a graph across the cards: every
+    group's pack, the copies between the groups, every group's unpack, the
+    exchanges inside the groups, and (``rows``, 50 reps) every shard's row
+    launches without any exchange. Returns ({part: ms per call},
+    samples)."""
+    import torch
+
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    layout = op.config.vector_layout
+    xs = list(x) if isinstance(x, tuple) else [x]
+    groups = op.groups
+    sends = [g.tbufs["sp"]["send"] for g in groups]
+    recvs = [g.tbufs["sp"]["recv"] for g in groups]
+
+    def pack():
+        for g, t in zip(groups, xs):
+            hx.halo_pack(g.transfers["sp"], t, g.tbufs["sp"]["send"], layout)
+
+    def unpack():
+        for g, t in zip(groups, xs):
+            hx.halo_unpack(g.transfers["sp"], g.tbufs["sp"]["recv"], t,
+                           layout)
+
+    def exchange():
+        for g, t in zip(groups, xs):
+            if g.exchanges["sp"] is not None and g.exchanges["sp"].n:
+                hx.halo_exchange(g.exchanges["sp"], t, layout)
+
+    parts = {"pack": pack,
+             "copy": lambda: hx.peer_copy(op.peer["sp"], sends, recvs),
+             "unpack": unpack}
+    if any(g.exchanges["sp"].n for g in groups):  # shards that share a card
+        parts["exchange"] = exchange
+    ys = list(y) if isinstance(y, tuple) else [y]
+
+    def rows():
+        op._rows("sp", "main", xs, ys, False)
+        op._rows("sp", "halo", xs, ys, True)
+
+    timers = {k: (lambda f=f: cards_graph_ms(op.devices(), f, reps))
+              for k, f in parts.items()}
+    timers["rows"] = lambda: cards_graph_ms(op.devices(), rows, 50)
+    med, samples = time_turns(timers)
+    torch.cuda.synchronize()
+    return med, samples
+
+
+def phase15(mtx, card):
+    """Phase 15: one process over several card groups. ``mtx``
+    is the headline's Laplace3D-128 (C=1024, sigma=1, sp, seg-rows,
+    bulkvec, overlap on). Each driven run (from_mtx, a validated solve of 5
+    repetitions, bench_spmv 0.3 s by graph) sets every launch count to 0
+    before and reads it after; the pack and unpack kernels, the exchange
+    and the SELL kernel must have run. Returns the halo kernels' launches
+    per entry point of 15b's runs (the default placement over the cards:
+    the main path's), those of 15a's (two groups on card 0, a placement
+    only tests give), and the records."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.ops import scs_packed, scs_pieces, scs_spmv
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+    from uspmv_tpu_torch.runtime import operator
+    from uspmv_tpu_torch.runtime.bench import bench_spmv
+
+    t_phase = time.perf_counter()
+    wrappers = (scs_spmv, scs_packed, scs_pieces, hx)
+    base = dict(kernel_format="scs", chunk_size=1024, sigma=1,
+                value_type="sp", backend="cuda")
+    c0 = torch.device("cuda", 0)
+    x_host = np.random.default_rng(10).standard_normal(mtx.n_rows)
+    launches = {"15a": {}, "15b": {}}
+    records = {}
+    need = ("uspmv_halo_pack_f32", "uspmv_halo_unpack_f32",
+            "uspmv_scs_spmv_f32_f32")
+
+    def build(devices, **kw):
+        t0 = time.perf_counter()
+        op = DistributedSpmvOperator.from_mtx(
+            Config(**dict(base, **kw)), mtx, devices=devices)
+        for d in op.devices():
+            torch.cuda.synchronize(d)
+        return op, time.perf_counter() - t0
+
+    def drive(what, part, devices, **kw):
+        for w in wrappers:
+            w.reset_launch_count()
+        operator.reset_graph_nodes_replayed()
+        op, build_s = build(devices, **kw)
+        rep, rep_l2 = validated_solve(op, mtx, 5, what)
+        res = bench_spmv(op, bench_time=0.3)
+        require(res.timing == "graph", f"{what}: bench timed by {res.timing}")
+        got = {}
+        for w in wrappers:
+            got.update(w.launch_counts())
+        got = {k: n for k, n in with_replays(got).items() if n}
+        for k in need:
+            require(got.get(k, 0) > 0, f"{what}: {k} never launched: {got}")
+        for k, n in got.items():
+            if k.startswith("uspmv_halo_"):
+                launches[part][k] = launches[part].get(k, 0) + n
+        return op, dict(impl=op.impl_name(), build_s=build_s,
+                        transport=op.transport(),
+                        devices=[str(d) for d in op.devices()],
+                        shards=[[g.shards.start, g.shards.stop]
+                                for g in op.groups],
+                        validation=rep.summary(),
+                        validation_l2=rep_l2.summary(),
+                        solve_impl=op.solve_impl_name(5),
+                        main_path_launches=got,
+                        comm_per_card=op.comm_volume_per_card(),
+                        bench_gflops=res.perf_gflops,
+                        bench_timing=res.timing,
+                        bench_iterations=res.n_iterations)
+
+    # ---- 15a. every host: R=4 as two groups on card 0 (the rehearsal of
+    # pack -> copy -> unpack), bit-equal to phase 10's one group
+    one, _ = build([c0], n_shards=4)
+    xo = one.make_x(x_host)
+    y_one = one.to_host(one.spmv(xo))
+    if "y" in PHASE10_Y4:
+        require(np.array_equal(y_one, PHASE10_Y4["y"]),
+                "15a: the one-group y differs from phase 10's")
+    two, info = drive("R=4 as two groups on card 0", "15a", [c0, c0],
+                      n_shards=4)
+    require(two.n_cards == 2 and two.transport() == "peer",
+            f"15a: {two.n_cards} groups, transport {two.transport()}")
+    x2 = two.make_x(x_host)
+    y2 = two.spmv(x2)
+    require(np.array_equal(two.to_host(y2), y_one),
+            "15a: two groups on card 0 != one group, bit for bit")
+    yo = torch.zeros_like(xo)
+    med, samples = time_turns({
+        "two_groups": lambda: op_graph_ms(two, x2, y2),
+        "one_group": lambda: op_graph_ms(one, xo, yo)})
+    parts, part_samples = exchange_parts_ms(two, x2, y2)
+    rec = dict(R=4, **info, bit_equal_to_one_group=True,
+               compared_with_phase10="y" in PHASE10_Y4,
+               two_groups_ms=med["two_groups"], one_group_ms=med["one_group"],
+               parts_ms=parts, **samples, **part_samples, card=card)
+    emit("cards_rehearsal", **rec)
+    records["rehearsal"] = rec
+    del two, x2, y2, one, xo, yo
+    torch.cuda.empty_cache()
+    lap("15a")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        emit("cards", skipped=True, device_count=n_cards,
+             reason="one card: the shards of an operator share it; 15a "
+                    "rehearsed the transfer between two groups on it",
+             card=card)
+        emit("phase15", seconds=time.perf_counter() - t_phase,
+             halo_launches=launches)
+        return launches["15b"], launches["15a"], records
+
+    # ---- 15b. two or more cards: peer access, the headline over them
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a, b)
+            for a, b in itertools.permutations(range(n_cards), 2)}
+    emit("cards_peer_access", device_count=n_cards, peer=peer, card=card)
+    for R in CARDS_R:
+        what = f"Laplace3D-128 R={R} over the cards"
+        op, info = drive(what, "15b", None, n_shards=R)
+        G = min(R, n_cards)
+        require(op.n_cards == G, f"{what}: {op.n_cards} cards, not {G}")
+        require(op.transport() == "peer",
+                f"{what}: transport {op.transport()}, peer access {peer}")
+        one, one_s = build([c0], n_shards=R)
+        x, xo = op.make_x(x_host), one.make_x(x_host)
+        y, yo = op.spmv(x), one.spmv(xo)
+        want = one.to_host(yo)
+        require(np.array_equal(op.to_host(y), want),
+                f"{what}: y != the same R on one card, bit for bit")
+        # replayed graphs over the cards: a bench batch, and a solve of 5
+        # from the seeded x against one card's, bit for bit
+        g = op.batch_graph(x, 3)
+        op.replay(g, 2)
+        require(np.array_equal(op.to_host(g.bufs[0]), want),
+                f"{what}: a replayed batch != one card's y")
+        got = op.solve(op.make_x(x_host), 5)
+        ref = one.solve(one.make_x(x_host), 5)
+        require(all(np.array_equal(op.to_host(a), one.to_host(b))
+                    for a, b in zip(got, ref)),
+                f"{what}: a graph solve of 5 != one card's")
+        med, samples = time_turns({
+            "cards": lambda: op_graph_ms(op, x, y),
+            "one_card": lambda: op_graph_ms(one, xo, yo)})
+        parts, part_samples = exchange_parts_ms(op, x, y)
+        # overlap off against the same on one card (the interior and halo
+        # parts of overlap on sum a row in another order)
+        off, _ = build(None, n_shards=R, overlap_comm=False)
+        one_off, _ = build([c0], n_shards=R, overlap_comm=False)
+        xf = off.make_x(x_host)
+        yf = off.spmv(xf)
+        want_off = one_off.to_host(one_off.spmv(one_off.make_x(x_host)))
+        require(np.array_equal(off.to_host(yf), want_off),
+                f"{what}, overlap off: y != one card's")
+        g = off.batch_graph(xf, 3)
+        off.replay(g, 2)
+        require(np.array_equal(off.to_host(g.bufs[0]), want_off),
+                f"{what}, overlap off: a replayed batch != one card's y")
+        off_ms = op_graph_ms(off, xf, yf)
+        del one_off
+        rec = dict(R=R, cards=G, **info, bit_equal_to_one_card=True,
+                   graph_batch_and_solve_bit_equal=True,
+                   one_card_build_s=one_s, cards_ms=med["cards"],
+                   one_card_ms=med["one_card"], overlap_off_ms=off_ms,
+                   cards_gflops=2 * mtx.nnz / med["cards"] / 1e6,
+                   parts_ms=parts,
+                   rows_moved=sum(g.transfers["sp"].n_recv
+                                  for g in op.groups),
+                   rows_exchanged_in_cards=sum(
+                       g.exchanges["sp"].n for g in op.groups),
+                   **samples, **part_samples, card=card)
+        emit("cards_headline", **rec)
+        records[f"R={R}"] = rec
+        del op, one, off, x, xo, xf, y, yo, yf
+        torch.cuda.empty_cache()
+        lap(f"15b R={R}")
+    emit("phase15", seconds=time.perf_counter() - t_phase,
+         halo_launches=launches)
+    return launches["15b"], launches["15a"], records
 
 
 def main():
@@ -4093,6 +4393,15 @@ def main():
         else:  # 13a's headline case is phase 14's yardstick
             phase14(mtx, bench_graph_case("headline", "Laplace3D,128", {},
                                           mtx, card)["gflops"], card)
+        emit("done", seconds_total=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": []}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:3] == ["15"]:
+        phase15(laplace3d(128), card)
         emit("done", seconds_total=time.perf_counter() - t_start)
         print(json.dumps({"kernels": []}))
         print(card)
@@ -4332,6 +4641,9 @@ def main():
     mh_launches, mh_records = phase12(mtx, card)
     lap("12")
 
+    # ---- 15. one process over several card groups: pack, copy, unpack
+    cards_launches, rehearsal_launches, _ = phase15(mtx, card)
+
     # ---- 13. the bench by replayed CUDA graph, the solve bench's batches
     bench_13a = phase13(mtx, card)
     lap("13")
@@ -4451,7 +4763,7 @@ def main():
             "source": EXCHANGE_SOURCE, "replaces": EXCHANGE_REPLACES,
             "replaces_kind": "XLA hot path (jnp.take, ppermute, "
                              ".at[].set), not a Pallas kernel",
-            "launches": dist_launches[entry],
+            "launches": dist_launches[entry] + cards_launches.get(entry, 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4461,9 +4773,17 @@ def main():
             "bound_bytes": rec["bound_bytes"], "floor_ms": rec["floor_ms"],
             "above_floor_ms": rec["above_floor_ms"],
         })
-    kernels += transfer_kernels(mh_launches, mh_records)
+    kernels += transfer_kernels(
+        {e: mh_launches.get(e, 0) + cards_launches.get(e, 0)
+         for e in set(mh_launches) | set(cards_launches)}, mh_records)
     for k in kernels:
         k["launches_counted"] = LAUNCHES_COUNTED
+        # phase 15's: one process over card groups; 15b's are in
+        # "launches", 15a's (two groups on card 0) only here
+        entry = "uspmv_" + k["name"]
+        if entry in cards_launches or entry in rehearsal_launches:
+            k["card_group_launches"] = (cards_launches.get(entry, 0)
+                                        + rehearsal_launches.get(entry, 0))
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

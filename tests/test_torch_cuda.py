@@ -1342,13 +1342,26 @@ def test_inf_at_the_padding_column_spares_rows_that_do_not_read_it(cuda,
 # ------------------------------------------------- row-sharded execution
 
 
-def sharded(mtx, device, **kw):
+def sharded(mtx, device, devices=None, **kw):
+    """The sharded operator of ``mtx`` with its shards on ``devices``
+    (default: every shard on ``device``, card 0 on the card, whatever the
+    host holds); ``spread`` takes the default placement over the cards."""
+    if devices is None:
+        devices = [torch.device("cuda", 0) if device.type == "cuda"
+                   else device]
+    return spread(mtx, device, devices=devices, **kw)
+
+
+def spread(mtx, device, devices=None, **kw):
+    """The sharded operator as ``from_mtx`` places it: its shards over
+    min(R, visible cards) cards on the card."""
     from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
 
     cfg = dict(kernel_format="scs", chunk_size=32, sigma=1, value_type="sp",
                n_shards=4, backend="cpu" if device.type == "cpu" else "cuda")
     cfg.update(kw)
-    return DistributedSpmvOperator.from_mtx(Config(**cfg), mtx)
+    return DistributedSpmvOperator.from_mtx(Config(**cfg), mtx,
+                                            devices=devices)
 
 
 @pytest.mark.parametrize("layout,bs", [("rowwise", 1), ("rowwise", 4),
@@ -1359,7 +1372,7 @@ def test_halo_exchange_bit_equal_to_plain(cuda, dtype, layout, bs):
 
     op = sharded(laplace2d(64), cuda, block_vec_size=bs, vector_layout=layout,
                  seg_method="seg-nnz")
-    ex = op.exchanges["sp"]
+    ex = op.groups[0].exchanges["sp"]
     assert ex.n == op.comm_volume_per_spmv()["sp"]["real"] > 0
     gen = torch.Generator(device=cuda).manual_seed(bs)
     x = torch.randn(op.x_shape(), generator=gen, device=cuda).to(dtype)
@@ -1637,7 +1650,7 @@ def test_sharded_graph_solve_equals_loop(cuda, case):
         assert np.array_equal(op.to_host(b), op.to_host(c))
     # the capture's warm-up launched the exchange once per precision with
     # a plan; the replays launched nothing through the wrapper
-    n_ex = sum(1 for e in op.exchanges.values() if e is not None and e.n)
+    n_ex = sum(1 for e in op.groups[0].exchanges.values() if e is not None and e.n)
     assert sum(hx.launch_counts().values()) - n0 == n_ex
 
 
@@ -1646,7 +1659,124 @@ def test_sharded_backend_cuda_without_a_gpu_raises(cuda, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnavailableError):
-        sharded(laplace2d(16), cuda)
+        spread(laplace2d(16), cuda)
+
+
+# ------------------------------------------- card groups in one process
+
+CARD_CASES = ["sp-overlap", "sp-no-overlap", "sp-allgather", "sp-rowwise-4",
+              "sp-colwise-4", "ap[dp_sp]", "sp-pieces-packed"]
+
+
+def card_case(case):
+    """(matrix, operator keywords) of a sharded case, its rows scaled so
+    that the row sums of |A| are <= 1 (solves stay finite)."""
+    kw = dict(SHARDED_CASES[case])
+    mtx = imbalanced() if kw.pop("matrix", None) else laplace2d(64)
+    mtx.values[:] = mtx.values / np.bincount(
+        mtx.I, weights=np.abs(mtx.values)).max()
+    return mtx, kw
+
+
+def check_groups_against_one(one, op, x_host):
+    """op (several groups) against one (one group) of the same config:
+    eager y, a replayed bench batch and a graph solve bit for bit; the
+    pack and unpack launched where rows cross groups, and the graph's
+    nodes hold them."""
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+
+    want = one.to_host(one.spmv(one.make_x(x_host)))
+    x = op.make_x(x_host)
+    before = hx.launch_counts()
+    y = op.spmv(x)
+    torch.cuda.synchronize()
+    assert np.array_equal(op.to_host(y), want)
+    launched = {k: n - before[k] for k, n in hx.launch_counts().items()}
+    crossing = any(grp.tbufs for grp in op.groups)
+    if crossing:
+        for table in (hx.PACK_ENTRY_POINTS, hx.UNPACK_ENTRY_POINTS):
+            assert launched[table[op.working_dtype]] > 0, launched
+    g = op.batch_graph(x, 3)
+    op.replay(g, 2)
+    torch.cuda.synchronize()
+    assert np.array_equal(op.to_host(g.bufs[0]), want)
+    if crossing:
+        assert g.nodes[hx.PACK_ENTRY_POINTS[op.working_dtype]] > 0, g.nodes
+    assert op.solve_impl_name(5) == "graph"
+    loop = op.solve(op.make_x(x_host), 5, impl="loop")
+    graph = op.solve(op.make_x(x_host), 5)
+    ref = one.solve(one.make_x(x_host), 5)
+    torch.cuda.synchronize()
+    for a, b, c in zip(loop, graph, ref):
+        assert np.array_equal(op.to_host(a), op.to_host(b))
+        assert np.array_equal(op.to_host(b), one.to_host(c))
+
+
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_two_groups_on_one_card_equal_one_group(cuda, case):
+    """The rehearsal of pack -> copy -> unpack: R=4 as two groups on the
+    first card, eagerly and in captured graphs, bit-equal to one group."""
+    mtx, kw = card_case(case)
+    d0 = torch.device("cuda", 0)
+    one = sharded(mtx, cuda, devices=[d0], **kw)
+    two = sharded(mtx, cuda, devices=[d0, d0], **kw)
+    assert two.n_cards == 2 and two.transport() == "peer"
+    assert two.impl_name() == one.impl_name().replace("dist4-",
+                                                      "dist4-2cards-")
+    bs = kw.get("block_vec_size", 1)
+    x_host = np.random.default_rng(6).standard_normal(
+        (mtx.n_rows, bs) if bs > 1 else mtx.n_rows)
+    check_groups_against_one(one, two, x_host)
+
+
+@pytest.mark.parametrize("R", [4, 8])
+@pytest.mark.parametrize("case", ["sp-overlap", "sp-no-overlap",
+                                  "sp-allgather", "ap[dp_sp]",
+                                  "sp-colwise-4"])
+def test_four_cards_equal_one_card(cuda, case, R):
+    """The default placement over four cards (hosts with fewer skip): R
+    shards on min(R, 4) cards, peer copies between them, bit-equal to the
+    same operator on one card."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    mtx, kw = card_case(case)
+    op = spread(mtx, cuda, n_shards=R, **kw)
+    one = sharded(mtx, cuda, n_shards=R, **kw)
+    assert op.n_cards == 4 and op.transport() == "peer"
+    assert [g.device.index for g in op.groups] == [0, 1, 2, 3]
+    bs = kw.get("block_vec_size", 1)
+    x_host = np.random.default_rng(6).standard_normal(
+        (mtx.n_rows, bs) if bs > 1 else mtx.n_rows)
+    check_groups_against_one(one, op, x_host)
+
+
+def test_four_cards_full_size_replays_read_their_own_x(cuda):
+    """The headline's matrix (Laplace3D-128, C=1024, sigma=1, sp) at R=4
+    over four cards, hosts with fewer skip: a graph solve of 5 and a
+    replayed bench batch, each from a new x, many times, bit-equal to one
+    card's every time and read back with no synchronize in between (the
+    replay waits for the copies into its input on every card, and what
+    reads its output waits for the replay)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    from uspmv_tpu_torch.io import generators
+
+    mtx = generators.laplace3d(128)
+    mtx.values[:] = mtx.values / 16.0  # row sums of |A| <= 12/16
+    kw = dict(chunk_size=1024, n_shards=4)
+    op, one = spread(mtx, cuda, **kw), sharded(mtx, cuda, **kw)
+    assert op.n_cards == 4 and op.solve_impl_name(5) == "graph"
+    rng = np.random.default_rng(18)
+    for _ in range(12):
+        x_host = rng.standard_normal(mtx.n_rows)
+        got = op.solve(op.make_x(x_host), 5)
+        ref = one.solve(one.make_x(x_host), 5)
+        for a, b in zip(got, ref):
+            assert np.array_equal(op.to_host(a), one.to_host(b))
+        g = op.batch_graph(op.make_x(x_host), 3)
+        op.replay(g, 2)
+        y = one.spmv(one.make_x(x_host))
+        assert np.array_equal(op.to_host(g.bufs[0]), one.to_host(y))
 
 
 # ------------------------------------------------ slice 10: the auxiliaries
@@ -1772,8 +1902,9 @@ def batch_operator(case):
     mtx = imbalanced()
     if kw.get("impl") == "bcoo":
         return BcooSpmvOperator.from_mtx(cfg, mtx)
-    if kw.get("n_shards"):
-        return DistributedSpmvOperator.from_mtx(cfg, mtx)
+    if kw.get("n_shards"):  # every shard on card 0
+        return DistributedSpmvOperator.from_mtx(
+            cfg, mtx, devices=[torch.device("cuda", 0)])
     return SpmvOperator.from_mtx(cfg, mtx)
 
 

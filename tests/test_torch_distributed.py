@@ -101,7 +101,7 @@ def test_comm_modes_and_partitioners_match_jax(comm_mode, seg):
     assert np.array_equal(op.work_sharing, jop.work_sharing)
     assert (op.global_perm is None) == (jop.global_perm is None)
     assert op.per_shard_nnz() == jop.per_shard_nnz()
-    assert (op.exchanges["dp"] is None) == (comm_mode == "allgather")
+    assert (op.groups[0].exchanges["dp"] is None) == (comm_mode == "allgather")
 
 
 @pytest.mark.parametrize("R", [1, 4, 8])
@@ -173,7 +173,7 @@ def test_adaptive_precision_matches_jax(value_type, overlap):
     op = r[1]
     precs = Config(value_type=value_type).ap_precisions
     assert list(op.lengths) == list(precs)
-    assert set(op._xbufs) == set(precs[1:])
+    assert set(op.groups[0].xbufs) == set(precs[1:])
     assert all(op.nnz_per_precision()[p] > 0 for p in precs)
     assert op.nnz_per_precision() == r[0].nnz_per_precision()
 

@@ -284,3 +284,65 @@ def test_config_backend_and_dtypes():
     from uspmv_tpu_torch.config import dtype_for
 
     assert dtype_for("hp") == torch.bfloat16
+
+
+# ---------------------------------------- ScsData's host helpers
+
+SCS_HELPER_MATRICES = ("random_banded(600,30,9)", "fem_tet3d(5,2,0.5,3)")
+SCS_HELPERS = ("fill_in_percent", "memory_footprint_bytes", "to_dense",
+               "to_crs", "equal_structure", "element_coords",
+               "nonpad_index")
+
+
+@pytest.mark.parametrize("helper", SCS_HELPERS)
+@pytest.mark.parametrize("C,sigma", [(1, 1), (4, 8), (32, 128)])
+@pytest.mark.parametrize("name", SCS_HELPER_MATRICES)
+def test_scs_host_helpers_equal_jax(name, C, sigma, helper):
+    """Each helper of the port's ScsData against the JAX package's on the
+    same SCS (the counterparts of tests/test_scs.py's
+    test_crs_degenerate_c1_sigma1, test_reconstruction_all_formats and
+    test_beta_and_footprint)."""
+    jm, tm = GENERATED[name](jgen), GENERATED[name](tgen)
+    js, ts = j_convert(jm, C, sigma), t_convert(tm, C, sigma)
+    if helper == "fill_in_percent":
+        assert ts.fill_in_percent == js.fill_in_percent
+        assert ts.fill_in_percent == pytest.approx(
+            (1 / ts.beta - 1) * 100, rel=1e-12)
+    elif helper == "memory_footprint_bytes":
+        assert ts.memory_footprint_bytes() == js.memory_footprint_bytes()
+    elif helper == "to_dense":
+        dense = ts.to_dense()
+        assert np.array_equal(dense, js.to_dense())
+        assert np.array_equal(dense, tm.to_scipy().toarray())
+    elif helper == "to_crs":
+        if C != 1:
+            for s in (ts, js):
+                with pytest.raises(ValueError, match="C == 1"):
+                    s.to_crs()
+            return
+        for a, b in zip(ts.to_crs(), js.to_crs()):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        if sigma == 1:  # rows in their own order: the matrix as CSR
+            import scipy.sparse as sps
+
+            ptrs, cols, vals = ts.to_crs()
+            csr = sps.csr_matrix((vals, cols, ptrs), shape=ts.to_dense().shape)
+            assert np.array_equal(ptrs, tm.to_scipy().tocsr().indptr)
+            assert (csr != tm.to_scipy().tocsr()).nnz == 0
+    elif helper == "equal_structure":
+        other = t_convert(tm, C, sigma)
+        assert ts.equal_structure(other) and js.equal_structure(
+            j_convert(jm, C, sigma))
+        other.values = other.values * 2
+        assert not ts.equal_structure(other)
+        assert ts.equal_structure(t_convert(tm, C, 2 * sigma)) == \
+            js.equal_structure(j_convert(jm, C, 2 * sigma))
+    elif helper == "element_coords":
+        for a, b in zip(ts.element_coords(), js.element_coords()):
+            assert np.array_equal(a, b)
+    else:
+        idx, rows = ts.nonpad_index()
+        jidx, jrows = js.nonpad_index()
+        assert np.array_equal(idx, jidx) and np.array_equal(rows, jrows)
+        assert np.array_equal(np.sort(idx), np.flatnonzero(
+            ~ts.padding_mask()))

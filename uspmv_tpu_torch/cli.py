@@ -10,27 +10,32 @@ parses; ``-backend`` takes cuda (default) or cpu. Bench mode (-mode b) and
 solve mode (-mode s, validated against scipy) run every precision (-dp,
 -sp, -hp, -ap[...], -dp_emu), block vectors (-block_vec_size, -layout),
 -equilibrate, -jacobi_scale, -dropout, -split_rows_threshold and
--mixed_tiles, and row-sharded execution (-n_shards R > 1: R shards on the
-one device, -seg_method, -comm_mode, -comm_halos, -no_pack, -overlap,
--print_comm_vol), also across processes (-coordinator HOST:PORT
--n_processes P -process_id p, or their USPMV_* environment variables, or
-torchrun's: every process runs the same line; -local_devices D shards per
-process, default ceil(R / P); NCCL where each process has a card of its
-own, gloo through host buffers where processes share one, gloo with
--backend cpu; process 0 alone prints and writes the result, -verbose 1
-prints the run as a [multihost] line); solve mode runs the operator's ``solve`` (one CUDA graph
-of the -rev launches on a GPU, the fused solve kernel when
-``USPMV_FUSED_SOLVE`` is set and an unsharded operator is eligible, a loop
-on the CPU) and prints which one ran; bench mode times replays of a CUDA
-graph of captured SpMVs on a GPU and a loop of calls on the CPU and over
-gloo (-json's "timing" says which). -impl bcoo runs the vendor
-comparison (ops/spmv_bcoo.py: cuSPARSE CSR on the card), -impl xla the
-plain PyTorch path on the chosen device; -matrix_stats prints the matrix
-statistics and exits, -output_sparsity dumps each precision's matrix as
-.mtx into -mtx_out and exits, -debug 1 writes the sanity checker's solve
-dumps there, and -log_prof DIR writes a torch.profiler Chrome trace of the
-bench loop into DIR. With -backend cuda on a host without a GPU the CLI
-prints one line and exits with rc 3.
+-mixed_tiles, and row-sharded execution (-n_shards R > 1: R shards over
+the visible cards, min(R, cards) of them with ceil(R / that) shards each,
+shard r on card r // that, the rows that cross cards moved by pack, peer
+copy and unpack; on one card, or pinned to one by CUDA_VISIBLE_DEVICES, all
+R shards share it; -verbose 1 prints the placement and its transport as a
+[cards] line; -seg_method, -comm_mode, -comm_halos, -no_pack, -overlap,
+-print_comm_vol, whose shard lines name the card), also across processes
+(-coordinator HOST:PORT -n_processes P -process_id p, or their USPMV_*
+environment variables, or torchrun's: every process runs the same line
+and holds one card; -local_devices D shards per process, default
+ceil(R / P); NCCL where each process has a card of its own, gloo through
+host buffers where processes share one, gloo with -backend cpu; process 0
+alone prints and writes the result, -verbose 1 prints the run as a
+[multihost] line); solve mode runs the operator's ``solve`` (one CUDA
+graph of the -rev launches on a GPU, over every card of the process, the
+fused solve kernel when ``USPMV_FUSED_SOLVE`` is set and an unsharded
+operator is eligible, a loop on the CPU) and prints which one ran; bench
+mode times replays of a CUDA graph of captured SpMVs on a GPU and a loop of
+calls on the CPU and over gloo (-json's "timing" says which). -impl bcoo
+runs the vendor comparison (ops/spmv_bcoo.py: cuSPARSE CSR on the card),
+-impl xla the plain PyTorch path on the chosen device; -matrix_stats prints
+the matrix statistics and exits, -output_sparsity dumps each precision's
+matrix as .mtx into -mtx_out and exits, -debug 1 writes the sanity
+checker's solve dumps there, and -log_prof DIR writes a torch.profiler
+Chrome trace of the bench loop into DIR. With -backend cuda on a host
+without a GPU the CLI prints one line and exits with rc 3.
 """
 
 from __future__ import annotations
@@ -85,7 +90,9 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["seg-rows", "seg-nnz", "seg-metis"],
         default="seg-rows",
     )
-    p.add_argument("-n_shards", type=int, default=1)
+    p.add_argument("-n_shards", type=int, default=1,
+                   help="row shards R, spread over min(R, visible cards) "
+                        "cards, ceil(R / cards) shards each")
     p.add_argument(
         "-comm_mode",
         choices=["bulkvec", "multivec", "singlevec", "graphtopo",
@@ -289,6 +296,12 @@ def _run(args, cfg: Config, primary: bool, info=None) -> int:
         op = DistributedSpmvOperator.from_mtx(cfg, mtx)
     else:
         op = SpmvOperator.from_mtx(cfg, mtx)
+
+    if cfg.verbose and primary and getattr(op, "n_cards", 1) > 1:
+        print("[cards] " + json.dumps(dict(
+            cards=[str(d) for d in op.devices()],
+            shards=[[g.shards.start, g.shards.stop] for g in op.groups],
+            transport=op.transport())))
 
     if args.output_sparsity:
         # reference OUTPUT_SPARSITY: dump per-precision SCS and exit; an

@@ -61,6 +61,76 @@ class ScsData:
         """Fill efficiency nnz/n_elements (reference main.cpp:693)."""
         return self.nnz / self.n_elements if self.n_elements else 1.0
 
+    @property
+    def fill_in_percent(self) -> float:
+        """(n_elements/nnz - 1) * 100 (reference main.cpp:690-712)."""
+        return (self.n_elements / self.nnz - 1.0) * 100.0 if self.nnz else 0.0
+
+    def memory_footprint_bytes(self) -> int:
+        """values + chunk_ptrs + chunk_lengths + col_idxs bytes
+        (reference main.cpp:655-668; x and y are the harness's)."""
+        return int(self.values.nbytes + self.chunk_ptrs.nbytes
+                   + self.chunk_lengths.nbytes + self.col_idxs.nbytes)
+
+    def element_coords(self):
+        """(chunk, j, i) of every flat element, padding included: its
+        chunk, running column position and row slot. O(n_elements); use
+        ``nonpad_index`` for the stored elements alone."""
+        cp = self.chunk_ptrs.astype(np.int64)
+        e = np.arange(self.n_elements, dtype=np.int64)
+        chunk = np.searchsorted(cp, e, side="right") - 1
+        off = e - cp[chunk]
+        return chunk, off // self.C, off % self.C
+
+    def nonpad_index(self):
+        """(flat index, permuted row) of every element that is not
+        padding, O(nnz): row r's elements lie at ``chunk_ptrs[r // C] +
+        j * C + r % C`` for j < row_counts_new[r]."""
+        if self.row_counts_new is None:
+            raise ValueError("row_counts_new not recorded for this ScsData")
+        cnt = self.row_counts_new.astype(np.int64)
+        rows = np.repeat(np.arange(cnt.size, dtype=np.int64), cnt)
+        ends = np.cumsum(cnt)
+        j = np.arange(int(ends[-1]) if cnt.size else 0, dtype=np.int64)
+        j -= np.repeat(ends - cnt, cnt)
+        base = self.chunk_ptrs.astype(np.int64)[rows // self.C] + rows % self.C
+        return base + j * self.C, rows
+
+    def to_dense(self) -> np.ndarray:
+        """Dense (n_rows, n_cols) float64 reconstruction in original row
+        order."""
+        dense = np.zeros((self.n_rows_padded, self.n_cols), dtype=np.float64)
+        np.add.at(dense, (self.flat_row_idx(), self.col_idxs),
+                  self.values.astype(np.float64))
+        out = np.zeros((self.n_rows, self.n_cols), dtype=np.float64)
+        valid = self.new_to_old_idx >= 0
+        out[self.new_to_old_idx[valid]] = dense[valid]
+        return out
+
+    def to_crs(self):
+        """(row_ptrs, col_idxs, values) copies when C == 1, where each chunk
+        is one row and the flat layout is CRS."""
+        if self.C != 1:
+            raise ValueError("to_crs requires C == 1")
+        return (self.chunk_ptrs.copy(), self.col_idxs.copy(),
+                self.values.copy())
+
+    def equal_structure(self, other: "ScsData") -> bool:
+        """Structural equality (reference ScsData::operator==,
+        classes_structs.hpp:1341-1469)."""
+        return (
+            self.C == other.C
+            and self.sigma == other.sigma
+            and self.n_rows == other.n_rows
+            and self.n_chunks == other.n_chunks
+            and self.n_elements == other.n_elements
+            and np.array_equal(self.chunk_ptrs, other.chunk_ptrs)
+            and np.array_equal(self.chunk_lengths, other.chunk_lengths)
+            and np.array_equal(self.col_idxs, other.col_idxs)
+            and np.array_equal(self.values, other.values)
+            and np.array_equal(self.old_to_new_idx, other.old_to_new_idx)
+        )
+
     def flat_row_idx(self) -> np.ndarray:
         """Permuted row index of every flat element (padding included)."""
         per_chunk = self.chunk_lengths.astype(np.int64) * self.C

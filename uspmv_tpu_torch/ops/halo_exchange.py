@@ -5,29 +5,34 @@ Port of the exchange of ``DistributedSpmvOperator._exchange``
 (uspmv_tpu/parallel/distributed.py:917-944), which packs each shard's send
 buffer with ``jnp.take``, moves it with one ``ppermute`` per ring offset and
 scatters it into the receiver's halo region: XLA ops, not a Pallas kernel.
-In this package the R shards of an operator share one device, and their x
-buffers are stacked into one tensor (parallel/distributed.py):
+In this package the shards an operator holds on one card (a card group)
+have their x buffers stacked into one tensor (parallel/distributed.py):
 
-    one vector [R, L]; rowwise block vectors [R, L, bs]; colwise [bs, R, L]
+    one vector [R_g, L]; rowwise block vectors [R_g, L, bs]; colwise
+    [bs, R_g, L]
 
-So the exchange is one copy inside that tensor, ``x[dst[i]] = x[src[i]]``
-over the rows of its flat view (``[R * L]``, ``[R * L, bs]`` or
-``[bs, R * L]``), the pairs of ``parallel.halo.exchange_rows``.
-``halo_exchange`` does it in place: for CUDA tensors one launch of the
-kernel of ``csrc/halo_exchange.cu`` covers every offset, shard and vector;
-for CPU tensors it runs ``halo_exchange_plain``,
-``index_copy_(index_select)``. A failure to build or launch raises.
-Sources and destinations never share a row, so both give the same bits.
+So the exchange between the shards of a card is one copy inside that
+tensor, ``x[dst[i]] = x[src[i]]`` over the rows of its flat view
+(``[R_g * L]``, ``[R_g * L, bs]`` or ``[bs, R_g * L]``), the pairs of
+``parallel.halo.exchange_rows``. ``halo_exchange`` does it in place: for
+CUDA tensors one launch of the kernel of ``csrc/halo_exchange.cu`` covers
+every offset, shard and vector; for CPU tensors it runs
+``halo_exchange_plain``, ``index_copy_(index_select)``. A failure to build
+or launch raises. Sources and destinations never share a row, so both give
+the same bits.
 
-When the shards are spread over processes (parallel/multihost.py), that
-copy covers the pairs inside one process; the rows that cross go through a
-buffer of rows (``DeviceTransfer``): ``halo_pack`` gathers the rows a
-process sends, ``halo_unpack`` scatters the rows it receives, each one
-launch of its kernel in ``csrc/halo_exchange.cu`` for CUDA tensors and
+The rows that cross card groups go through a buffer of rows per group
+(``DeviceTransfer``): ``halo_pack`` gathers the rows a group sends,
+``halo_unpack`` scatters the rows it receives, each one launch of its
+kernel in ``csrc/halo_exchange.cu`` for CUDA tensors and
 ``halo_pack_plain`` (``index_select``) / ``halo_unpack_plain``
 (``index_copy_``) for CPU tensors. A buffer row holds every value of its x
 row: ``[n]`` for one vector, ``[n, bs]`` for block vectors of either
-layout, so the transfer splits it by rows.
+layout, so the transfer splits it by rows. Between the groups of one
+process, ``peer_copy`` moves each sender's slice for each receiver into the
+receiver's buffer (``peer_plan``: the ``send_counts``/``recv_counts`` split
+of ``all_to_all_single``), a device-to-device copy of PyTorch's; across
+processes ``all_to_all_single`` moves them (parallel/multihost.py).
 
 The three are one kernel template on the card (``csrc/halo_exchange.cu``):
 a thread copies a pair, rows of a multiple of 16 bytes move as 16-byte
@@ -282,17 +287,19 @@ def _launch(name: str, x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     book_launch(lib, rc, name, _launches)
 
 
-# ------------------------------------------------- rows that cross processes
+# ---------------------------------------- rows that cross card groups
 
 
 @dataclasses.dataclass
 class DeviceTransfer:
-    """One process's rows of one precision's exchange that cross processes:
-    the local rows it sends, grouped by destination process, and the halo
-    rows it receives, grouped by source process, as rows of its stacked x
-    (``n_shards`` shards of ``length`` rows); per process, the counts of
-    both. ``active`` is whether any process of the run sends a row: the
-    transfer is a collective, so every process takes part or none."""
+    """One card group's rows of one precision's exchange that cross groups
+    (the groups of one process, or processes of one group each): the local
+    rows it sends, grouped by destination group, and the halo rows it
+    receives, grouped by source group, as rows of its stacked x
+    (``n_shards`` shards of ``length`` rows); per group, the counts of
+    both. ``active`` is whether any group of the run sends a row: across
+    processes the transfer is a collective, so every process takes part or
+    none."""
 
     send: torch.Tensor  # int32 [n_send]
     recv: torch.Tensor  # int32 [n_recv]
@@ -325,8 +332,9 @@ class DeviceTransfer:
 def build_device_transfer(send: List[np.ndarray], recv: List[np.ndarray],
                           n_shards: int, length: int, active: bool,
                           device: torch.device) -> DeviceTransfer:
-    """The host's per-process row lists (``parallel.halo.split_exchange_rows``)
-    on ``device``, concatenated in process order as int32."""
+    """The host's per-group row lists (``parallel.halo.split_exchange_rows``
+    with the groups as its processes) on ``device``, concatenated in group
+    order as int32."""
     rows = n_shards * length
     if rows > np.iinfo(np.int32).max:
         raise OverflowError(f"{rows} stacked rows exceed int32 indices")
@@ -342,6 +350,64 @@ def build_device_transfer(send: List[np.ndarray], recv: List[np.ndarray],
         send_counts=[int(a.size) for a in send],
         recv_counts=[int(a.size) for a in recv],
         n_shards=n_shards, length=length, active=active)
+
+
+@dataclasses.dataclass(frozen=True)
+class PeerSlice:
+    """One move of a transfer between the card groups of one process: rows
+    [send_lo, send_lo + n) of group ``src``'s send buffer land in rows
+    [recv_lo, recv_lo + n) of group ``dst``'s receive buffer."""
+
+    src: int
+    dst: int
+    send_lo: int
+    recv_lo: int
+    n: int
+
+
+def peer_plan(transfers: List[DeviceTransfer]) -> List[PeerSlice]:
+    """The moves of the transfers of G card groups of one process (group g's
+    ``DeviceTransfer`` built with the groups as its "processes"): the
+    ``send_counts``/``recv_counts`` split of ``all_to_all_single`` as one
+    slice per pair of groups that exchanges rows, senders in order. A
+    sender's slice for group h starts after its rows for groups < h; a
+    receiver's slice from group g after its rows from groups < g."""
+    send_at = [np.concatenate([[0], np.cumsum(t.send_counts)])
+               for t in transfers]
+    recv_at = [np.concatenate([[0], np.cumsum(t.recv_counts)])
+               for t in transfers]
+    out = []
+    for g, t in enumerate(transfers):
+        for h, n in enumerate(t.send_counts):
+            if h == g or n == 0:
+                continue
+            if transfers[h].recv_counts[g] != n:
+                raise ValueError(
+                    f"group {g} sends {n} rows to group {h}, which expects "
+                    f"{transfers[h].recv_counts[g]}")
+            out.append(PeerSlice(g, h, int(send_at[g][h]),
+                                 int(recv_at[h][g]), int(n)))
+    return out
+
+
+def peer_copy(plan: List[PeerSlice], sends: List[torch.Tensor],
+              recvs: List[torch.Tensor], streams=None) -> None:
+    """Every move of ``plan``: ``recvs[dst][rows].copy_(sends[src][rows],
+    non_blocking=True)``, a device-to-device copy (a peer copy where the
+    groups' cards differ and have peer access). PyTorch runs it on the
+    current stream of the sender's card, after the current stream of the
+    receiver's card has reached it, and that stream waits for the copy.
+    ``streams``: per move, the (sender's, receiver's) CUDA streams to make
+    current for its copy; where both lie on one card, the sender's."""
+    from contextlib import ExitStack
+
+    for i, m in enumerate(plan):
+        with ExitStack() as stack:
+            if streams is not None:
+                stack.enter_context(torch.cuda.stream(streams[i][1]))
+                stack.enter_context(torch.cuda.stream(streams[i][0]))
+            recvs[m.dst][m.recv_lo:m.recv_lo + m.n].copy_(
+                sends[m.src][m.send_lo:m.send_lo + m.n], non_blocking=True)
 
 
 def _check_buffer(tr: DeviceTransfer, x: torch.Tensor, buf: torch.Tensor,
@@ -403,7 +469,7 @@ def _buffer_kernel(table: dict, tr: DeviceTransfer, x: torch.Tensor,
 
 def halo_pack(tr: DeviceTransfer, x: torch.Tensor, buf: torch.Tensor,
               layout: str = "rowwise") -> torch.Tensor:
-    """Gather the rows this process sends into ``buf`` (``[n_send]`` or
+    """Gather the rows this group sends into ``buf`` (``[n_send]`` or
     ``[n_send, bs]``): one launch of the pack kernel for CUDA tensors, the
     plain version for CPU tensors; nothing to send launches nothing.
     Returns buf."""

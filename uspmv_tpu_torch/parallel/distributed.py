@@ -7,29 +7,39 @@ entries are deduplicated and renumbered into a halo appended after its
 local (padded) rows (parallel/halo.py), and every SpMV fills the halos
 from their owners before the rows that read them run.
 
-The JAX operator is one SPMD program over a mesh of R devices, its exchange
-a ``ppermute`` per ring offset. Here the R shards run in one process on the
-one device ``config.backend`` names, each with its own structs and
-launches: the SELL-C-sigma or packed kernel of its rows (the tier chosen
-per struct, as on one device), its heavy-row pieces, and, per precision,
-one launch of the exchange kernel (ops/halo_exchange.py) that copies every
-halo row of every shard from its owner's local rows. Nothing falls back to
-the CPU: ``backend="cuda"`` without a GPU raises, where the JAX operator
-may fall back to a virtual CPU mesh.
+The JAX operator is one SPMD program over a mesh of the first R devices,
+its exchange a ``ppermute`` per ring offset. Here the R shards are spread
+over card groups, each group a card and the shards it holds, with their own
+structs and launches: the SELL-C-sigma or packed kernel of its rows (the
+tier chosen per struct, as on one device), its heavy-row pieces, and, per
+precision, one launch of the exchange kernel (ops/halo_exchange.py) that
+copies every halo row whose owner is on the same card. In one process
+``config.backend="cuda"`` takes G = min(R, visible cards) cards and D =
+ceil(R / G) shards per card, shard r on card r // D (cards past the last
+shard stay idle; ``CUDA_VISIBLE_DEVICES`` pins a run to fewer cards); with
+one card, every shard runs on the device ``config.backend`` names. The
+``devices`` argument of ``from_mtx`` names the groups' devices itself (two
+groups may share one: the tests' counterpart of the JAX virtual CPU mesh).
+Nothing falls back to one card or to the CPU: ``backend="cuda"`` without a
+GPU raises, where the JAX operator may fall back to a virtual CPU mesh.
 
-x lives in its halo-extended form. The shards' x buffers of L = H + 1
-rows (H: the plan's common length, the dump slot at H) are stacked:
+x lives in its halo-extended form. The x buffers of a group's R_g shards
+(L = H + 1 rows each; H: the plan's common length, the dump slot at H) are
+stacked on its card:
 
-    one vector [R, L]; rowwise block vectors [R, L, bs]; colwise [bs, R, L]
+    one vector [R_g, L]; rowwise block vectors [R_g, L, bs]; colwise
+    [bs, R_g, L]
 
-``make_x`` returns that tensor, ``spmv(x)`` fills the halo rows of x in
-place and writes each shard's y into the local rows of a tensor of the same
-shape, so a solve swaps x and y with no copy, and ``to_host`` reads each
-shard's local rows. Each adaptive precision has its own plan and L (its
-streams have their own column sets); its buffer takes a copy of the local
-rows of x on every SpMV. In ``comm_mode="allgather"`` there is no plan: x
-is [R, n_loc(, bs)], every shard reads the whole stacked x, whose
-concatenation ``build_allgather_col_map`` addresses, and no exchange runs.
+``make_x`` returns that tensor for one group and a tuple of them, one per
+card, for several. ``spmv(x)`` fills the halo rows of x in place and writes
+each shard's y into the local rows of a value of the same form, so a solve
+swaps x and y with no copy, and ``to_host`` reads each shard's local rows.
+Each adaptive precision has its own plan and L (its streams have their own
+column sets); its buffer takes a copy of the local rows of x on every SpMV.
+In ``comm_mode="allgather"`` there is no plan: x is [R_g, n_loc(, bs)],
+every shard reads the whole x of all R shards, whose concatenation
+``build_allgather_col_map`` addresses (on one group the stack itself; on
+several, each card's copy of every group's rows), and no exchange runs.
 
 Per shard and precision, in the JAX closure's order (distributed.py
 :1003-1051): with ``overlap_comm`` the rows are split into an interior
@@ -42,34 +52,48 @@ add. ``comm_halos=False`` skips the exchange (halo rows stay zero: wrong
 results on purpose); ``no_pack`` sends each sender's first rows in place
 of the packed ones (the reference's -no_pack, wrong on purpose too).
 
-impl='xla' (or use_pallas=False) runs every launch's plain PyTorch version,
-the exchange's too, on the chosen device, in one stream.
+The rows that cross groups go through a buffer of rows per group
+(``DeviceTransfer``): the pack kernel gathers the rows a group sends,
+grouped by destination, the unpack kernel scatters the rows it receives,
+grouped by source. Between them, in one process, each sender's slice for
+each receiver is copied into the receiver's buffer
+(``ops.halo_exchange.peer_copy``: a peer copy between two cards) after
+the packs, on the cards' second streams, beside the interior launches;
+the current streams join them before the unpack, which orders the unpack
+after every copy into it and the next pack after every copy out of it.
+PyTorch runs a copy between two cards after the receiver's current
+stream, so the copies follow one another (PERF.md, section 6, has what
+other orders cost on four H100s). With the overlap the exchange inside a
+card runs on its second stream too.
+``transport()`` says how the copies travel: "peer" where every pair of
+cards that exchanges rows has peer access, "host-staged" where one lacks it.
 
-Across processes (parallel/multihost.py): shard r lives in process
-``r // D`` (D = ``local_devices``, default ceil(R / P)), as the JAX mesh
-takes the first R devices of the global list. Every process plans every
-shard on the host (partition, splits, precisions, SCS, halo plans: the same
-bits everywhere) and builds device structs for its own shards only, so its
-stacked x holds its own n_local shards. Each precision's exchange splits
-into the pairs inside the process (the one-launch copy above, rows
-renumbered into the local stack), the rows it sends, packed by destination
-process (the pack kernel), and the rows it receives, unpacked by source
-process (the unpack kernel), with one ``all_to_all_single`` between them:
-on the card's tensors under NCCL; under gloo through pinned host buffers,
-copied out after the pack and in before the unpack, the host waiting on the
-copy out before the transfer. With the overlap the interior launches are
-enqueued before the transfer; the halo parts and the pieces run after the
-unpack. In allgather mode every process all-gathers the local rows into
-the whole stacked x. ``to_host`` gathers every shard (a collective: every
-process calls it and returns the whole y). Under NCCL the pack, the
-all-to-all, its wait and the unpack are captured with the rest of an SpMV
-into the CUDA graphs of a solve and of the bench's batches; every process
-captures and replays in the same order, and ``multihost.shutdown`` resets
-those graphs before the group goes (NCCL does not destroy a communicator
-that a live graph uses). Over gloo a solve and the bench run a loop of
-launches: a transfer through the host cannot be captured in a CUDA graph.
-The metrics of the shards a process does not hold come from the others'
-summaries, gathered once at build.
+impl='xla' (or use_pallas=False) runs every launch's plain PyTorch version,
+the exchange's too, on the chosen devices, in one stream per card.
+
+Across processes (parallel/multihost.py) a process holds one group: shard r
+lives in process ``r // D`` (D = ``local_devices``, default ceil(R / P)),
+as the JAX mesh takes the first R devices of the global list. Every process
+plans every shard on the host (partition, splits, precisions, SCS, halo
+plans: the same bits everywhere) and builds device structs for its own
+shards only, so its stacked x holds its own n_local shards. The transfer
+moves between processes by one ``all_to_all_single``: on the card's
+tensors under NCCL; under gloo through pinned host buffers, copied out
+after the pack and in before the unpack, the host waiting on the copy out
+before the transfer. With the overlap the interior launches are enqueued
+before the transfer; the halo parts and the pieces run after the unpack.
+In allgather mode every process all-gathers the local rows into the whole
+stacked x. ``to_host`` gathers every shard (a collective: every process
+calls it and returns the whole y). Under NCCL the pack, the all-to-all, its
+wait and the unpack are captured with the rest of an SpMV into the CUDA
+graphs of a solve and of the bench's batches; every process captures and
+replays in the same order, and ``multihost.shutdown`` resets those graphs
+before the group goes (NCCL does not destroy a communicator that a live
+graph uses). Over gloo a solve and the bench run a loop of launches: a
+transfer through the host cannot be captured in a CUDA graph. In one
+process over several cards one graph holds the launches and copies of
+every card (runtime/operator.py). The metrics of the shards a process does
+not hold come from the others' summaries, gathered once at build.
 
 Not ported, as the ROADMAP lists: lane tiles and re-tiling, the
 transpose-stream tier, the ±1 fold matrix and its prefix sums (the pieces
@@ -82,7 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -109,6 +133,7 @@ from ..ops.device_format import (
 from ..ops.halo_exchange import (
     DeviceExchange,
     DeviceTransfer,
+    PeerSlice,
     build_device_exchange,
     build_device_transfer,
     halo_exchange,
@@ -117,6 +142,8 @@ from ..ops.halo_exchange import (
     halo_pack_plain,
     halo_unpack,
     halo_unpack_plain,
+    peer_copy,
+    peer_plan,
 )
 from ..ops.vectors import init_x_host
 from ..precision.partition import partition_precisions
@@ -125,6 +152,7 @@ from ..runtime.operator import (
     SOLVE_IMPLS,
     guard_scs_explosion,
     packed_tier,
+    parts_of,
     real_rows,
     resolve_device,
     run_pieces,
@@ -277,6 +305,78 @@ def _halo_cols(cols: np.ndarray, lo: int, hi: int, old_to_new: np.ndarray,
     return out
 
 
+def shard_cards(R: int, n_cards: int) -> np.ndarray:
+    """The card group of each of R shards over ``n_cards`` cards of one
+    process: G = min(R, n_cards), D = ceil(R / G), shard r on card r // D,
+    the contiguous rule ``shard_owners`` applies to processes and the JAX
+    mesh's order of its first R devices. Cards past the last shard stay
+    idle (R=6 on 4 cards: D=2, cards 0-2)."""
+    if R < 1 or n_cards < 1:
+        raise ValueError(f"{R} shards over {n_cards} cards")
+    D = -(-R // min(R, n_cards))
+    return np.arange(R, dtype=np.int64) // D
+
+
+def card_devices(config: Config, R: int,
+                 devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices of this process's card groups: ``devices`` as given (two
+    groups may name the same device), else, outside a run of processes on
+    the card, the first min(R, visible cards) cards, else the one device
+    ``config.backend`` names (which raises DeviceUnavailableError for
+    backend "cuda" without a GPU, devices given or not)."""
+    device = resolve_device(config)
+    if devices is not None:
+        if multihost.process_count() > 1:
+            raise ValueError("devices= names the card groups of one "
+                             "process; a run of processes holds one group "
+                             "per process")
+        if not devices:
+            raise ValueError("devices= needs at least one device")
+        return [torch.device(d) for d in devices]
+    if device.type != "cuda" or multihost.process_count() > 1:
+        return [device]
+    n = min(R, torch.cuda.device_count())
+    if n <= 1:
+        return [device]
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@dataclasses.dataclass
+class CardGroup:
+    """One card and the shards it holds: what one process holds in a run of
+    processes, or one of several cards of one process."""
+
+    index: int  # its number among the run's groups (the process's, across
+    # processes)
+    device: torch.device
+    shards: range  # the shards it holds, stacked in this order
+    # per precision, per shard of the group (in ``shards`` order)
+    streams: Dict[str, List[ShardStreams]]
+    # per precision: the pairs inside the group, and the rows that cross
+    # groups (None where one group holds every shard)
+    exchanges: Dict[str, Optional[DeviceExchange]]
+    transfers: Dict[str, Optional[DeviceTransfer]]
+    # x buffers of the precisions after the first (halo mode)
+    xbufs: dict = dataclasses.field(default_factory=dict, repr=False)
+    # per precision: the transfer's send and receive buffers
+    tbufs: dict = dataclasses.field(default_factory=dict, repr=False)
+    # allgather over several groups of one process: every shard's x
+    whole: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                      repr=False)
+    comm_stream: Optional[object] = dataclasses.field(default=None,
+                                                      repr=False)
+
+    def comm(self) -> "torch.cuda.Stream":
+        """The card's second stream: the copies to and from other cards and
+        the exchange, beside the interior launches."""
+        if self.comm_stream is None:
+            self.comm_stream = torch.cuda.Stream(device=self.device)
+        return self.comm_stream
+
+    def cur(self) -> "torch.cuda.Stream":
+        return torch.cuda.current_stream(self.device)
+
+
 @dataclasses.dataclass
 class DistributedSpmvOperator(OperatorBase):
     """The sharded counterpart of ``SpmvOperator`` (same public surface)."""
@@ -287,51 +387,56 @@ class DistributedSpmvOperator(OperatorBase):
     work_sharing: np.ndarray  # [R + 1] global row boundaries
     # per precision, per shard: the host SCS, columns renumbered
     scs: Dict[str, List[ScsData]]
-    # per precision, per shard of this process (in ``shards`` order)
-    streams: Dict[str, List[ShardStreams]]
     halo_plans: Dict[str, Optional[HaloPlan]]  # None in allgather mode
-    # the pairs inside this process, per precision
-    exchanges: Dict[str, Optional[DeviceExchange]]
     lengths: Dict[str, int]  # L: rows of one shard's x buffer
     shard_perms: List[np.ndarray]  # per shard, old_to_new of its real rows
     global_perm: Optional[np.ndarray]  # seg-metis permutation, old -> new
     matrix_stats: tuple
     nnz: int
-    device: torch.device
+    device: torch.device  # the first group's
+    # the card groups this process holds, in shard order
+    groups: List[CardGroup] = dataclasses.field(default_factory=list)
     # per precision, per shard: what the metrics read of its streams
     summaries: Dict[str, List[StreamSummary]] = dataclasses.field(
         default_factory=dict)
-    # across processes: the process of each shard, this process's shards
-    # (None: one process holds all R), and per precision the rows that
-    # cross processes
+    # the process of each shard, and its card group (the same across
+    # processes, where a process holds one group)
     owner: Optional[np.ndarray] = None
-    shards: Optional[range] = None
-    transfers: Dict[str, Optional[DeviceTransfer]] = dataclasses.field(
+    card: Optional[np.ndarray] = None
+    # per precision: the moves between this process's groups
+    peer: Dict[str, List[PeerSlice]] = dataclasses.field(
         default_factory=dict)
     overlap: bool = False
     split_threshold: int = 0
     n_dropped: int = 0
     jacobi_diag: Optional[np.ndarray] = None
     equilib: Optional[tuple] = None
-    # x buffers of the precisions after the first (halo mode)
-    _xbufs: dict = dataclasses.field(default_factory=dict, repr=False)
-    # per precision: the transfer's send and receive buffers
-    _tbufs: dict = dataclasses.field(default_factory=dict, repr=False)
-    _comm_stream: Optional[object] = dataclasses.field(default=None,
-                                                       repr=False)
     _solve_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
     _batch_graphs: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # ----------------------------------------------------------------- build
 
     @classmethod
-    def from_mtx(cls, config: Config, mtx: MtxData
+    def from_mtx(cls, config: Config, mtx: MtxData,
+                 devices: Optional[Sequence] = None
                  ) -> "DistributedSpmvOperator":
+        """The operator of ``mtx`` under ``config``, its shards spread over
+        the card groups of ``card_devices(config, R, devices)``."""
         config.validate()
-        device = resolve_device(config)
         R = config.n_shards
-        owner, shards = shard_owners(R)
+        devs = card_devices(config, R, devices)
+        if multihost.process_count() > 1:
+            owner, shards = shard_owners(R)
+            card = owner
+            placed = [(multihost.process_index(), shards, devs[0])]
+        else:
+            owner = np.zeros(R, dtype=np.int64)
+            card = shard_cards(R, len(devs))
+            placed = [(g, range(int(np.searchsorted(card, g)),
+                                int(np.searchsorted(card, g, "right"))),
+                       devs[g]) for g in range(int(card[-1]) + 1)]
         n_proc = int(owner[-1]) + 1
+        n_groups = int(card[-1]) + 1  # over the whole run
         mtx = mtx.copy()
         if not mtx.is_sorted:
             mtx = mtx.sort_by_row()
@@ -414,13 +519,15 @@ class DistributedSpmvOperator(OperatorBase):
         # --- per precision: plan, column renumbering, exchange rows
         halo_plans: Dict[str, Optional[HaloPlan]] = {}
         lengths: Dict[str, int] = {}
-        exchanges: Dict[str, Optional[DeviceExchange]] = {}
-        transfers: Dict[str, Optional[DeviceTransfer]] = {}
+        # per group (in ``placed`` order), per precision
+        exchanges = [dict() for _ in placed]
+        transfers = [dict() for _ in placed]
         for p in precs:
-            transfers[p] = None
+            for ex, tr in zip(exchanges, transfers):
+                ex[p] = tr[p] = None
             if allgather:
                 build_allgather_col_map(scs[p], ws, stride=n_loc)
-                halo_plans[p], lengths[p], exchanges[p] = None, n_loc, None
+                halo_plans[p], lengths[p] = None, n_loc
                 pieces[p] = [
                     None if pc is None else (pc[0], _allgather_cols(
                         pc[1], ws, shard_perms, n_loc), pc[2])
@@ -437,57 +544,64 @@ class DistributedSpmvOperator(OperatorBase):
                     pc[1], int(ws[r]), int(ws[r + 1]), shard_perms[r],
                     scs[p][r].n_rows_padded, hp.halo_cols[r]), pc[2])
                 for r, pc in enumerate(pieces[p])]
-            if n_proc == 1:
+            if n_groups == 1:
                 src, dst = exchange_rows(hp, lengths[p],
                                          no_pack=config.no_pack)
-                exchanges[p] = build_device_exchange(src, dst, R, lengths[p],
-                                                     device)
+                exchanges[0][p] = build_device_exchange(
+                    src, dst, R, lengths[p], placed[0][2])
                 continue
-            me = multihost.process_index()
-            src, dst, send, recv = split_exchange_rows(
-                hp, lengths[p], owner, me, no_pack=config.no_pack)
-            exchanges[p] = build_device_exchange(
-                src, dst, len(shards), lengths[p], device)
-            # the same answer in every process: the plan is global
-            crossing = owner[:, None] != owner[None, :]
-            transfers[p] = build_device_transfer(
-                send, recv, len(shards), lengths[p],
-                bool(hp.recv_counts[crossing].any()), device)
+            # the same answer for every group: the plan is global
+            crossing = card[:, None] != card[None, :]
+            active = bool(hp.recv_counts[crossing].any())
+            for i, (g, shards, dev) in enumerate(placed):
+                src, dst, send, recv = split_exchange_rows(
+                    hp, lengths[p], card, g, no_pack=config.no_pack)
+                exchanges[i][p] = build_device_exchange(
+                    src, dst, len(shards), lengths[p], dev)
+                transfers[i][p] = build_device_transfer(
+                    send, recv, len(shards), lengths[p], active, dev)
 
         # --- device streams, the tier chosen per struct
         overlap = config.overlap_comm and not allgather
         bs = config.block_vec_size
-        streams: Dict[str, List[ShardStreams]] = {}
-        for p in precs:
-            dt = dtype_for(p)
+        groups = []
+        for i, (g, shards, dev) in enumerate(placed):
+            streams: Dict[str, List[ShardStreams]] = {}
+            for p in precs:
+                dt = dtype_for(p)
 
-            def put(s: ScsData) -> Stream:
-                build = (build_device_packed if packed_tier(config, s)
-                         else build_device_scs)
-                return build(s, device, dt)
+                def put(s: ScsData) -> Stream:
+                    build = (build_device_packed if packed_tier(config, s)
+                             else build_device_scs)
+                    return build(s, dev, dt)
 
-            streams[p] = []
-            for r in shards:
-                s = scs[p][r]
-                if overlap:
-                    interior, halo = split_scs_for_overlap(s)
-                    sh = ShardStreams(
-                        main=put(interior),
-                        halo=put(halo) if halo.nnz else None)
-                else:
-                    sh = ShardStreams(main=put(s))
-                pc = pieces[p][r]
-                if pc is not None:
-                    sh.pieces = build_device_pieces(
-                        pc[0], pc[1], pc[2], parent_rows[r],
-                        s.n_rows_padded, device, dt,
-                        config.working_dtype(), bs)
-                streams[p].append(sh)
-        overlap = overlap and any(sh.halo is not None
-                                  for lst in streams.values() for sh in lst)
+                streams[p] = []
+                for r in shards:
+                    s = scs[p][r]
+                    if overlap:
+                        interior, halo = split_scs_for_overlap(s)
+                        sh = ShardStreams(
+                            main=put(interior),
+                            halo=put(halo) if halo.nnz else None)
+                    else:
+                        sh = ShardStreams(main=put(s))
+                    pc = pieces[p][r]
+                    if pc is not None:
+                        sh.pieces = build_device_pieces(
+                            pc[0], pc[1], pc[2], parent_rows[r],
+                            s.n_rows_padded, dev, dt,
+                            config.working_dtype(), bs)
+                    streams[p].append(sh)
+            groups.append(CardGroup(index=g, device=dev, shards=shards,
+                                    streams=streams, exchanges=exchanges[i],
+                                    transfers=transfers[i]))
+        overlap = overlap and any(
+            sh.halo is not None for grp in groups
+            for lst in grp.streams.values() for sh in lst)
         summaries = _gather_summaries(
-            {p: {r: StreamSummary.of(sh) for r, sh in zip(shards, lst)}
-             for p, lst in streams.items()}, R, n_proc)
+            {p: {r: StreamSummary.of(sh) for grp in groups
+                 for r, sh in zip(grp.shards, grp.streams[p])}
+             for p in precs}, R, n_proc)
 
         op = cls(
             config=config,
@@ -495,33 +609,39 @@ class DistributedSpmvOperator(OperatorBase):
             n_rows_padded=n_loc,
             work_sharing=ws,
             scs=scs,
-            streams=streams,
             halo_plans=halo_plans,
-            exchanges=exchanges,
             lengths=lengths,
             shard_perms=shard_perms,
             global_perm=gperm,
             matrix_stats=stats,
             nnz=nnz,
-            device=device,
+            device=groups[0].device,
+            groups=groups,
             summaries=summaries,
             owner=owner,
-            shards=shards,
-            transfers=transfers,
+            card=card,
             overlap=overlap,
             split_threshold=th,
             n_dropped=n_dropped,
             jacobi_diag=jac,
             equilib=equilib,
         )
-        for p in precs[1:]:
-            if not allgather:
-                op._xbufs[p] = torch.zeros(op.x_shape(p),
-                                           dtype=op.working_dtype,
-                                           device=device)
-        for p, tr in transfers.items():
-            if tr is not None and tr.active:
-                op._tbufs[p] = op._transfer_buffers(tr)
+        for grp in groups:
+            for p in precs[1:]:
+                if not allgather:
+                    grp.xbufs[p] = torch.zeros(
+                        op._shape(grp, p), dtype=op.working_dtype,
+                        device=grp.device)
+            for p, tr in grp.transfers.items():
+                if tr is not None and tr.active:
+                    grp.tbufs[p] = op._transfer_buffers(tr, grp.device)
+            if allgather and len(groups) > 1:
+                grp.whole = torch.zeros(op._shape(None, None, R),
+                                        dtype=op.working_dtype,
+                                        device=grp.device)
+        if n_proc == 1:
+            op.peer = {p: peer_plan([grp.transfers[p] for grp in groups])
+                       for p in precs if p in groups[0].tbufs}
         return op
 
     # ------------------------------------------------------------- execution
@@ -531,14 +651,26 @@ class DistributedSpmvOperator(OperatorBase):
         return self.config.n_shards
 
     @property
+    def shards(self) -> range:
+        """The shards this process holds, every group's, in order."""
+        return range(self.groups[0].shards.start, self.groups[-1].shards.stop)
+
+    @property
     def n_local(self) -> int:
-        """The shards this process holds: the leading dimension of its
-        stacked x."""
+        """The shards this process holds."""
         return len(self.shards)
+
+    @property
+    def n_cards(self) -> int:
+        """The card groups of this process."""
+        return len(self.groups)
 
     @property
     def n_processes(self) -> int:
         return int(self.owner[-1]) + 1
+
+    def devices(self) -> list:
+        return [grp.device for grp in self.groups]
 
     def shard_counts(self) -> List[int]:
         """Shards per process."""
@@ -548,20 +680,40 @@ class DistributedSpmvOperator(OperatorBase):
     def precisions(self) -> tuple:
         return self.config.ap_precisions
 
-    def x_shape(self, precision: Optional[str] = None) -> tuple:
-        """Shape of the stacked x of ``precision`` (default: the first,
-        whose buffer is the operator's x and y)."""
+    @property
+    def streams(self) -> Dict[str, List[ShardStreams]]:
+        """Per precision, the streams of every shard held here, in order."""
+        return {p: [sh for grp in self.groups for sh in grp.streams[p]]
+                for p in self.precisions}
+
+    def _shape(self, grp: Optional[CardGroup], precision: Optional[str],
+               n: Optional[int] = None) -> tuple:
+        """The stacked x of ``n`` shards (default: the group's) of
+        ``precision`` (default: the first), L rows each."""
         L = self.lengths[precision or self.precisions[0]]
+        n = len(grp.shards) if n is None else n
         bs = self.config.block_vec_size
         if bs == 1:
-            return (self.n_local, L)
+            return (n, L)
         if self.config.vector_layout == "colwise":
-            return (bs, self.n_local, L)
-        return (self.n_local, L, bs)
+            return (bs, n, L)
+        return (n, L, bs)
+
+    def x_shape(self, precision: Optional[str] = None):
+        """Shape of the stacked x of ``precision`` (default: the first,
+        whose buffer is the operator's x and y); with several groups, a
+        tuple of their shapes."""
+        shapes = tuple(self._shape(grp, precision) for grp in self.groups)
+        return shapes[0] if len(shapes) == 1 else shapes
+
+    def _stack_dim(self, t: torch.Tensor) -> int:
+        """The dimension of a stacked tensor that runs over its shards."""
+        return 1 if t.dim() == 3 and self.config.vector_layout == "colwise" \
+            else 0
 
     def shard_view(self, t: torch.Tensor, r: int,
                     rows: Optional[int] = None) -> torch.Tensor:
-        """The part of a stacked tensor at slot r (the process's r-th
+        """The part of a stacked tensor at slot r (the group's r-th
         shard), its first ``rows`` rows: the x or y a shard's launches
         take."""
         if self.config.block_vec_size > 1 and \
@@ -578,12 +730,14 @@ class DistributedSpmvOperator(OperatorBase):
             return t.view(t.shape[0], -1)
         return t.view(-1, t.shape[2])
 
-    def x_for(self, p: str, x: torch.Tensor) -> torch.Tensor:
-        """The stacked x that precision p's streams read: x itself, or the
-        precision's own buffer with the local rows of x copied in."""
-        if p not in self._xbufs:
+    def x_for(self, p: str, x: torch.Tensor,
+              grp: CardGroup) -> torch.Tensor:
+        """The stacked x that precision p's streams of group ``grp`` read
+        (x is the group's): x itself, or the precision's own buffer with
+        the local rows of x copied in."""
+        if p not in grp.xbufs:
             return x
-        buf = self._xbufs[p]
+        buf = grp.xbufs[p]
         n = self.n_rows_padded
         if buf.dim() == 3 and self.config.vector_layout == "colwise":
             buf[:, :, :n].copy_(x[:, :, :n])
@@ -591,40 +745,44 @@ class DistributedSpmvOperator(OperatorBase):
             buf[:, :n].copy_(x[:, :n])
         return buf
 
-    def _comm(self) -> "torch.cuda.Stream":
-        if self._comm_stream is None:
-            self._comm_stream = torch.cuda.Stream(device=self.device)
-        return self._comm_stream
-
-    def _transfer_buffers(self, tr: DeviceTransfer) -> dict:
+    def _transfer_buffers(self, tr: DeviceTransfer,
+                          device: torch.device) -> dict:
         """The send and receive buffers of a transfer in the working dtype
-        on the device; under gloo from the card, their pinned host twins
-        and the event the host waits on before the transfer reads them."""
+        on the group's device; under gloo from the card, their pinned host
+        twins and the event the host waits on before the transfer reads
+        them."""
         bs = self.config.block_vec_size
         bufs = {}
+        staged = (device.type == "cuda" and self.n_processes > 1
+                  and multihost.transport() != "nccl")
         for name, n in (("send", tr.n_send), ("recv", tr.n_recv)):
             shape = tr.buffer_shape(n, bs)
             bufs[name] = torch.zeros(shape, dtype=self.working_dtype,
-                                     device=self.device)
-            if self.device.type == "cuda" and \
-                    multihost.transport() != "nccl":
+                                     device=device)
+            if staged:
                 bufs["host_" + name] = torch.zeros(
                     shape, dtype=self.working_dtype, pin_memory=True)
-        if "host_send" in bufs:
+        if staged:
             bufs["copied_out"] = torch.cuda.Event()
         return bufs
 
-    def _send(self, p: str, xp: torch.Tensor):
-        """Start precision p's transfer: pack the rows this process sends;
-        under gloo from the card, copy them out to the pinned host buffer
-        (the host waits on it in ``_receive``); under NCCL, start the
-        all-to-all on the card's buffers. Returns the NCCL work or None."""
+    def _send(self, p: str, xps):
+        """Start precision p's transfer: every group packs the rows it
+        sends from its x of ``xps`` (one tensor per group); across
+        processes, under gloo from the card, copy them out to the pinned
+        host buffer (the host waits on it in ``_receive``), under NCCL
+        start the all-to-all on the card's buffers. Returns the NCCL work
+        or None."""
         import torch.distributed as dist
 
-        tr, b = self.transfers[p], self._tbufs[p]
         layout = self.config.vector_layout
-        (halo_pack_plain if self.plain else halo_pack)(tr, xp, b["send"],
-                                                        layout)
+        pack = halo_pack_plain if self.plain else halo_pack
+        for grp, xp in zip(self.groups, parts_of(xps)):
+            pack(grp.transfers[p], xp, grp.tbufs[p]["send"], layout)
+        if self.n_processes == 1:
+            return None
+        grp = self.groups[0]  # across processes: one group per process
+        tr, b = grp.transfers[p], grp.tbufs[p]
         if "host_send" in b:
             b["host_send"].copy_(b["send"], non_blocking=True)
             b["copied_out"].record()
@@ -635,132 +793,234 @@ class DistributedSpmvOperator(OperatorBase):
                 async_op=True)
         return None
 
-    def _receive(self, p: str, xp: torch.Tensor, work) -> None:
-        """Finish precision p's transfer: move the rows (or wait for the
-        NCCL all-to-all), copy them in under gloo from the card, and
-        unpack them into the halo rows of xp."""
+    def _start_moves(self, p: str) -> list:
+        """In one process: copy every group's rows for the others into
+        their receive buffers (``peer_copy``), after the packs. On the
+        cards each copy runs on the sender's second stream with the
+        receiver's second stream current (PyTorch orders a copy between
+        two cards after the receiver's current stream and makes it wait for
+        the copy), each second stream having first waited for its card's
+        current stream (the packs, the last unpack); elsewhere on the
+        current streams. Returns the (current, second) stream pairs to join
+        before the unpack: each card's own, and a sender's on the same card
+        as its receiver."""
+        plan = self.peer[p]
+        sends = [grp.tbufs[p]["send"] for grp in self.groups]
+        recvs = [grp.tbufs[p]["recv"] for grp in self.groups]
+        if self.plain or self.device.type != "cuda":
+            peer_copy(plan, sends, recvs)
+            return []
+        busy = sorted({i for m in plan for i in (m.src, m.dst)})
+        for i in busy:
+            self.groups[i].comm().wait_stream(self.groups[i].cur())
+        peer_copy(plan, sends, recvs, [(self.groups[m.src].comm(),
+                                        self.groups[m.dst].comm())
+                                       for m in plan])
+        pairs = [(i, i) for i in busy] + [
+            (m.dst, m.src) for m in plan
+            if self.groups[m.dst].device == self.groups[m.src].device]
+        return [(self.groups[h].cur(), self.groups[g].comm())
+                for h, g in dict.fromkeys(pairs)]
+
+    def _receive(self, p: str, xps, work, moves=()) -> None:
+        """Finish precision p's transfer: in one process join the moves
+        of ``_start_moves``; across processes wait for the NCCL all-to-all
+        or run gloo's, copied in under gloo from the card. Then every
+        group unpacks its rows into the halo rows of its x."""
         import torch.distributed as dist
 
-        tr, b = self.transfers[p], self._tbufs[p]
-        if work is not None:
-            work.wait()
-        elif "host_send" in b:
-            b["copied_out"].synchronize()
-            dist.all_to_all_single(b["host_recv"], b["host_send"],
-                                   tr.recv_counts, tr.send_counts)
-            b["recv"].copy_(b["host_recv"], non_blocking=True)
-        else:
-            dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
-                                   tr.send_counts)
-        layout = self.config.vector_layout
-        (halo_unpack_plain if self.plain else halo_unpack)(tr, b["recv"], xp,
-                                                            layout)
-
-    def _whole_x(self, x: torch.Tensor) -> torch.Tensor:
-        """Allgather mode: the stacked x of all R shards as one vector
-        block; across processes, every process's local rows all-gathered
-        first."""
+        for cur, comm in moves:
+            cur.wait_stream(comm)
         if self.n_processes > 1:
-            colwise = x.dim() == 3 and self.config.vector_layout == "colwise"
-            x = multihost.all_gather_blocks(x, 1 if colwise else 0,
-                                            self.shard_counts())
-        return self.whole(x)
-
-    def _rows(self, p: str, part: str, xp: torch.Tensor, y: torch.Tensor,
-              accumulate: bool, xw: Optional[torch.Tensor] = None) -> None:
-        """Launch ``part`` (main, halo or pieces) of every shard of p held
-        here; ``xw``: the whole x of allgather mode."""
-        layout = self.config.vector_layout
-        for r, sh in enumerate(self.streams[p]):
-            dev = getattr(sh, part)
-            if dev is None:
-                continue
-            xr = xw if xw is not None else self.shard_view(xp, r)
-            yr = self.shard_view(y, r, dev.n_rows_padded)
-            if part == "pieces":
-                run_pieces(dev, xr, layout, yr, self.plain)
-            elif accumulate:
-                run_rows(dev, xr, layout, self.plain, y=yr)
+            grp = self.groups[0]
+            tr, b = grp.transfers[p], grp.tbufs[p]
+            if work is not None:
+                work.wait()
+            elif "host_send" in b:
+                b["copied_out"].synchronize()
+                dist.all_to_all_single(b["host_recv"], b["host_send"],
+                                       tr.recv_counts, tr.send_counts)
+                b["recv"].copy_(b["host_recv"], non_blocking=True)
             else:
-                run_rows(dev, xr, layout, self.plain, out=yr)
+                dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
+                                       tr.send_counts)
+        layout = self.config.vector_layout
+        unpack = halo_unpack_plain if self.plain else halo_unpack
+        for grp, xp in zip(self.groups, parts_of(xps)):
+            unpack(grp.transfers[p], grp.tbufs[p]["recv"], xp, layout)
 
-    def spmv(self, x: torch.Tensor,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One y = A x on the stacked x (``x_shape()``), which it updates
-        in place: the exchange fills its halo rows. Writes every shard's y
-        into the local rows of ``out`` (default: a new zeroed tensor of x's
-        shape; never x itself) and returns it."""
-        if tuple(x.shape) != self.x_shape() or x.dtype != self.working_dtype \
-                or x.device != self.device or not x.is_contiguous():
+    def _whole_xs(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Allgather mode: per group, the stacked x of all R shards as one
+        vector block: across processes every process's local rows
+        all-gathered; over several groups of one process, every group's
+        rows copied into each card's buffer."""
+        if self.n_processes > 1:
+            x = xs[0]
+            x = multihost.all_gather_blocks(x, self._stack_dim(x),
+                                            self.shard_counts())
+            return [self.whole(x)]
+        if len(self.groups) == 1:
+            return [self.whole(xs[0])]
+        dim = self._stack_dim(xs[0])
+        for grp in self.groups:
+            for src, x in zip(self.groups, xs):
+                grp.whole.narrow(dim, src.shards.start, len(src.shards)) \
+                    .copy_(x, non_blocking=True)
+        return [self.whole(grp.whole) for grp in self.groups]
+
+    def _rows(self, p: str, part: str, xps: List[torch.Tensor],
+              ys: List[torch.Tensor], accumulate: bool,
+              xws: Optional[List[torch.Tensor]] = None) -> None:
+        """Launch ``part`` (main, halo or pieces) of every shard of p held
+        here, each group on its card; ``xws``: the whole x of allgather
+        mode, per group."""
+        layout = self.config.vector_layout
+        for i, grp in enumerate(self.groups):
+            for r, sh in enumerate(grp.streams[p]):
+                dev = getattr(sh, part)
+                if dev is None:
+                    continue
+                xr = xws[i] if xws is not None else \
+                    self.shard_view(xps[i], r)
+                yr = self.shard_view(ys[i], r, dev.n_rows_padded)
+                if part == "pieces":
+                    run_pieces(dev, xr, layout, yr, self.plain)
+                elif accumulate:
+                    run_rows(dev, xr, layout, self.plain, y=yr)
+                else:
+                    run_rows(dev, xr, layout, self.plain, out=yr)
+
+    def _check(self, x, what: str) -> List[torch.Tensor]:
+        """x (or out) as one stacked tensor per group, each checked."""
+        parts = parts_of(x)
+        want = [(self._shape(grp, None), grp.device) for grp in self.groups]
+        if len(parts) != len(want) or any(
+                tuple(t.shape) != s or t.dtype != self.working_dtype
+                or t.device != d or not t.is_contiguous()
+                for t, (s, d) in zip(parts, want)):
             raise ValueError(
-                f"x must be contiguous {self.working_dtype} of shape "
-                f"{self.x_shape()} on {self.device} (make_x); got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}")
+                f"{what} must be contiguous {self.working_dtype} of shape "
+                f"{self.x_shape()} on "
+                f"{', '.join(str(d) for _, d in want)} (make_x), one tensor "
+                f"per card group; got "
+                f"{[(t.dtype, tuple(t.shape), str(t.device)) for t in parts]}")
+        return list(parts)
+
+    def spmv(self, x, out=None):
+        """One y = A x on the stacked x (``x_shape()``: one tensor, or a
+        tuple of one per card group), which it updates in place: the
+        exchange fills its halo rows. Writes every shard's y into the local
+        rows of ``out`` (default: new zeroed tensors of x's form; never x
+        itself) and returns it."""
+        xs = self._check(x, "x")
         if out is None:
-            out = torch.zeros_like(x)
-        elif out.shape != x.shape or out.dtype != x.dtype \
-                or out.device != x.device or not out.is_contiguous():
-            raise ValueError("out must be a contiguous tensor like x")
-        elif out.data_ptr() == x.data_ptr():
+            out = (torch.zeros_like(x) if len(xs) == 1
+                   else tuple(torch.zeros_like(t) for t in xs))
+        ys = self._check(out, "out")
+        if any(y.data_ptr() == t.data_ptr() for y, t in zip(ys, xs)):
             raise ValueError("out must not be x: rows read x while others "
                              "write")
         layout = self.config.vector_layout
         exchange = halo_exchange_plain if self.plain else halo_exchange
+        # kernels on the card: with the overlap, the exchange inside a card
+        # runs on its second stream
+        cuda = not self.plain and self.device.type == "cuda"
         written = False
-        xw = None
+        xws = None
         for p in self.precisions:
-            xp = self.x_for(p, x)
-            if self.halo_plans[p] is None and xw is None:
-                xw = self._whole_x(x)
-            ex = self.exchanges[p] if self.config.comm_halos else None
-            if ex is not None and ex.n == 0:
-                ex = None
-            # the rows that cross processes: packed (and, under NCCL, on
-            # their way) before the interior launches
-            crossing = p in self._tbufs and self.config.comm_halos
-            work = self._send(p, xp) if crossing else None
+            xps = [self.x_for(p, t, grp) for t, grp in zip(xs, self.groups)]
+            if self.halo_plans[p] is None and xws is None:
+                xws = self._whole_xs(xs)
+            exs = [grp.exchanges[p] if self.config.comm_halos else None
+                   for grp in self.groups]
+            exs = [None if ex is None or ex.n == 0 else ex for ex in exs]
+            # the rows that cross groups: packed and on their way (the
+            # copies between cards, or under NCCL the all-to-all) before
+            # the interior launches
+            crossing = p in self.groups[0].tbufs and self.config.comm_halos
+            work = self._send(p, xps) if crossing else None
+            moves = (self._start_moves(p) if crossing
+                     and self.n_processes == 1 else [])
             if self.overlap:
-                if ex is not None and xp.device.type == "cuda" \
-                        and not self.plain:
-                    # the interior launches read local rows only: the
-                    # exchange runs beside them on the second stream
-                    cur = torch.cuda.current_stream(xp.device)
-                    comm = self._comm()
-                    comm.wait_stream(cur)
-                    with torch.cuda.stream(comm):
+                joins = self._fork(exs, xps) if cuda else []
+                for ex, xp in zip(exs, xps):
+                    if ex is not None and not cuda:
                         exchange(ex, xp, layout)
-                    self._rows(p, "main", xp, out, written, xw)
+                self._rows(p, "main", xps, ys, written, xws)
+                for cur, comm in joins:
                     cur.wait_stream(comm)
-                else:
+                if crossing:
+                    self._receive(p, xps, work, moves)
+                self._rows(p, "halo", xps, ys, True, xws)
+            else:
+                for ex, xp in zip(exs, xps):
                     if ex is not None:
                         exchange(ex, xp, layout)
-                    self._rows(p, "main", xp, out, written, xw)
                 if crossing:
-                    self._receive(p, xp, work)
-                self._rows(p, "halo", xp, out, True, xw)
-            else:
-                if ex is not None:
-                    exchange(ex, xp, layout)
-                if crossing:
-                    self._receive(p, xp, work)
-                self._rows(p, "main", xp, out, written, xw)
-            self._rows(p, "pieces", xp, out, True, xw)
+                    self._receive(p, xps, work, moves)
+                self._rows(p, "main", xps, ys, written, xws)
+            self._rows(p, "pieces", xps, ys, True, xws)
             written = True
         return out
 
+    def _fork(self, exs: List[Optional[DeviceExchange]],
+              xps: List[torch.Tensor]) -> list:
+        """Start each card's exchange on its second stream, which first
+        waits for what its current stream holds. Returns the (current,
+        second) stream pairs to join after the interior launches."""
+        layout = self.config.vector_layout
+        joins = []
+        for grp, ex, xp in zip(self.groups, exs, xps):
+            if ex is None:
+                continue
+            comm = grp.comm()
+            comm.wait_stream(grp.cur())
+            with torch.cuda.stream(comm):
+                halo_exchange(ex, xp, layout)
+            joins.append((grp.cur(), comm))
+        return joins
+
     def transport(self) -> Optional[str]:
-        """The transport of this operator's transfer (parallel/multihost.py),
-        None where one process holds every shard."""
-        return multihost.transport() if self.n_processes > 1 else None
+        """How the rows that cross card groups travel: across processes
+        the run's transport (parallel/multihost.py); between the cards of
+        one process "peer" (device-to-device copies: every pair of cards
+        that exchanges rows is one card or has peer access) or
+        "host-staged" (a pair without peer access: CUDA stages its
+        copies through the host); None where one group holds every
+        shard."""
+        if self.n_processes > 1:
+            return multihost.transport()
+        if len(self.groups) == 1:
+            return None
+        devs = [grp.device for grp in self.groups]
+        if any(hp is None for hp in self.halo_plans.values()):
+            pairs = {(a, b) for a in devs for b in devs}  # allgather
+        else:
+            pairs = {(devs[m.src], devs[m.dst])
+                     for plan in self.peer.values() for m in plan}
+        ok = all(a == b or (a.type == b.type == "cuda"
+                            and torch.cuda.can_device_access_peer(a, b))
+                 for a, b in pairs)
+        return "peer" if ok else "host-staged"
+
+    def graph_capturable(self) -> bool:
+        """Whether a whole SpMV can sit in one CUDA graph: across processes
+        under NCCL; in one process where its groups' copies are peer copies
+        and every launch is a kernel (the plain versions allocate on every
+        card, which a capture on one card cannot pool)."""
+        if self.n_processes == 1 and len(self.groups) > 1 and self.plain:
+            return False
+        return multihost.graph_capturable(self.transport())
 
     def solve_impl_name(self, n_repetitions: int = 2,
                         impl: Optional[str] = None) -> str:
-        """"graph" (one CUDA graph of the k SpMVs) on a CUDA device for
-        more than one repetition, else "loop"; the fused solve kernel runs
-        one SELL-C-sigma stream and takes no sharded operator. Across
-        processes the graph holds the NCCL all-to-all; over gloo the
-        operator runs the loop (its transfer crosses the host)."""
-        capturable = multihost.graph_capturable(self.transport())
+        """"graph" (one CUDA graph of the k SpMVs, over every card of the
+        process) on a CUDA device for more than one repetition, else
+        "loop"; the fused solve kernel runs one SELL-C-sigma stream and
+        takes no sharded operator. Across processes the graph holds the
+        NCCL all-to-all; over gloo the operator runs the loop (its
+        transfer crosses the host)."""
+        capturable = self.graph_capturable()
         if impl is not None:
             if impl not in SOLVE_IMPLS:
                 raise ValueError(
@@ -770,16 +1030,19 @@ class DistributedSpmvOperator(OperatorBase):
                     "the fused solve kernel takes one SELL-C-sigma stream; "
                     "a sharded operator solves by impl='graph' or 'loop'")
             if impl == "graph" and not capturable:
+                where = ("spread over processes" if self.n_processes > 1
+                         else "over several cards")
+                why = ("through the plain version: it allocates on every "
+                       "card" if self.transport() == "peer" else
+                       "its transfer cannot be captured in a CUDA graph")
                 raise ValueError(
-                    "an operator spread over processes solves by "
-                    "impl='loop': its transfer cannot be captured in a "
-                    "CUDA graph")
+                    f"an operator {where} solves by impl='loop': {why}")
             return impl
         if self.device.type == "cuda" and n_repetitions > 1 and capturable:
             return "graph"
         return "loop"
 
-    def solve(self, x: torch.Tensor, n_repetitions: int,
+    def solve(self, x, n_repetitions: int,
               impl: Optional[str] = None) -> tuple:
         """Solve mode: n_repetitions of y = A x with the x <-> y swap
         (JAX distributed.py:1085-1103). Returns (x_last_input, y_result),
@@ -787,41 +1050,51 @@ class DistributedSpmvOperator(OperatorBase):
         impl = self.solve_impl_name(n_repetitions, impl)
         if impl == "graph":
             return self._solve_graph(x, n_repetitions)
-        prev = torch.zeros_like(x)
+        prev = (torch.zeros_like(x) if isinstance(x, torch.Tensor)
+                else tuple(torch.zeros_like(t) for t in x))
         for _ in range(n_repetitions):
             prev, x = x, self.spmv(x)
         return prev, x
 
     # --------------------------------------------------------------- vectors
 
-    def make_x(self, x_in: Optional[np.ndarray] = None) -> torch.Tensor:
+    def make_x(self, x_in: Optional[np.ndarray] = None):
         """The stacked x (``x_shape()``) in the working dtype: each shard's
         rows of the (seg-metis permuted) x at its permuted local rows, the
-        halo and padding rows zero; the shards of this process only."""
+        halo and padding rows zero; the shards of this process only, one
+        tensor per card group (a tuple of them for several)."""
         host = init_x_host(self.config, self.n_rows, self.matrix_stats,
                            x_in=x_in, dtype=numpy_dtype(self.working_dtype))
         if self.global_perm is not None:
             host = host[generate_inv_perm(self.global_perm)]
         colwise = (self.config.block_vec_size > 1
                    and self.config.vector_layout == "colwise")
-        shape = self.x_shape()
-        stacked = shape[1:] + shape[:1] if colwise else shape
-        out = np.zeros(stacked, dtype=host.dtype)
+        parts = []
         ws = self.work_sharing
-        for i, r in enumerate(self.shards):
-            out[i][self.shard_perms[r]] = host[ws[r]:ws[r + 1]]
-        if colwise:
-            out = np.ascontiguousarray(np.moveaxis(out, -1, 0))
-        return torch.from_numpy(out).to(self.device)
+        for grp in self.groups:
+            shape = self._shape(grp, None)
+            out = np.zeros(shape[1:] + shape[:1] if colwise else shape,
+                           dtype=host.dtype)
+            for i, r in enumerate(grp.shards):
+                out[i][self.shard_perms[r]] = host[ws[r]:ws[r + 1]]
+            if colwise:
+                out = np.ascontiguousarray(np.moveaxis(out, -1, 0))
+            parts.append(torch.from_numpy(out).to(grp.device))
+        return parts[0] if len(parts) == 1 else tuple(parts)
 
-    def to_host(self, y: torch.Tensor) -> np.ndarray:
-        """The stacked y -> [n_rows(, bs)] in the original row order. Across
-        processes every process's shards are gathered first (a collective:
-        every process calls it, and every process gets the whole y)."""
-        colwise = y.dim() == 3 and self.config.vector_layout == "colwise"
-        y = multihost.fetch_global(y, 1 if colwise else 0,
-                                   self.shard_counts())
-        if colwise:
+    def to_host(self, y) -> np.ndarray:
+        """The stacked y (one tensor or one per group) -> [n_rows(, bs)] in
+        the original row order. Across processes every process's shards are
+        gathered first (a collective: every process calls it, and every
+        process gets the whole y)."""
+        parts = parts_of(y)
+        dim = self._stack_dim(parts[0])
+        if len(parts) > 1:
+            y = np.concatenate([t.detach().cpu().numpy() for t in parts],
+                               axis=dim)
+        else:
+            y = multihost.fetch_global(parts[0], dim, self.shard_counts())
+        if dim == 1:
             y = np.moveaxis(y, 0, -1)  # [R, L, bs]
         out = np.zeros((self.n_rows,) + y.shape[2:], dtype=y.dtype)
         ws = self.work_sharing
@@ -877,20 +1150,30 @@ class DistributedSpmvOperator(OperatorBase):
                           "per_shard": [n * (R - 1)] * R}
         return out
 
-    def comm_volume_per_host(self) -> dict:
-        """Halo elements received per host (process) and SpMV: the shards'
-        halo counts grouped by the process that holds them, as the JAX
-        operator groups its mesh positions (distributed.py:1196-1208)."""
+    def _grouped(self, by: np.ndarray) -> dict:
+        """Per precision with a plan, the shards' halo counts summed by
+        ``by`` (the process or the card group of each shard)."""
         out = {}
         for p, hp in self.halo_plans.items():
             if hp is None:
                 continue
             acc: dict = {}
             for r, h in enumerate(hp.halo_counts):
-                q = int(self.owner[r])
-                acc[q] = acc.get(q, 0) + int(h)
+                acc[int(by[r])] = acc.get(int(by[r]), 0) + int(h)
             out[p] = acc
         return out
+
+    def comm_volume_per_host(self) -> dict:
+        """Halo elements received per host (process) and SpMV: the shards'
+        halo counts grouped by the process that holds them, as the JAX
+        operator groups its mesh positions (distributed.py:1196-1208)."""
+        return self._grouped(self.owner)
+
+    def comm_volume_per_card(self) -> dict:
+        """Halo elements received per card group and SpMV, counted where
+        they land: the rows that cross cards and those a card's exchange
+        copies between its own shards."""
+        return self._grouped(self.card)
 
     def is_packed(self) -> bool:
         return any(any(sm.packed) for p in self.precisions
@@ -899,7 +1182,8 @@ class DistributedSpmvOperator(OperatorBase):
     def impl_name(self) -> str:
         """cuda-dist<R>-<tiers>-<value type>: the tiers of the shards'
         streams (scs, packed or both, +pieces), on the CPU
-        torch-plain-dist<R>-..."""
+        torch-plain-dist<R>-...; with several card groups in the process,
+        dist<R>-<G>cards."""
         where = ("cuda" if self.device.type == "cuda" and not self.plain
                  else "torch-plain")
         kinds = {k for p in self.precisions for sm in self.summaries[p]
@@ -909,7 +1193,8 @@ class DistributedSpmvOperator(OperatorBase):
                         if packed in kinds)
         if self.n_pieces():
             tier += "+pieces"
-        return f"{where}-dist{self.R}-{tier}-{self.config.value_type}"
+        cards = f"-{len(self.groups)}cards" if len(self.groups) > 1 else ""
+        return f"{where}-dist{self.R}{cards}-{tier}-{self.config.value_type}"
 
     def per_shard_nnz(self) -> list:
         """Nonzeros per shard (reference per-rank perf, main.cpp:833-890)."""

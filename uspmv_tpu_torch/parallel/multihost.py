@@ -194,12 +194,14 @@ def transport() -> Optional[str]:
 
 
 def graph_capturable(transport: Optional[str]) -> bool:
-    """Whether the transfer of an operator spread over processes over
-    ``transport`` (None: no run of processes, no transfer) can sit inside
-    a CUDA graph. NCCL's all-to-all runs on the cards' own tensors and is
-    captured; a gloo transfer crosses the host, which waits on the copy
-    out before it, so gloo and gloo-staged run a loop of launches."""
-    return transport in (None, "nccl")
+    """Whether the transfer of a sharded operator over ``transport`` (None:
+    one card group, no transfer) can sit inside a CUDA graph. NCCL's
+    all-to-all runs on the cards' own tensors and is captured, and so are
+    the peer copies between the cards of one process ("peer"); a gloo
+    transfer crosses the host, which waits on the copy out before it, so
+    gloo and gloo-staged run a loop of launches, and so do copies the
+    CUDA stages through the host ("host-staged")."""
+    return transport in (None, "nccl", "peer")
 
 
 def agree_max(value: float) -> float:

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ..parallel import multihost
-from .operator import OperatorBase
+from .operator import OperatorBase, join_cards
 
 WARM_UP_REPS = 100  # reference main.cpp:22
 
@@ -108,7 +108,11 @@ def timing_for(device_type: str, transport: Optional[str] = None) -> str:
 
 
 def timing_of(op: OperatorBase) -> str:
-    """``timing_for`` of the operator's device and transport."""
+    """``timing_for`` of the operator's device and transport; "loop" where
+    the operator says a whole SpMV cannot sit in one CUDA graph
+    (``op.graph_capturable()``: the plain versions over several cards)."""
+    if not op.graph_capturable():
+        return "loop"
     return timing_for(op.device.type, op.transport())
 
 
@@ -119,9 +123,12 @@ def _seconds(op: OperatorBase, run) -> float:
     if op.device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
+        devices = op.devices()
+        with torch.cuda.device(devices[0]):
+            start.record()
+            run()
+            join_cards(devices)  # a loop over several cards ends on all
+            end.record()
         end.synchronize()
         seconds = start.elapsed_time(end) / 1e3
     else:
@@ -244,7 +251,9 @@ def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
         per_shard = [
             {"shard": r, "nnz": int(nz),
              "gflops": 2.0 * nz * bs * n_iter / elapsed / 1e9,
-             "halo_elems_recv": int(halo[r])}
+             "halo_elems_recv": int(halo[r]),
+             # the card group that holds it, where the process holds several
+             **({"card": int(op.card[r])} if len(op.devices()) > 1 else {})}
             for r, nz in enumerate(op.per_shard_nnz())]
         per_host = op.comm_volume_per_host()
     return BenchResult(

@@ -37,10 +37,11 @@ the JAX package's ops/spmv_xla.py); impl='auto' never does on the card.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import warnings
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -267,16 +268,79 @@ def reset_graph_nodes_replayed() -> None:
     _graph_nodes_replayed.clear()
 
 
+def parts_of(x) -> tuple:
+    """The tensors of a vector: x itself, or the per-card tensors of a
+    sharded operator over several card groups (a tuple)."""
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def each(fn, x):
+    """``fn`` applied to every tensor of a vector, in the vector's form."""
+    return tuple(fn(t) for t in x) if isinstance(x, (tuple, list)) \
+        else fn(x)
+
+
+def join_cards(devices) -> None:
+    """Make the current stream of the first of ``devices`` wait for the
+    current streams of the others: what follows on it (a graph's replay,
+    an event that ends a timed batch) comes after the work of every card."""
+    cur = torch.cuda.current_stream(devices[0])
+    for d in devices[1:]:
+        if d != devices[0]:
+            cur.wait_stream(torch.cuda.current_stream(d))
+
+
+def fork_cards(devices) -> None:
+    """Make the current streams of the others of ``devices`` wait for the
+    first's: what follows on them (reading a replayed graph's output, the
+    next copy into its input) comes after what the first card's stream
+    holds."""
+    cur = torch.cuda.current_stream(devices[0])
+    for d in devices[1:]:
+        if d != devices[0]:
+            torch.cuda.current_stream(d).wait_stream(cur)
+
+
+@contextlib.contextmanager
+def capture_over(graph: "torch.cuda.CUDAGraph", devices: list):
+    """Capture the launches of the block into ``graph`` (thread-local
+    mode). On one card: on the default capture stream. Over several: on a
+    new stream of the first card, the current stream of each other card a
+    stream forked from it by an event and joined back into it at the end,
+    so that one graph holds every card's nodes and its replay on the first
+    card's stream ends after all of them. The block allocates nothing on
+    the other cards: a capture pools the first card's memory only."""
+    if len(devices) == 1:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            yield
+        return
+    cap = torch.cuda.Stream(device=devices[0])
+    forks = [torch.cuda.Stream(device=d) for d in devices[1:]]
+    with torch.cuda.device(devices[0]), torch.cuda.graph(
+            graph, stream=cap, capture_error_mode="thread_local"), \
+            contextlib.ExitStack() as stack:
+        for s in forks:
+            s.wait_stream(cap)
+            stack.enter_context(torch.cuda.stream(s))
+        yield
+        for s in forks:
+            cap.wait_stream(s)
+
+
 @dataclasses.dataclass
 class CapturedGraph:
     """Captured launches of ``spmv`` over static vectors: a solve's k
     iterations with the x <-> y swap (iteration i writes bufs[i & 1]), or a
-    bench batch of n SpMVs that each read x_in and write bufs[0]."""
+    bench batch of n SpMVs that each read x_in and write bufs[0]. A vector
+    of several card groups is a tuple of tensors, and the graph holds the
+    nodes of every card."""
 
     graph: "torch.cuda.CUDAGraph"
-    x_in: torch.Tensor  # the first (a batch: every) SpMV reads it
-    bufs: Tuple[torch.Tensor, ...]
+    x_in: object  # the first (a batch: every) SpMV reads it
+    bufs: tuple
     nodes: Dict[str, int]  # kernel nodes per replay, by entry point
+    # the cards of its nodes, the capture's (and the replay's) first
+    devices: list = dataclasses.field(default_factory=list)
 
 
 class OperatorBase:
@@ -320,6 +384,16 @@ class OperatorBase:
         (parallel/multihost.py); None: it runs in one process."""
         return None
 
+    def devices(self) -> list:
+        """The devices of the operator's vectors: one, or one per card
+        group of a sharded operator."""
+        return [self.device]
+
+    def graph_capturable(self) -> bool:
+        """Whether a whole SpMV of this operator can sit in one CUDA graph
+        (on a card): where its transfer, if any, stays on the cards."""
+        return multihost.graph_capturable(self.transport())
+
     def hp_nnz_fraction(self) -> float:
         """Share of the stored nonzeros in bf16, which sets the validation
         bound of hp mixes (runtime/validate.compare); 1.0 unless AP."""
@@ -330,7 +404,7 @@ class OperatorBase:
 
     # ------------------------------------------------------- CUDA graphs
 
-    def solve_graph(self, x: torch.Tensor, k: int) -> CapturedGraph:
+    def solve_graph(self, x, k: int) -> CapturedGraph:
         """The graph of k >= 1 solve iterations for x's shape and dtype
         (captured at the first call, then kept), with x copied into its
         static input; ``replay`` runs it. After a replay the result is
@@ -343,7 +417,7 @@ class OperatorBase:
         return self._graph(self._solve_graphs, MAX_SOLVE_GRAPHS, (k,), x, 2,
                            capture)
 
-    def batch_graph(self, x: torch.Tensor, n: int) -> CapturedGraph:
+    def batch_graph(self, x, n: int) -> CapturedGraph:
         """The graph of a bench batch for x's shape and dtype: n SpMVs
         ``spmv(x_in, out=bufs[0])``, each reading the same x as the JAX
         runner's ``x + y_prev[0] * 0`` does (so A^k x cannot overflow over
@@ -359,51 +433,66 @@ class OperatorBase:
     @staticmethod
     def replay(g: CapturedGraph, times: int = 1) -> None:
         """Replay ``g`` ``times`` times, its kernel nodes counted in
-        ``graph_nodes_replayed``."""
+        ``graph_nodes_replayed``. A replay runs on the current stream of
+        the first card; over several cards that stream first waits for the
+        others' current streams (the copies into x_in), and theirs wait
+        for it after (what reads bufs there)."""
+        join_cards(g.devices)
         for _ in range(times):
             g.graph.replay()
+        fork_cards(g.devices)
         for name, n in g.nodes.items():
             _graph_nodes_replayed[name] = (_graph_nodes_replayed.get(name, 0)
                                            + n * times)
 
-    def _graph(self, cache: dict, limit: int, key: tuple, x: torch.Tensor,
+    def _graph(self, cache: dict, limit: int, key: tuple, x,
                n_bufs: int, body) -> CapturedGraph:
         """The cached graph of ``key`` and x's shape and dtype, captured
         by ``body(x_in, bufs)`` over new static vectors where there is none
         (the least recent of ``limit`` graphs goes); x copied into x_in."""
-        if x.device.type != "cuda":
+        parts = parts_of(x)
+        if any(t.device.type != "cuda" for t in parts):
             raise ValueError(
-                f"a CUDA graph needs a CUDA device, x is on {x.device}; "
-                "use impl='loop'")
-        key = (*key, tuple(x.shape), x.dtype)
+                f"a CUDA graph needs a CUDA device, x is on "
+                f"{parts[0].device}; use impl='loop'")
+        key = (*key, tuple(tuple(t.shape) for t in parts), parts[0].dtype)
         g = cache.pop(key, None)
         if g is None:
             while len(cache) >= limit:
                 del cache[next(iter(cache))]
             g = self._capture(x, n_bufs, body)
         cache[key] = g
-        g.x_in.copy_(x)
+        for dst, src in zip(parts_of(g.x_in), parts):
+            dst.copy_(src)
         return g
 
-    def _capture(self, x: torch.Tensor, n_bufs: int, body) -> CapturedGraph:
+    def _capture(self, x, n_bufs: int, body) -> CapturedGraph:
         """Capture ``body(x_in, bufs)`` over static vectors shaped like x.
-        The kernels are built, loaded and launched once on a side stream
-        first: none of that is legal inside a capture. The capture is
-        thread-local: a process group's watchdog thread may query its
-        events meanwhile. A capture that fails raises, naming the
-        operator; nothing falls back to a loop."""
-        x_in = x.clone()
-        bufs = tuple(torch.zeros_like(x) for _ in range(n_bufs))
-        cur = torch.cuda.current_stream(x.device)
-        side = torch.cuda.Stream(device=x.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        The kernels are built, loaded and launched once first (on a side
+        stream for one card): none of that is legal inside a capture. The
+        capture is thread-local: a process group's watchdog thread may
+        query its events meanwhile. Over several cards one graph holds
+        every card's nodes (``capture_over``); every buffer exists before
+        the capture. A capture that fails raises, naming the operator;
+        nothing falls back to a loop."""
+        x_in = each(torch.clone, x)
+        bufs = tuple(each(torch.zeros_like, x) for _ in range(n_bufs))
+        devices = list(dict.fromkeys(t.device for t in parts_of(x)))
+        if len(devices) == 1:
+            cur = torch.cuda.current_stream(devices[0])
+            side = torch.cuda.Stream(device=devices[0])
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                self.spmv(x_in, out=bufs[0])
+            cur.wait_stream(side)
+        else:
             self.spmv(x_in, out=bufs[0])
-        cur.wait_stream(side)
+            for d in devices:
+                torch.cuda.synchronize(d)
         graph = torch.cuda.CUDAGraph()
         try:
-            with record_captured_launches() as nodes, torch.cuda.graph(
-                    graph, capture_error_mode="thread_local"):
+            with record_captured_launches() as nodes, \
+                    capture_over(graph, devices):
                 body(x_in, bufs)
         except Exception as e:
             raise RuntimeError(
@@ -412,20 +501,20 @@ class OperatorBase:
         if multihost.is_multiprocess():
             multihost.hold_graph(graph)  # its collectives: reset first
         return CapturedGraph(graph=graph, x_in=x_in, bufs=bufs,
-                             nodes=dict(nodes))
+                             nodes=dict(nodes), devices=devices)
 
-    def _solve_graph(self, x: torch.Tensor, k: int) -> tuple:
-        if x.device.type != "cuda":
+    def _solve_graph(self, x, k: int) -> tuple:
+        if any(t.device.type != "cuda" for t in parts_of(x)):
             raise ValueError(
-                f"solve impl 'graph' needs a CUDA device, x is on {x.device}; "
-                "use impl='loop'"
+                f"solve impl 'graph' needs a CUDA device, x is on "
+                f"{parts_of(x)[0].device}; use impl='loop'"
             )
         if k < 1:
-            return torch.zeros_like(x), x
+            return each(torch.zeros_like, x), x
         g = self.solve_graph(x, k)
         self.replay(g)
-        prev = x if k == 1 else g.bufs[k & 1].clone()
-        return prev, g.bufs[(k - 1) & 1].clone()
+        prev = x if k == 1 else each(torch.clone, g.bufs[k & 1])
+        return prev, each(torch.clone, g.bufs[(k - 1) & 1])
 
 
 @dataclasses.dataclass

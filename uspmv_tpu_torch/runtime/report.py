@@ -69,10 +69,11 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
             lines.append(f"  [{p}] halo elems/SpMV per host: {per}")
     if cfg.comm_mode in ("singlevec", "multivec"):
         lines.append(
-            f"note: comm_mode={cfg.comm_mode}: the shards share one device, "
-            "so the reference's message-batching modes (MPI_MODE, "
-            "Makefile:199-218) are one exchange launch per precision and "
-            "SpMV, which carries every vector of a block"
+            f"note: comm_mode={cfg.comm_mode}: the reference's "
+            "message-batching modes (MPI_MODE, Makefile:199-218) are, per "
+            "precision and SpMV, one exchange launch per card and one "
+            "transfer of the rows that cross cards, each carrying every "
+            "vector of a block"
         )
     if cfg.block_vec_size > 1 and cfg.vector_layout == "colwise":
         lines.append(
@@ -96,6 +97,7 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
                 f"  shard {sh['shard']}: nnz={sh['nnz']} "
                 f"gflops={sh['gflops']:.3f} "
                 f"halo_elems_recv={sh['halo_elems_recv']}"
+                + (f" card={sh['card']}" if "card" in sh else "")
             )
     lines.append("")
     return "\n".join(lines)

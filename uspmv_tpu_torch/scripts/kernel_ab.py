@@ -754,10 +754,11 @@ def halo_cases(versions, device, reps, rounds) -> List[dict]:
     graph = dict(library_timer=lambda fn: _common.device_ms(fn, reps, device),
                  library_name=HALO_LIBRARY, tol=0.0)
     rows = []
+    # every shard on the one card, on a host with several too
     ops = {(4, True): DistributedSpmvOperator.from_mtx(
-        Config(**base, n_shards=4), mtx)}
+        Config(**base, n_shards=4), mtx, devices=[device])}
     op4 = ops[(4, True)]
-    ex, L = op4.exchanges["sp"], op4.lengths["sp"]
+    ex, L = op4.groups[0].exchanges["sp"], op4.lengths["sp"]
 
     # the exchange kernel alone, in place on a stacked x whose halo rows
     # start at zero; its launch floor on the plan's first pair
@@ -834,7 +835,8 @@ def halo_cases(versions, device, reps, rounds) -> List[dict]:
         for overlap in (False, True):
             if (R, overlap) not in ops:
                 ops[(R, overlap)] = DistributedSpmvOperator.from_mtx(
-                    Config(**base, n_shards=R, overlap_comm=overlap), mtx)
+                    Config(**base, n_shards=R, overlap_comm=overlap), mtx,
+                    devices=[device])
             op = ops[(R, overlap)]
             x = op.make_x(x_host)
             want, yl = torch.zeros_like(x), torch.zeros_like(x)

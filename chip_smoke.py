@@ -271,6 +271,29 @@ nvidia-smi. Phases, each printing JSON lines:
         alone.
      ``--only 15`` runs phases 1, 2 and 15 (on a host of four cards for b;
      ``--only 12d`` in the same call gives NCCL's 4 x 1 beside it).
+ 16. processes of several cards each (parallel/multihost.local_cards: a
+     process takes visible cards // processes on the host), the rows
+     between processes staged through each process's lead card for one
+     NCCL all-to-all, the headline (C=1024, sigma=1, sp, seg-rows,
+     overlap on), worker processes as in phase 12:
+     a. on every host, in phase 12: 12b's 2 x 2 shards with two card
+        groups a process, both on cuda:0 (``devices``, gloo through
+        pinned host buffers): y bit-equal to the one-process R=4
+        operator's, a validated solve of 2, "gloo-staged+peer";
+     b. with four cards, 2 processes x 2 cards at R=4 and R=8: y
+        bit-equal to the same R on one card, a validated solve of 5, the
+        solve and a bench batch by graph bit-equal to their loops,
+        bench_spmv by graph, each process on two distinct cards, and the
+        parts each alone by graph across its cards (packs, peer copies,
+        staging copies, the all-to-all, unstaging copies, unpacks), a
+        torch.profiler timeline of one SpMV per process; the
+        SpMV by a replayed graph in turns with 12d's 4 x 1, 12d's 2 x 1
+        (two processes of one card each, CUDA_VISIBLE_DEVICES=0,1, as 12d
+        runs it now) and phase 15's one process over the four cards, then
+        back.
+     ``--only 16`` runs phases 1, 2 and 16 (four cards; its kernels line
+     holds the pack, unpack and exchange with phase 16's launches),
+     ``--only 16a`` phases 1, 2, 12b's references and 16a.
 
 Since the bench times replays of a captured graph, every driven run counts
 a kernel's launches through its wrapper plus its kernel nodes replayed from
@@ -3177,11 +3200,18 @@ def worker_main(spec_json):
         mtx = generate_matrix(spec["matrix"])
         t0 = time.perf_counter()
         cfg = Config(backend="cuda", **spec["config"])
-        op = DistributedSpmvOperator.from_mtx(cfg, mtx)
-        torch.cuda.synchronize()
+        op = DistributedSpmvOperator.from_mtx(cfg, mtx,
+                                              devices=spec.get("devices"))
+        for d in op.devices():
+            torch.cuda.synchronize(d)
         rec.update(build_s=time.perf_counter() - t0, impl=op.impl_name(),
                    shards=[op.shards.start, op.shards.stop],
+                   groups=[[g.shards.start, g.shards.stop]
+                           for g in op.groups],
+                   devices=[str(d) for d in op.devices()],
+                   transport=op.transport(),
                    per_host=op.comm_volume_per_host(),
+                   per_card=op.comm_volume_per_card(),
                    solve_impl=op.solve_impl_name(5),
                    bench_timing=timing_of(op))
         x_host = np.random.default_rng(spec["x_seed"]).standard_normal(
@@ -3211,6 +3241,10 @@ def worker_main(spec_json):
             rec.update(time_worker(op, x, spec["reps"]))
         if spec.get("graph"):
             rec.update(graph_worker(op, x))
+        if spec.get("parts"):
+            rec.update(parts_worker(op, x))
+        if spec.get("trace"):
+            rec.update(trace_worker(op, x))
     finally:
         multihost.shutdown()
     with open(f"{spec['out']}.{pid}.json", "w") as f:
@@ -3218,22 +3252,77 @@ def worker_main(spec_json):
     return 0
 
 
-def worker_ms(fn, reps):
-    """Milliseconds per call of ``fn`` over ``reps`` calls by CUDA events,
+def worker_ms(fn, reps, devices=None):
+    """Milliseconds per call of ``fn`` over ``reps`` calls by CUDA events
+    on the process's lead card (the end after every card of ``devices``),
     the largest of the processes' (the all-reduces outside the events)."""
     import torch
 
     from uspmv_tpu_torch.parallel import multihost
+    from uspmv_tpu_torch.runtime.operator import join_cards
 
+    devices = devices or [torch.device("cuda", torch.cuda.current_device())]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     multihost.agree_max(0.0)
     start.record()
     for _ in range(reps):
         fn()
+    join_cards(devices)
     end.record()
     end.synchronize()
     return multihost.agree_max(start.elapsed_time(end) / reps)
+
+
+def parts_worker(op, x, reps=200):
+    """Phase 16: precision sp's transfer over the process's card groups,
+    each part alone by a CUDA graph of ``reps`` calls across its cards
+    (``cards_graph_ms``; every process captures and replays the same, the
+    slowest process's time): every group's pack, the peer copies between
+    its groups, the staging copies into the lead card's send buffer, the
+    NCCL all-to-all on the lead card, the unstaging copies and every
+    group's unpack; and the rows each part moves."""
+    import torch.distributed as dist
+
+    from uspmv_tpu_torch.ops import halo_exchange as hx
+    from uspmv_tpu_torch.parallel import multihost
+    from uspmv_tpu_torch.runtime.operator import parts_of
+
+    layout = op.config.vector_layout
+    groups, xs = op.groups, parts_of(x)
+    b, st = op.lead["sp"], op.stage["sp"]
+    sends = [g.tbufs["sp"]["send"] for g in groups]
+    recvs = [g.tbufs["sp"]["recv"] for g in groups]
+    peer = op.peer.get("sp", [])
+
+    def pack():
+        for g, t in zip(groups, xs):
+            hx.halo_pack(g.transfers["sp"], t, g.tbufs["sp"]["send"], layout)
+
+    def unpack():
+        for g, t in zip(groups, xs):
+            hx.halo_unpack(g.transfers["sp"], g.tbufs["sp"]["recv"], t,
+                           layout)
+
+    parts = {"pack": pack,
+             "peer": lambda: hx.peer_copy(peer, sends, recvs),
+             "stage": lambda: hx.peer_copy(st.stage, sends, [b["send"]]),
+             "all_to_all": lambda: dist.all_to_all_single(
+                 b["recv"], b["send"], st.recv_counts, st.send_counts),
+             "unstage": lambda: hx.peer_copy(st.unstage, [b["recv"]],
+                                             recvs),
+             "unpack": unpack}
+    out = {"parts_own_ms": {}}
+    for k, fn in parts.items():
+        ms = cards_graph_ms(op.devices(), fn, reps)
+        out["parts_own_ms"][k] = ms  # this process's
+        out[f"{k}_ms"] = multihost.agree_max(ms)
+    out.update(rows_packed=sum(g.transfers["sp"].n_send for g in groups),
+               rows_peer=sum(m.n for m in peer),
+               rows_staged=st.n_send, rows_unstaged=st.n_recv,
+               copies_staged=len(st.stage), copies_unstaged=len(st.unstage),
+               all_to_all_split=[st.send_counts, st.recv_counts])
+    return out
 
 
 def graph_worker(op, x):
@@ -3243,20 +3332,26 @@ def graph_worker(op, x):
     per SpMV; op.spmv by a replayed graph of 100 SpMVs and by a loop of
     100 launches, by events, the slowest process's."""
     import numpy as np
+    import torch
 
     from uspmv_tpu_torch.runtime.bench import bench_spmv
+    from uspmv_tpu_torch.runtime.operator import each
 
-    want = op.to_host(op.spmv(x.clone()))
+    def clone():
+        return each(torch.clone, x)
+
+    want = op.to_host(op.spmv(clone()))
     g = op.batch_graph(x, 10)
     op.replay(g)
     spmv_equal = bool(np.array_equal(op.to_host(g.bufs[0]), want))
-    loop = [op.to_host(v) for v in op.solve(x.clone(), 5, "loop")]
-    graph = [op.to_host(v) for v in op.solve(x.clone(), 5, "graph")]
+    loop = [op.to_host(v) for v in op.solve(clone(), 5, "loop")]
+    graph = [op.to_host(v) for v in op.solve(clone(), 5, "graph")]
     solve_equal = all(np.array_equal(a, b) for a, b in zip(loop, graph))
     res = bench_spmv(op, x=x, bench_time=0.2)
     g100 = op.batch_graph(x, 100)
-    graph_ms = worker_ms(lambda: op.replay(g100), 3) / 100
-    loop_ms = worker_ms(lambda: op.spmv(x, out=g100.bufs[0]), 100)
+    graph_ms = worker_ms(lambda: op.replay(g100), 3, op.devices()) / 100
+    loop_ms = worker_ms(lambda: op.spmv(x, out=g100.bufs[0]), 100,
+                        op.devices())
     return dict(graph_spmv_bit_equal=spmv_equal,
                 graph_solve_bit_equal=solve_equal,
                 bench_timing=res.timing, bench_gflops=res.perf_gflops,
@@ -3296,15 +3391,15 @@ def time_worker(op, x, reps):
         op.spmv(x, out=y)
     out = dict(spmv_loop_ms=events(lambda: op.spmv(x, out=y)),
                spmv_loop_host_ms=host(lambda: op.spmv(x, out=y)))
-    tr, b = op.groups[0].transfers["sp"], op.groups[0].tbufs["sp"]
+    tr, b, st = op.groups[0].transfers["sp"], op.lead["sp"], op.stage["sp"]
     layout = op.config.vector_layout
     out["pack_ms"] = events(lambda: hx.halo_pack(tr, x, b["send"], layout))
     out["unpack_ms"] = events(lambda: hx.halo_unpack(tr, b["recv"], x,
                                                      layout))
 
     def move():
-        dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
-                               tr.send_counts)
+        dist.all_to_all_single(b["recv"], b["send"], st.recv_counts,
+                               st.send_counts)
 
     if "host_send" in b:
         def copy_out():
@@ -3314,30 +3409,76 @@ def time_worker(op, x, reps):
 
         def gloo():
             dist.all_to_all_single(b["host_recv"], b["host_send"],
-                                   tr.recv_counts, tr.send_counts)
+                                   st.recv_counts, st.send_counts)
 
         out.update(copy_out_ms=host(copy_out), gloo_ms=host(gloo),
                    copy_in_ms=host(lambda: b["recv"].copy_(
                        b["host_recv"], non_blocking=True)))
     else:
         out["nccl_ms"] = events(move)
-    out["transfer_ms"] = host(lambda: op._receive("sp", x, op._send("sp", x)))
+    out["transfer_ms"] = host(lambda: op._receive("sp", x,
+                                                  *op._send("sp", x)))
     out.update(n_send=tr.n_send, n_recv=tr.n_recv,
                transport=multihost.transport())
     return out
 
 
-def run_workers(spec, n, local_devices, one_card):
+def trace_worker(op, x, n=5):
+    """One SpMV as the card sees it: n replays of a one-SpMV graph, each
+    after a barrier (an all-reduce, left out) and apart from the next,
+    under torch.profiler (CUPTI); the replay of median length as its
+    device activities in start order: [card, name, start and duration in
+    us from its first activity]. An error string where the profiler saw
+    no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uspmv_tpu_torch.parallel import multihost
+
+    g = op.batch_graph(x, 1)
+    for _ in range(3):
+        op.replay(g)
+    devices = op.devices()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            multihost.agree_max(0.0)
+            op.replay(g)
+            for d in devices:
+                torch.cuda.synchronize(d)
+            time.sleep(0.003)
+    evs = sorted((e.time_range.start, e.time_range.end, e.device_index,
+                  e.name) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "AllReduce" not in e.name)
+    if not evs:
+        return {"trace_error": "no device activity recorded"}
+    runs, end = [], None
+    for ev in evs:
+        if end is None or ev[0] > end + 1000:
+            runs.append([])
+        runs[-1].append(ev)
+        end = ev[1] if end is None else max(end, ev[1])
+    spans = [max(e[1] for e in r) - r[0][0] for r in runs]
+    r = runs[sorted(range(len(runs)),
+                    key=spans.__getitem__)[len(runs) // 2]]
+    t0 = r[0][0]
+    return {"trace_span_us": [float(v) for v in spans],
+            "trace": [[int(d), name[:60], round(a - t0, 2), round(b - a, 2)]
+                      for a, b, d, name in r]}
+
+
+def run_workers(spec, n, local_devices, one_card, visible=None):
     """Start n worker processes of ``spec`` (``one_card``: all on cuda:0,
-    the card shared through gloo). Returns (the processes, the path prefix
-    of their files) for ``worker_records``."""
+    the card shared through gloo; ``visible``: the CUDA_VISIBLE_DEVICES of
+    the run, else every card). Returns (the processes, the path prefix of
+    their files) for ``worker_records``."""
     os.makedirs(PHASE12_DIR, exist_ok=True)
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(here, PHASE12_DIR, spec["name"])
     port = free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    if one_card:
-        env["CUDA_VISIBLE_DEVICES"] = "0"
+    if one_card or visible:
+        env["CUDA_VISIBLE_DEVICES"] = "0" if one_card else visible
     procs = []
     for pid in range(n):
         job = dict(spec, pid=pid, n=n, local_devices=local_devices,
@@ -3533,9 +3674,12 @@ def nccl_runs(b_spec, y4, mtx, card, ref_ms):
     for n, D in ((2, 2), (4, 1)):
         if n > n_cards:
             continue
+        # 2 x 2 on two cards, one a process (on four it would take two
+        # cards a process: phase 16)
         recs, y, _ = worker_records(
             run_workers(dict(b_spec, name=f"12d-{n}", graph=True,
-                             stack_dump_s=100), n, D, one_card=False),
+                             stack_dump_s=100), n, D, one_card=False,
+                        visible="0,1" if n == 2 else None),
             f"12d {n}", timeout=130)
         require(np.array_equal(y, y4),
                 f"12d: y of {n} processes over NCCL != one process")
@@ -3603,6 +3747,54 @@ def references(mtx, x_seed):
     return op4, y4, med, samples
 
 
+def start_16a(b_spec):
+    """Phase 16a: start 12b's run (the headline as 2 processes x 2 shards,
+    sharing cuda:0 over gloo) with two card groups a process, both on
+    cuda:0 (``devices``): phase 16's placement rehearsed on one card."""
+    return run_workers(dict(b_spec, name="16a", reps=0, rev=2,
+                            devices=["cuda:0", "cuda:0"]), 2, 2,
+                       one_card=True)
+
+
+def finish_16a(workers, y4, card):
+    """Wait for 16a's workers: y bit-equal to the one-process R=4
+    operator's (``y4``), four groups in the name, both moves in the
+    transport, the loop over gloo, the solve [OK] and every process's
+    pack and unpack launched. Returns the halo launches per entry
+    point."""
+    import numpy as np
+
+    recs, y, _ = worker_records(workers, "16a")
+    require(np.array_equal(y, y4),
+            "16a: y of 2 processes x 2 groups != the one-process R=4 "
+            "operator's")
+    r0 = recs[0]
+    keys = ("impl", "transport", "flag", "groups", "bench_timing",
+            "solve_impl")
+    require(r0["impl"] == "cuda-dist4-4cards-scs-sp"
+            and r0["transport"] == "gloo-staged+peer" and r0["flag"] == "OK"
+            and all(r["bench_timing"] == r["solve_impl"] == "loop"
+                    and len(r["groups"]) == 2 for r in recs),
+            f"16a: {[{k: r.get(k) for k in keys} for r in recs]}")
+    launches = {}
+    for r in recs:
+        for k in ("uspmv_halo_pack_f32", "uspmv_halo_unpack_f32"):
+            require(r["main_path_launches"].get(k, 0) > 0,
+                    f"16a: process {r['process']} never ran {k}")
+        for k, n in r["main_path_launches"].items():
+            if k.startswith("uspmv_halo_"):
+                launches[k] = launches.get(k, 0) + n
+    emit("process_cards_rehearsal", matrix="Laplace3D,128", processes=2,
+         groups_per_process=2, devices=[r["devices"] for r in recs],
+         impl=r0["impl"], transport=r0["transport"],
+         groups=[r["groups"] for r in recs], validation=r0["validation"],
+         bit_equal_to_one_process=True,
+         build_s=[r["build_s"] for r in recs], per_card=r0["per_card"],
+         main_path_launches=[r["main_path_launches"] for r in recs],
+         card=card)
+    return launches
+
+
 def phase12_nccl_only(mtx, card):
     """``--only 12d``: the references of 12b and the NCCL runs alone."""
     _, y4, med, _ = references(mtx, 12)
@@ -3615,7 +3807,8 @@ def phase12(mtx, card):
     """Phase 12: the sharded operator over processes (parallel/multihost.py)
     on the card. ``mtx`` is the headline's Laplace3D-128. Returns (the pack
     and unpack launches of the workers' main path, per entry point, {entry
-    point: its record for the kernels line})."""
+    point: its record for the kernels line}, the halo launches of 16a's
+    workers)."""
     import numpy as np
     import torch
 
@@ -3695,14 +3888,17 @@ def phase12(mtx, card):
                               value_type="dp", random_init_x=True,
                               n_shards=4))
     c_workers = run_workers(c_spec, 4, 1, one_card=True)
+    a_workers = start_16a(b_spec)
     try:
         cli_out = {k: wait_all(p) for k, p in clis.items()}
+        c_recs, c_y, c_out = worker_records(c_workers, "12c")
+        launches_16a = finish_16a(a_workers, y4, card)
     finally:
-        for p in [q for ps in clis.values() for q in ps]:
+        for p in [*(q for ps in clis.values() for q in ps), *c_workers[0],
+                  *a_workers[0]]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    c_recs, c_y, c_out = worker_records(c_workers, "12c")
     for k, (rcs, outs) in cli_out.items():
         require(rcs == [0, 0], f"12b CLI {k}: rcs {rcs}: {outs[0][-2000:]}")
     solve_out, bench_out = cli_out["solve"][1][0], cli_out["bench"][1][0]
@@ -3768,8 +3964,8 @@ def phase12(mtx, card):
               "uspmv_halo_pack_f64", "uspmv_halo_unpack_f64"):
         require(launches.get(k, 0) > 0, f"phase 12: {k} never launched")
     emit("phase12", seconds=time.perf_counter() - t_phase,
-         transfer_launches=launches)
-    return launches, records
+         transfer_launches=launches, launches_16a=launches_16a)
+    return launches, records, launches_16a
 
 
 # ----------------------------------------------------------------- phase 13
@@ -4323,6 +4519,180 @@ def phase15(mtx, card):
     return launches["15b"], launches["15a"], records
 
 
+# ----------------------------------------------------------------- phase 16
+
+PHASE16_R = (4, 8)
+
+
+def phase16(mtx, card):
+    """Phase 16, on four cards: the headline (``mtx``, Laplace3D-128;
+    C=1024, sigma=1, sp, seg-rows, overlap on) as 2 processes x 2 cards
+    under NCCL, the rows between processes staged through each process's
+    lead card. At R=4 and R=8: y bit-equal to the same R on one card, a
+    solve of 5 validated ([OK]) and by graph bit-equal to its loop, a
+    replayed bench batch bit-equal, bench_spmv by graph, each process's
+    two distinct cards, and the parts each alone (``parts_worker``). The
+    SpMV by a replayed graph in turns (2 x 2, 12d's 4 x 1 and 2 x 1, phase
+    15's one process over the four cards; then back) at R=4, and a
+    profiler timeline of one SpMV per process (``trace_worker``) of the
+    first 2 x 2, 4 x 1 and 2 x 1 runs. Returns (the halo
+    launches of the 2 x 2 runs per entry point, the kernels line's
+    entries of the pack, unpack and exchange)."""
+    import numpy as np
+    import torch
+
+    from uspmv_tpu_torch import Config
+    from uspmv_tpu_torch.parallel.distributed import DistributedSpmvOperator
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 4:
+        emit("process_cards", skipped=True, device_count=n_cards,
+             reason="needs four cards: two processes of two cards each; "
+                    "16a rehearses the placement on one card",
+             card=card)
+        return {}, []
+    c0 = torch.device("cuda", 0)
+    x_seed = 16
+    x_host = np.random.default_rng(x_seed).standard_normal(mtx.n_rows)
+    ones, want, spread, spread_x = {}, {}, {}, {}
+    for R in PHASE16_R:
+        cfg = Config(backend="cuda", **dict(HEADLINE_R4, n_shards=R))
+        ones[R] = DistributedSpmvOperator.from_mtx(cfg, mtx, devices=[c0])
+        want[R] = ones[R].to_host(ones[R].spmv(ones[R].make_x(x_host)))
+        # phase 15's placement: one process over the four cards
+        spread[R] = DistributedSpmvOperator.from_mtx(cfg, mtx)
+        spread_x[R] = spread[R].make_x(x_host)
+        require(np.array_equal(
+            spread[R].to_host(spread[R].spmv(spread_x[R])), want[R]),
+            f"16: one process over the cards at R={R} != one card")
+    lap("16 references")
+    launches = {}
+    base = dict(matrix="Laplace3D,128", x_seed=x_seed, stack_dump_s=150)
+
+    def run(name, R, n, full, visible=None):
+        spec = dict(base, name=f"16-{name}",
+                    config=dict(HEADLINE_R4, n_shards=R), graph=True,
+                    rev=5 if full else 0, parts=full and not visible
+                    and n == 2, trace=full)
+        recs, y, _ = worker_records(
+            run_workers(spec, n, R // n, False, visible), f"16 {name}",
+            timeout=240)
+        require(np.array_equal(y, want[R]),
+                f"16 {name}: y != the same R on one card, bit for bit")
+        require(all(r["graph_spmv_bit_equal"] and r["graph_solve_bit_equal"]
+                    and r["bench_timing"] == "graph"
+                    and r["solve_impl"] == "graph" for r in recs),
+                f"16 {name}: the graphs: " + json.dumps(
+                    [{k: r[k] for k in ("graph_spmv_bit_equal",
+                                        "graph_solve_bit_equal",
+                                        "bench_timing", "solve_impl")}
+                     for r in recs]))
+        if full:
+            require(recs[0]["flag"] == "OK",
+                    f"16 {name}: {recs[0].get('validation')}")
+        if n == 2 and not visible:
+            for r in recs:
+                devs = r["multihost"]["devices"]
+                require(len(set(devs)) == 2 and r["devices"] == devs
+                        and r["transport"] == "nccl+peer"
+                        and r["impl"] == f"cuda-dist{R}-4cards-scs-sp",
+                        f"16 {name}: process {r['process']}: {devs}, "
+                        f"{r['devices']}, {r['transport']}, {r['impl']}")
+                for k, c in r["main_path_launches"].items():
+                    if k.startswith("uspmv_halo_"):
+                        launches[k] = launches.get(k, 0) + c
+        lap(f"16 {name}")
+        return recs
+
+    def one_process_ms(R):
+        op, x = spread[R], spread_x[R]
+        g = op.batch_graph(x, 100)
+        return worker_ms(lambda: op.replay(g), 3, op.devices()) / 100
+
+    # 2 x 2 cards; 4 x 1 card; 2 x 1 card (two cards visible); one
+    # process over the four cards
+    turns = {"2x2": [], "4x1": [], "2x1": [], "1x4": []}
+    full = {}
+    for k in [*turns, *reversed(turns)]:
+        if k == "1x4":
+            turns[k].append(one_process_ms(4))
+            continue
+        first = k not in full
+        recs = run(f"{k}-R4" + ("" if first else "-again"), 4,
+                   4 if k == "4x1" else 2, first,
+                   "0,1" if k == "2x1" else None)
+        full.setdefault(k, recs)
+        turns[k].append(recs[0]["spmv_graph_ms"])
+    r8 = run("2x2-R8", 8, 2, True)
+    ms8 = one_process_ms(8)
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    for k in ("4x1", "2x1"):
+        emit("process_cards_yardstick_trace", config=k, R=4,
+             trace_span_us=[r.get("trace_span_us") for r in full[k]],
+             trace=[r.get("trace", r.get("trace_error")) for r in full[k]],
+             card=card)
+    for R, recs, one_ms in ((4, full["2x2"], med["1x4"]), (8, r8, ms8)):
+        r0 = recs[0]
+        emit("process_cards_headline", R=R, processes=2,
+             cards_per_process=2, device_count=n_cards,
+             bit_equal_to_one_card=True, graph_bit_equal_to_loop=True,
+             validation=r0["validation"], impl=r0["impl"],
+             transport=r0["transport"],
+             devices=[r["multihost"]["devices"] for r in recs],
+             groups=[r["groups"] for r in recs],
+             build_s=[r["build_s"] for r in recs],
+             spmv_graph_ms=(med["2x2"] if R == 4 else r0["spmv_graph_ms"]),
+             spmv_graph_samples_ms=(turns["2x2"] if R == 4
+                                    else [r0["spmv_graph_ms"]]),
+             spmv_graph_loop_ms=r0["spmv_graph_loop_ms"],
+             bench_timing=r0["bench_timing"],
+             bench_gflops=r0["bench_gflops"],
+             bench_ms_per_spmv=r0["bench_ms_per_spmv"],
+             nccl_4x1_ms=med["4x1"] if R == 4 else None,
+             nccl_4x1_samples_ms=turns["4x1"] if R == 4 else None,
+             nccl_2x1_ms=med["2x1"] if R == 4 else None,
+             nccl_2x1_samples_ms=turns["2x1"] if R == 4 else None,
+             one_process_four_cards_ms=one_ms,
+             one_process_samples_ms=turns["1x4"] if R == 4 else [one_ms],
+             parts_ms={k: recs[0][f"{k}_ms"]
+                       for k in recs[0].get("parts_own_ms", {})},
+             parts_own_ms=[r.get("parts_own_ms") for r in recs],
+             trace_span_us=[r.get("trace_span_us") for r in recs],
+             trace=[r.get("trace", r.get("trace_error")) for r in recs],
+             rows=[{k: r[k] for k in ("rows_packed", "rows_peer",
+                                      "rows_staged", "rows_unstaged",
+                                      "copies_staged", "copies_unstaged",
+                                      "all_to_all_split")} for r in recs],
+             per_card=r0["per_card"], per_host=r0["per_host"],
+             main_path_launches=[r["main_path_launches"] for r in recs],
+             card=card)
+    del spread, spread_x
+    torch.cuda.empty_cache()
+    # the kernels line: the pack and unpack on 12a's rows, the exchange on
+    # the in-card pairs of R=8 on one card, with phase 16's launches
+    records = transfer_record(ones[4], torch.float32, card)
+    xr = ones[8].make_x(x_host)
+    ex = exchange_record(ones[8], "sp", xr, card,
+                         "phase 16, Laplace3D-128 sp R=8 on one card: the "
+                         "in-card pairs, replayed CUDA graphs")
+    kernels = transfer_kernels(launches, records)
+    require(launches.get(ex["entry"], 0) > 0,
+            f"16: {ex['entry']} never launched")
+    kernels.append({
+        "name": ex["entry"].replace("uspmv_", ""), "route": "cuda",
+        "source": EXCHANGE_SOURCE, "replaces": EXCHANGE_REPLACES,
+        "launches": launches[ex["entry"]], "max_abs_err": ex["max_abs_err"],
+        "ms": ex["ms"], "plain_ms": ex["plain_ms"],
+        "bound_ms": ex["bound_ms"], "bound_by": ex["bound_by"],
+        "library_ms": ex["library_ms"],
+        "library_call": "index_select + index_copy_",
+        "library_error": ex["library_error"], "timed_on": ex["timed_on"]})
+    emit("phase16", seconds=time.perf_counter() - t_phase,
+         halo_launches=launches)
+    return launches, kernels
+
+
 def main():
     import torch
 
@@ -4400,6 +4770,25 @@ def main():
             "platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}}))
         return 0
+    if sys.argv[1:2] == ["--only"] and sys.argv[2:3] in (["16"], ["16a"]):
+        # phase 16 on four cards (kernels line: its pack, unpack and
+        # exchange), or 16a alone on one
+        mtx = laplace3d(128)
+        if sys.argv[2] == "16":
+            kernels = phase16(mtx, card)[1]
+        else:
+            _, y4, _, _ = references(mtx, 12)
+            finish_16a(start_16a(dict(
+                name="12b", matrix="Laplace3D,128", config=HEADLINE_R4,
+                x_seed=12)), y4, card)
+            kernels = []
+        emit("done", seconds_total=time.perf_counter() - t_start)
+        print(json.dumps({"kernels": kernels}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
     if sys.argv[1:2] == ["--only"] and sys.argv[2:3] == ["15"]:
         phase15(laplace3d(128), card)
         emit("done", seconds_total=time.perf_counter() - t_start)
@@ -4416,7 +4805,7 @@ def main():
             phase12_nccl_only(laplace3d(128), card)
             kernels = []
         else:
-            kernels = transfer_kernels(*phase12(laplace3d(128), card))
+            kernels = transfer_kernels(*phase12(laplace3d(128), card)[:2])
         emit("done", seconds_total=time.perf_counter() - t_start)
         print(json.dumps({"kernels": kernels}))
         print(card)
@@ -4638,11 +5027,17 @@ def main():
     phase11(mtx, card)
 
     # ---- 12. the sharded operator over processes: pack, transfer, unpack
-    mh_launches, mh_records = phase12(mtx, card)
+    mh_launches, mh_records, launches_16a = phase12(mtx, card)
     lap("12")
 
     # ---- 15. one process over several card groups: pack, copy, unpack
     cards_launches, rehearsal_launches, _ = phase15(mtx, card)
+
+    # ---- 16. processes of two cards each (four cards; 16a in phase 12)
+    p16_launches, _ = phase16(mtx, card)
+    process_card_launches = {e: launches_16a.get(e, 0)
+                             + p16_launches.get(e, 0)
+                             for e in set(launches_16a) | set(p16_launches)}
 
     # ---- 13. the bench by replayed CUDA graph, the solve bench's batches
     bench_13a = phase13(mtx, card)
@@ -4763,7 +5158,8 @@ def main():
             "source": EXCHANGE_SOURCE, "replaces": EXCHANGE_REPLACES,
             "replaces_kind": "XLA hot path (jnp.take, ppermute, "
                              ".at[].set), not a Pallas kernel",
-            "launches": dist_launches[entry] + cards_launches.get(entry, 0),
+            "launches": (dist_launches[entry] + cards_launches.get(entry, 0)
+                         + process_card_launches.get(entry, 0)),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
@@ -4775,7 +5171,9 @@ def main():
         })
     kernels += transfer_kernels(
         {e: mh_launches.get(e, 0) + cards_launches.get(e, 0)
-         for e in set(mh_launches) | set(cards_launches)}, mh_records)
+         + process_card_launches.get(e, 0)
+         for e in set(mh_launches) | set(cards_launches)
+         | set(process_card_launches)}, mh_records)
     for k in kernels:
         k["launches_counted"] = LAUNCHES_COUNTED
         # phase 15's: one process over card groups; 15b's are in
@@ -4784,6 +5182,10 @@ def main():
         if entry in cards_launches or entry in rehearsal_launches:
             k["card_group_launches"] = (cards_launches.get(entry, 0)
                                         + rehearsal_launches.get(entry, 0))
+        # phase 16's and 16a's: processes of two card groups each (in
+        # "launches" too)
+        if entry in process_card_launches:
+            k["process_card_launches"] = process_card_launches[entry]
     emit("done", seconds_total=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

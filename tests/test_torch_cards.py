@@ -277,12 +277,31 @@ def test_one_card_keeps_one_tensor():
     assert op.groups[0].transfers["sp"] is None
 
 
-def test_devices_are_refused_in_a_run_of_processes(monkeypatch):
+def test_devices_name_the_groups_of_a_process_in_a_run(monkeypatch):
+    """In a run of processes ``devices=`` lists this process's groups (two
+    may name one device): process 1 of 2 at R=4 holds shards 2 and 3 on
+    groups 2 and 3 of the run, its rows for process 0 staged through the
+    first of them."""
     from uspmv_tpu_torch.parallel import multihost
 
-    monkeypatch.setattr(multihost, "process_count", lambda: 2)
-    with pytest.raises(ValueError, match="one group per process"):
-        groups_op("sp", 4, 2)
+    full = {p: dict(enumerate(sm))
+            for p, sm in one_group("sp", 4)[0].summaries.items()}
+    monkeypatch.setattr(multihost, "_state", dict(
+        process_id=1, n_processes=2, n_local_devices=2, transport="gloo"))
+    monkeypatch.setattr(multihost, "gather_object",
+                        lambda obj: [full] * 2 if isinstance(obj, dict)
+                        else [2, 2])
+    op = groups_op("sp", 4, 2)
+    assert op.card.tolist() == [0, 1, 2, 3]
+    assert [g.index for g in op.groups] == [2, 3]
+    assert [list(g.shards) for g in op.groups] == [[2], [3]]
+    assert op.devices() == [CPU, CPU] and op.transport() == "gloo+peer"
+    st = op.stage["sp"]
+    assert st.send_counts[1] == st.recv_counts[1] == 0
+    assert st.n_send == st.n_recv > 0  # shard 2's rows for shard 1, back
+    assert op.lead["sp"]["send"].shape == (st.n_send,)
+    with pytest.raises(ValueError, match="at least one device"):
+        groups_op("sp", 4, 0)
 
 
 @pytest.mark.parametrize("n_cards", [1, 2, 4])

@@ -1552,10 +1552,10 @@ def test_halo_kernels_loop_beyond_one_wave(cuda, kind, dtype):
     assert torch.equal(got, want)
 
 
-def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
-    """Two processes of the CLI on one card: NCCL refuses two ranks on one
-    device, so the transport is gloo through pinned host buffers; the
-    solve validates on process 0."""
+def cli_processes(tmp_path, args, n=2, visible=None):
+    """The CLI line ``args`` on n processes of this host (``visible``: the
+    CUDA_VISIBLE_DEVICES of the run); their outputs, after asserting that
+    every process exited 0."""
     import os
     import socket
     import subprocess
@@ -1565,14 +1565,15 @@ def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "uspmv_tpu_torch.cli", "Laplace2D,64", "scs",
-         "-c", "32", "-sp", "-n_shards", "4", "-mode", "s", "-rev", "3",
-         "-validate", "1", "-verbose", "1", "-mtx_out", str(tmp_path),
-         "-coordinator", f"127.0.0.1:{port}", "-n_processes", "2",
-         "-process_id", str(pid), "-local_devices", "2"],
-        cwd=repo, text=True, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT) for pid in range(2)]
+        [sys.executable, "-m", "uspmv_tpu_torch.cli", *args, "-mtx_out",
+         str(tmp_path), "-coordinator", f"127.0.0.1:{port}",
+         "-n_processes", str(n), "-process_id", str(pid)],
+        cwd=repo, env=env, text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for pid in range(n)]
     try:
         outs = [p.communicate(timeout=240)[0] for p in procs]
     finally:
@@ -1580,10 +1581,49 @@ def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    assert [p.returncode for p in procs] == [0, 0], outs
+    assert [p.returncode for p in procs] == [0] * n, outs
+    return outs
+
+
+def test_two_processes_share_the_card_over_gloo(cuda, tmp_path):
+    """Two processes of the CLI on one card: NCCL refuses two ranks on one
+    device, so the transport is gloo through pinned host buffers; the
+    solve validates on process 0."""
+    outs = cli_processes(tmp_path, [
+        "Laplace2D,64", "scs", "-c", "32", "-sp", "-n_shards", "4", "-mode",
+        "s", "-rev", "3", "-validate", "1", "-verbose", "1",
+        "-local_devices", "2"], visible="0")
     assert "'transport': 'gloo-staged'" in outs[0], outs[0]
     assert "impl: solve-loop[cuda-dist4-" in outs[0] and "[OK]" in outs[0]
     assert "[OK]" not in outs[1]
+
+
+@pytest.mark.parametrize("R", [4, 8])
+def test_two_processes_of_two_cards(cuda, tmp_path, R):
+    """Four cards (hosts with fewer skip): two processes of the CLI take
+    two cards each, their R / 2 shards spread over them, the rows between
+    processes staged through each one's first card for NCCL; the solve
+    runs as one CUDA graph a process and validates on process 0."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import ast
+    import json
+
+    outs = cli_processes(tmp_path, [
+        "Laplace2D,64", "scs", "-c", "32", "-sp", "-n_shards", str(R),
+        "-mode", "s", "-rev", "5", "-validate", "1", "-verbose", "1",
+        "-local_devices", str(R // 2)])
+    lines = outs[0].splitlines()
+    mh = ast.literal_eval([ln for ln in lines
+                           if ln.startswith("[multihost]")][0][12:])
+    assert mh["transport"] == "nccl"
+    assert mh["process_devices"] == [["cuda:0", "cuda:1"],
+                                     ["cuda:2", "cuda:3"]]
+    cards = json.loads([ln for ln in lines if ln.startswith("[cards]")][0][8:])
+    assert cards["cards"] == ["cuda:0", "cuda:1"]
+    assert cards["transport"] == "nccl+peer"
+    assert f"impl: solve-graph[cuda-dist{R}-4cards-scs-sp]" in outs[0]
+    assert "[OK]" in outs[0] and "[OK]" not in outs[1]
 
 
 SHARDED_CASES = {

@@ -450,6 +450,8 @@ def test_transport_rule():
     assert transport_for("cuda", 4, 4) == "nccl"
     assert transport_for("cuda", 1, 8) == "nccl"
     assert transport_for("cuda", 2, 1) == "gloo-staged"
+    assert transport_for("cuda", 2, 4) == "nccl"  # two cards a process
+    assert transport_for("cuda", 3, 2) == "gloo-staged"
     with pytest.raises(DeviceUnavailableError):
         transport_for("cuda", 2, 0)
 

@@ -19,11 +19,15 @@ R shards share it; -verbose 1 prints the placement and its transport as a
 -print_comm_vol, whose shard lines name the card), also across processes
 (-coordinator HOST:PORT -n_processes P -process_id p, or their USPMV_*
 environment variables, or torchrun's: every process runs the same line
-and holds one card; -local_devices D shards per process, default
-ceil(R / P); NCCL where each process has a card of its own, gloo through
-host buffers where processes share one, gloo with -backend cpu; process 0
-alone prints and writes the result, -verbose 1 prints the run as a
-[multihost] line); solve mode runs the operator's ``solve`` (one CUDA
+and holds its share of the host's cards, visible cards // processes on
+the host, or one it shares where there are more processes than cards;
+-local_devices D shards per process, default ceil(R / P), shard r in
+process r // D and spread over the process's cards as above; NCCL between
+processes where each has a card of its own, staged through its first
+card, gloo through host buffers where processes share one, gloo with
+-backend cpu; process 0 alone prints and writes the result, -verbose 1
+prints the run, every process's cards included, as a [multihost] line);
+solve mode runs the operator's ``solve`` (one CUDA
 graph of the -rev launches on a GPU, over every card of the process, the
 fused solve kernel when ``USPMV_FUSED_SOLVE`` is set and an unsharded
 operator is eligible, a loop on the CPU) and prints which one ran; bench

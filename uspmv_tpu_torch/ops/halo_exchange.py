@@ -32,7 +32,9 @@ layout, so the transfer splits it by rows. Between the groups of one
 process, ``peer_copy`` moves each sender's slice for each receiver into the
 receiver's buffer (``peer_plan``: the ``send_counts``/``recv_counts`` split
 of ``all_to_all_single``), a device-to-device copy of PyTorch's; across
-processes ``all_to_all_single`` moves them (parallel/multihost.py).
+processes ``all_to_all_single`` moves them (parallel/multihost.py), on
+each process's lead card, where ``peer_copy`` stages the rows of the
+process's other groups (``StagePlan``).
 
 The three are one kernel template on the card (``csrc/halo_exchange.cu``):
 a thread copies a pair, rows of a multiple of 16 bytes move as 16-byte
@@ -303,8 +305,8 @@ class DeviceTransfer:
 
     send: torch.Tensor  # int32 [n_send]
     recv: torch.Tensor  # int32 [n_recv]
-    send_counts: List[int]  # per destination process
-    recv_counts: List[int]  # per source process
+    send_counts: List[int]  # per destination group
+    recv_counts: List[int]  # per source group
     n_shards: int
     length: int
     active: bool
@@ -365,29 +367,119 @@ class PeerSlice:
     n: int
 
 
-def peer_plan(transfers: List[DeviceTransfer]) -> List[PeerSlice]:
-    """The moves of the transfers of G card groups of one process (group g's
-    ``DeviceTransfer`` built with the groups as its "processes"): the
-    ``send_counts``/``recv_counts`` split of ``all_to_all_single`` as one
-    slice per pair of groups that exchanges rows, senders in order. A
-    sender's slice for group h starts after its rows for groups < h; a
-    receiver's slice from group g after its rows from groups < g."""
+def peer_plan(transfers: List[DeviceTransfer], first: int = 0
+              ) -> List[PeerSlice]:
+    """The moves between the card groups of one process whose G transfers
+    are ``transfers`` (group g's ``DeviceTransfer`` built with the groups
+    of the run as its "processes", this process's groups numbered from
+    ``first`` among them): the ``send_counts``/``recv_counts`` split of
+    ``all_to_all_single`` as one slice per pair of this process's groups
+    that exchanges rows, senders in order, ``src`` and ``dst`` numbered
+    from 0. A sender's slice for group h starts after its rows for groups
+    < h; a receiver's slice from group g after its rows from groups < g."""
     send_at = [np.concatenate([[0], np.cumsum(t.send_counts)])
                for t in transfers]
     recv_at = [np.concatenate([[0], np.cumsum(t.recv_counts)])
                for t in transfers]
     out = []
     for g, t in enumerate(transfers):
-        for h, n in enumerate(t.send_counts):
+        for h in range(len(transfers)):
+            n = t.send_counts[first + h]
             if h == g or n == 0:
                 continue
-            if transfers[h].recv_counts[g] != n:
+            if transfers[h].recv_counts[first + g] != n:
                 raise ValueError(
                     f"group {g} sends {n} rows to group {h}, which expects "
-                    f"{transfers[h].recv_counts[g]}")
-            out.append(PeerSlice(g, h, int(send_at[g][h]),
-                                 int(recv_at[h][g]), int(n)))
+                    f"{transfers[h].recv_counts[first + g]}")
+            out.append(PeerSlice(g, h, int(send_at[g][first + h]),
+                                 int(recv_at[h][first + g]), int(n)))
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StagePlan:
+    """The rows of one process's card groups that cross processes, staged
+    through its lead card (its first group's) for one
+    ``all_to_all_single``: ``stage`` copies each group's rows for each
+    other process from the group's send buffer into the lead's (``dst``
+    0), ordered by destination process, then by sending group, then by
+    receiving group; ``unstage`` copies the lead's receive buffer (``src``
+    0), ordered by source process, then by sending group, then by
+    receiving group, into each group's receive buffer. ``send_counts`` and
+    ``recv_counts``: the all-to-all's split, per process."""
+
+    send_counts: List[int]
+    recv_counts: List[int]
+    stage: List[PeerSlice]
+    unstage: List[PeerSlice]
+
+    @property
+    def n_send(self) -> int:
+        return sum(self.send_counts)
+
+    @property
+    def n_recv(self) -> int:
+        return sum(self.recv_counts)
+
+
+def _merged(moves: List[PeerSlice]) -> List[PeerSlice]:
+    """``moves`` with each run of slices that continue one another at both
+    ends (same groups, consecutive rows) merged into one copy."""
+    out: List[PeerSlice] = []
+    for m in moves:
+        last = out[-1] if out else None
+        if (last is not None and (last.src, last.dst) == (m.src, m.dst)
+                and last.send_lo + last.n == m.send_lo
+                and last.recv_lo + last.n == m.recv_lo):
+            out[-1] = dataclasses.replace(last, n=last.n + m.n)
+        else:
+            out.append(m)
+    return out
+
+
+def stage_plan(counts: np.ndarray, process_of: np.ndarray,
+               me: int) -> StagePlan:
+    """The ``StagePlan`` of process ``me`` from ``counts`` [G, G], the rows
+    each group of the run sends each other group (``parallel.halo.
+    group_pair_counts``), and ``process_of`` [G], each group's process
+    (ascending). Group g's send buffer holds its rows by destination group,
+    group h's receive buffer its rows by source group
+    (``split_exchange_rows``), so a group's rows for one other process
+    leave in one copy; what one sending group sends to one receiving group
+    arrives in one copy, merged with the next where both ends continue."""
+    counts = np.asarray(counts, dtype=np.int64)
+    process_of = np.asarray(process_of, dtype=np.int64)
+    P = int(process_of[-1]) + 1
+    first = np.searchsorted(process_of, np.arange(P + 1))
+    mine = range(int(first[me]), int(first[me + 1]))
+    send_counts, recv_counts = [0] * P, [0] * P
+    stage, unstage = [], []
+    at = 0
+    for q in range(P):
+        if q == me:
+            continue
+        for j, g in enumerate(mine):
+            n = int(counts[g, first[q]:first[q + 1]].sum())
+            if n:
+                stage.append(PeerSlice(j, 0, int(counts[g, :first[q]].sum()),
+                                       at, n))
+                at += n
+        send_counts[q] = at - sum(send_counts)
+    at = 0
+    for p in range(P):
+        if p == me:
+            continue
+        start = at
+        for g in range(int(first[p]), int(first[p + 1])):
+            for j, h in enumerate(mine):
+                n = int(counts[g, h])
+                if n:
+                    unstage.append(PeerSlice(0, j, at,
+                                             int(counts[:g, h].sum()), n))
+                    at += n
+        recv_counts[p] = at - start
+    return StagePlan(send_counts=send_counts, recv_counts=recv_counts,
+                     stage=_merged(stage), unstage=_merged(unstage))
 
 
 def peer_copy(plan: List[PeerSlice], sends: List[torch.Tensor],

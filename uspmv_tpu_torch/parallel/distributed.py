@@ -13,15 +13,18 @@ over card groups, each group a card and the shards it holds, with their own
 structs and launches: the SELL-C-sigma or packed kernel of its rows (the
 tier chosen per struct, as on one device), its heavy-row pieces, and, per
 precision, one launch of the exchange kernel (ops/halo_exchange.py) that
-copies every halo row whose owner is on the same card. In one process
-``config.backend="cuda"`` takes G = min(R, visible cards) cards and D =
-ceil(R / G) shards per card, shard r on card r // D (cards past the last
-shard stay idle; ``CUDA_VISIBLE_DEVICES`` pins a run to fewer cards); with
-one card, every shard runs on the device ``config.backend`` names. The
-``devices`` argument of ``from_mtx`` names the groups' devices itself (two
-groups may share one: the tests' counterpart of the JAX virtual CPU mesh).
-Nothing falls back to one card or to the CPU: ``backend="cuda"`` without a
-GPU raises, where the JAX operator may fall back to a virtual CPU mesh.
+copies every halo row whose owner is on the same card. A process holds D
+shard slots (one process: D = R; across processes ``local_devices``) and G
+= min(D, its cards) groups, ceil(D / G) slots each, slot i on group i // that
+(``shard_cards``; cards past the last shard stay idle): in one process
+``config.backend="cuda"`` takes the visible cards, across processes the
+cards ``multihost.initialize`` gave the process (``CUDA_VISIBLE_DEVICES``
+pins a run to fewer cards); with one card, every shard of the process runs
+on the device ``config.backend`` names. The ``devices`` argument of
+``from_mtx`` names the process's groups' devices itself (two groups may
+share one: the tests' counterpart of the JAX virtual CPU mesh). Nothing
+falls back to one card or to the CPU: ``backend="cuda"`` without a GPU
+raises, where the JAX operator may fall back to a virtual CPU mesh.
 
 x lives in its halo-extended form. The x buffers of a group's R_g shards
 (L = H + 1 rows each; H: the plan's common length, the dump slot at H) are
@@ -71,28 +74,37 @@ cards that exchanges rows has peer access, "host-staged" where one lacks it.
 impl='xla' (or use_pallas=False) runs every launch's plain PyTorch version,
 the exchange's too, on the chosen devices, in one stream per card.
 
-Across processes (parallel/multihost.py) a process holds one group: shard r
-lives in process ``r // D`` (D = ``local_devices``, default ceil(R / P)),
-as the JAX mesh takes the first R devices of the global list. Every process
-plans every shard on the host (partition, splits, precisions, SCS, halo
-plans: the same bits everywhere) and builds device structs for its own
-shards only, so its stacked x holds its own n_local shards. The transfer
-moves between processes by one ``all_to_all_single``: on the card's
-tensors under NCCL; under gloo through pinned host buffers, copied out
-after the pack and in before the unpack, the host waiting on the copy out
-before the transfer. With the overlap the interior launches are enqueued
-before the transfer; the halo parts and the pieces run after the unpack.
-In allgather mode every process all-gathers the local rows into the whole
-stacked x. ``to_host`` gathers every shard (a collective: every process
-calls it and returns the whole y). Under NCCL the pack, the all-to-all, its
-wait and the unpack are captured with the rest of an SpMV into the CUDA
-graphs of a solve and of the bench's batches; every process captures and
-replays in the same order, and ``multihost.shutdown`` resets those graphs
-before the group goes (NCCL does not destroy a communicator that a live
-graph uses). Over gloo a solve and the bench run a loop of launches: a
-transfer through the host cannot be captured in a CUDA graph. In one
-process over several cards one graph holds the launches and copies of
-every card (runtime/operator.py). The metrics of the shards a process does
+Across processes (parallel/multihost.py) shard r lives in process ``r //
+D`` (D = ``local_devices``, default ceil(R / P)), as the JAX mesh takes the
+first R devices of its process-major global list, and inside the process on
+its groups as above; the groups are numbered across the run, the earlier
+processes' first (``run_cards``: every process learns the others' card
+counts at build). Every process plans every shard on the host (partition,
+splits, precisions, SCS, halo plans: the same bits everywhere) and builds
+device structs for its own shards only. The rows between its groups move by
+the peer copies above; the rows between processes by one
+``all_to_all_single`` per precision on the process's lead card (its first
+group's), staged through it (``StagePlan``): peer copies gather each
+group's rows for each other process into the lead's send buffer, ordered by
+destination process, and scatter the lead's receive buffer into each
+group's after the transfer, on the second streams; where the process holds
+one group its own buffers are the lead's and nothing is copied. Under NCCL
+the transfer runs on the cards' tensors; under gloo through pinned host
+buffers, copied out after the pack (and the staging) and in before the
+unstaging and the unpack, the host waiting on the copy out before the
+transfer. With the overlap the interior launches are enqueued before the
+transfer; the halo parts and the pieces run after the unpack. In allgather
+mode every process all-gathers its groups' local rows into the whole x of
+each of its cards. ``to_host`` gathers every shard of every group of every
+process (a collective: every process calls it and returns the whole y).
+Under NCCL the pack, the staging, the all-to-all, its wait and the unpack
+are captured with the rest of an SpMV into the CUDA graphs of a solve and of
+the bench's batches, one graph per process over its cards
+(runtime/operator.py); every process captures and replays in the same
+order, and ``multihost.shutdown`` resets those graphs before the group goes
+(NCCL does not destroy a communicator that a live graph uses). Over gloo a
+solve and the bench run a loop of launches: a transfer through the host
+cannot be captured in a CUDA graph. The metrics of the shards a process does
 not hold come from the others' summaries, gathered once at build.
 
 Not ported, as the ROADMAP lists: lane tiles and re-tiling, the
@@ -104,6 +116,7 @@ whole matrix.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Dict, List, Optional, Sequence, Union
@@ -134,6 +147,7 @@ from ..ops.halo_exchange import (
     DeviceExchange,
     DeviceTransfer,
     PeerSlice,
+    StagePlan,
     build_device_exchange,
     build_device_transfer,
     halo_exchange,
@@ -144,6 +158,7 @@ from ..ops.halo_exchange import (
     halo_unpack_plain,
     peer_copy,
     peer_plan,
+    stage_plan,
 )
 from ..ops.vectors import init_x_host
 from ..precision.partition import partition_precisions
@@ -166,6 +181,7 @@ from .halo import (
     build_allgather_col_map,
     build_halo_plan,
     exchange_rows,
+    group_pair_counts,
     split_exchange_rows,
 )
 from .partition import seg_work_sharing
@@ -242,15 +258,21 @@ class StreamSummary:
             pieces_vector_bytes=pc.vector_bytes() if pc else 0)
 
 
+def shard_slots(R: int) -> int:
+    """D, the shard slots of each process for R shards over the processes
+    of the run (parallel/multihost.py): local_devices, or ceil(R / P);
+    R outside a run of processes."""
+    D = (multihost.info() or {}).get("n_local_devices")
+    return D or -(-R // multihost.process_count())
+
+
 def shard_owners(R: int) -> tuple:
     """(owner of each shard, this process's shards) for R shards over the
-    processes of the run (parallel/multihost.py): shard r to process
-    r // D, D = local_devices or ceil(R / P); one process holds them all
-    outside a run of processes. Raises where P * D < R (JAX: "need R
-    devices") or a process would hold no shard."""
+    processes of the run: shard r to process r // D (``shard_slots``); one
+    process holds them all outside a run of processes. Raises where P * D
+    < R (JAX: "need R devices") or a process would hold no shard."""
     P, me = multihost.process_count(), multihost.process_index()
-    mh = multihost.info()
-    D = (mh or {}).get("n_local_devices") or -(-R // P)
+    D = shard_slots(R)
     if R > P * D:
         raise ValueError(
             f"need {R} devices (shards), have {P * D}: {P} processes x "
@@ -275,19 +297,13 @@ def _allgather_cols(cols: np.ndarray, ws: np.ndarray,
     return out
 
 
-def _gather_summaries(own: Dict[str, Dict[int, StreamSummary]], R: int,
-                      n_proc: int) -> Dict[str, List[StreamSummary]]:
+def _gather_summaries(own: Dict[str, Dict[int, StreamSummary]],
+                      R: int) -> Dict[str, List[StreamSummary]]:
     """Per precision, every shard's summary: this process's own ``own``,
-    merged with every other process's (all_gather_object) in a run of
-    several."""
-    parts = [own]
-    if n_proc > 1:
-        import torch.distributed as dist
-
-        parts = [None] * n_proc
-        dist.all_gather_object(parts, own)
+    merged with every other process's in a run of several (a
+    collective)."""
     out = {p: [None] * R for p in own}
-    for part in parts:
+    for part in multihost.gather_object(own):
         for p, by_shard in part.items():
             for r, summ in by_shard.items():
                 out[p][r] = summ
@@ -317,28 +333,46 @@ def shard_cards(R: int, n_cards: int) -> np.ndarray:
     return np.arange(R, dtype=np.int64) // D
 
 
-def card_devices(config: Config, R: int,
+def run_cards(owner: np.ndarray, D: int, n_cards: Sequence[int]
+              ) -> np.ndarray:
+    """The card group of each shard over the run, numbered across it: the
+    shards ``owner`` gives process p (D shard slots each) spread over its
+    ``n_cards[p]`` cards by ``shard_cards(D, n_cards[p])``, slot by slot
+    (the JAX mesh's process-major order of its devices), and the groups of
+    earlier processes counted first. In one process (owner all 0, D = R)
+    this is ``shard_cards(R, n_cards[0])``."""
+    card = np.empty(owner.size, dtype=np.int64)
+    base = 0
+    for p in range(int(owner[-1]) + 1):
+        rows = np.flatnonzero(owner == p)
+        local = shard_cards(D, n_cards[p])[rows - rows[0]]
+        card[rows] = base + local
+        base += int(local[-1]) + 1
+    return card
+
+
+def card_devices(config: Config, D: int,
                  devices: Optional[Sequence] = None) -> List[torch.device]:
-    """The devices of this process's card groups: ``devices`` as given (two
-    groups may name the same device), else, outside a run of processes on
-    the card, the first min(R, visible cards) cards, else the one device
-    ``config.backend`` names (which raises DeviceUnavailableError for
-    backend "cuda" without a GPU, devices given or not)."""
+    """The devices of this process's card groups, which hold its D shard
+    slots: ``devices`` as given (two groups may name the same device),
+    else on the card the first min(D, cards) of its cards (in one process
+    the visible cards, in a run of processes those ``multihost.initialize``
+    gave it), else the one device ``config.backend`` names (which raises
+    DeviceUnavailableError for backend "cuda" without a GPU, devices given
+    or not)."""
     device = resolve_device(config)
     if devices is not None:
-        if multihost.process_count() > 1:
-            raise ValueError("devices= names the card groups of one "
-                             "process; a run of processes holds one group "
-                             "per process")
         if not devices:
             raise ValueError("devices= needs at least one device")
         return [torch.device(d) for d in devices]
-    if device.type != "cuda" or multihost.process_count() > 1:
+    if device.type != "cuda":
         return [device]
-    n = min(R, torch.cuda.device_count())
-    if n <= 1:
-        return [device]
-    return [torch.device("cuda", i) for i in range(n)]
+    mh = multihost.info()
+    cards = ([torch.device(d) for d in mh["devices"]] if mh is not None
+             else [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())])
+    cards = cards[:min(D, len(cards))]
+    return cards if len(cards) > 1 else [device]
 
 
 @dataclasses.dataclass
@@ -399,13 +433,18 @@ class DistributedSpmvOperator(OperatorBase):
     # per precision, per shard: what the metrics read of its streams
     summaries: Dict[str, List[StreamSummary]] = dataclasses.field(
         default_factory=dict)
-    # the process of each shard, and its card group (the same across
-    # processes, where a process holds one group)
+    # the process of each shard, and its card group, numbered across the
+    # run (the process, where every process holds one group)
     owner: Optional[np.ndarray] = None
     card: Optional[np.ndarray] = None
     # per precision: the moves between this process's groups
     peer: Dict[str, List[PeerSlice]] = dataclasses.field(
         default_factory=dict)
+    # per precision, in a run of processes: the rows that cross processes,
+    # staged through the lead card, and the lead's buffers for them
+    stage: Dict[str, StagePlan] = dataclasses.field(default_factory=dict)
+    lead: Dict[str, dict] = dataclasses.field(default_factory=dict,
+                                              repr=False)
     overlap: bool = False
     split_threshold: int = 0
     n_dropped: int = 0
@@ -421,22 +460,26 @@ class DistributedSpmvOperator(OperatorBase):
                  devices: Optional[Sequence] = None
                  ) -> "DistributedSpmvOperator":
         """The operator of ``mtx`` under ``config``, its shards spread over
-        the card groups of ``card_devices(config, R, devices)``."""
+        the card groups of ``card_devices(config, D, devices)`` (D =
+        ``shard_slots(R)``) and, in a run of processes, those of the
+        others."""
         config.validate()
         R = config.n_shards
-        devs = card_devices(config, R, devices)
-        if multihost.process_count() > 1:
-            owner, shards = shard_owners(R)
-            card = owner
-            placed = [(multihost.process_index(), shards, devs[0])]
-        else:
-            owner = np.zeros(R, dtype=np.int64)
-            card = shard_cards(R, len(devs))
-            placed = [(g, range(int(np.searchsorted(card, g)),
-                                int(np.searchsorted(card, g, "right"))),
-                       devs[g]) for g in range(int(card[-1]) + 1)]
+        owner, shards = shard_owners(R)
+        D = shard_slots(R)
+        devs = card_devices(config, D, devices)
+        # every process's cards (a collective in a run of processes), and
+        # the group of each shard across the run
+        card = run_cards(owner, D, multihost.gather_object(len(devs)))
+        first = int(card[shards.start])
+        placed = [(g, range(int(np.searchsorted(card, g)),
+                            int(np.searchsorted(card, g, "right"))),
+                   devs[g - first])
+                  for g in range(first, int(card[shards.stop - 1]) + 1)]
         n_proc = int(owner[-1]) + 1
         n_groups = int(card[-1]) + 1  # over the whole run
+        # the process of each group
+        group_owner = owner[np.searchsorted(card, np.arange(n_groups))]
         mtx = mtx.copy()
         if not mtx.is_sorted:
             mtx = mtx.sort_by_row()
@@ -522,6 +565,7 @@ class DistributedSpmvOperator(OperatorBase):
         # per group (in ``placed`` order), per precision
         exchanges = [dict() for _ in placed]
         transfers = [dict() for _ in placed]
+        stage: Dict[str, StagePlan] = {}
         for p in precs:
             for ex, tr in zip(exchanges, transfers):
                 ex[p] = tr[p] = None
@@ -560,6 +604,9 @@ class DistributedSpmvOperator(OperatorBase):
                     src, dst, len(shards), lengths[p], dev)
                 transfers[i][p] = build_device_transfer(
                     send, recv, len(shards), lengths[p], active, dev)
+            if n_proc > 1 and active:
+                stage[p] = stage_plan(group_pair_counts(hp, card),
+                                      group_owner, multihost.process_index())
 
         # --- device streams, the tier chosen per struct
         overlap = config.overlap_comm and not allgather
@@ -601,7 +648,7 @@ class DistributedSpmvOperator(OperatorBase):
         summaries = _gather_summaries(
             {p: {r: StreamSummary.of(sh) for grp in groups
                  for r, sh in zip(grp.shards, grp.streams[p])}
-             for p in precs}, R, n_proc)
+             for p in precs}, R)
 
         op = cls(
             config=config,
@@ -620,6 +667,7 @@ class DistributedSpmvOperator(OperatorBase):
             summaries=summaries,
             owner=owner,
             card=card,
+            stage=stage,
             overlap=overlap,
             split_threshold=th,
             n_dropped=n_dropped,
@@ -634,14 +682,21 @@ class DistributedSpmvOperator(OperatorBase):
                         device=grp.device)
             for p, tr in grp.transfers.items():
                 if tr is not None and tr.active:
-                    grp.tbufs[p] = op._transfer_buffers(tr, grp.device)
+                    grp.tbufs[p] = {
+                        name: torch.zeros(tr.buffer_shape(n, bs),
+                                          dtype=op.working_dtype,
+                                          device=grp.device)
+                        for name, n in (("send", tr.n_send),
+                                        ("recv", tr.n_recv))}
             if allgather and len(groups) > 1:
                 grp.whole = torch.zeros(op._shape(None, None, R),
                                         dtype=op.working_dtype,
                                         device=grp.device)
-        if n_proc == 1:
-            op.peer = {p: peer_plan([grp.transfers[p] for grp in groups])
+        if len(groups) > 1:
+            op.peer = {p: peer_plan([grp.transfers[p] for grp in groups],
+                                    first)
                        for p in precs if p in groups[0].tbufs}
+        op.lead = {p: op._lead_buffers(p) for p in stage}
         return op
 
     # ------------------------------------------------------------- execution
@@ -745,105 +800,161 @@ class DistributedSpmvOperator(OperatorBase):
             buf[:, :n].copy_(x[:, :n])
         return buf
 
-    def _transfer_buffers(self, tr: DeviceTransfer,
-                          device: torch.device) -> dict:
-        """The send and receive buffers of a transfer in the working dtype
-        on the group's device; under gloo from the card, their pinned host
-        twins and the event the host waits on before the transfer reads
-        them."""
-        bs = self.config.block_vec_size
-        bufs = {}
-        staged = (device.type == "cuda" and self.n_processes > 1
-                  and multihost.transport() != "nccl")
-        for name, n in (("send", tr.n_send), ("recv", tr.n_recv)):
-            shape = tr.buffer_shape(n, bs)
-            bufs[name] = torch.zeros(shape, dtype=self.working_dtype,
-                                     device=device)
-            if staged:
+    def _lead_buffers(self, p: str) -> dict:
+        """The lead card's buffers of precision p's all-to-all in the
+        working dtype: the lead group's own send and receive buffers where
+        the process holds one group (its rows are already in the order of
+        the all-to-all), else new ones of the ``StagePlan``'s sizes; under
+        gloo from the card, their pinned host twins and the event the host
+        waits on before the transfer reads them."""
+        st, grp = self.stage[p], self.groups[0]
+        if len(self.groups) == 1:
+            bufs = dict(grp.tbufs[p])
+        else:
+            tr, bs = grp.transfers[p], self.config.block_vec_size
+            bufs = {name: torch.zeros(tr.buffer_shape(n, bs),
+                                      dtype=self.working_dtype,
+                                      device=grp.device)
+                    for name, n in (("send", st.n_send),
+                                    ("recv", st.n_recv))}
+        if grp.device.type == "cuda" and multihost.transport() != "nccl":
+            for name in ("send", "recv"):
                 bufs["host_" + name] = torch.zeros(
-                    shape, dtype=self.working_dtype, pin_memory=True)
-        if staged:
+                    bufs[name].shape, dtype=self.working_dtype,
+                    pin_memory=True)
             bufs["copied_out"] = torch.cuda.Event()
         return bufs
 
-    def _send(self, p: str, xps):
+    def _on_cards(self) -> bool:
+        """Whether the moves between groups run on the cards' second
+        streams (kernels on the card), not on the current streams."""
+        return not self.plain and self.device.type == "cuda"
+
+    def _on_lead(self):
+        """The stream context of the lead card's moves across processes:
+        its second stream where the process holds several groups on the
+        card (beside the interior launches, after the staging copies),
+        else the current stream."""
+        if len(self.groups) > 1 and self._on_cards():
+            return torch.cuda.stream(self.groups[0].comm())
+        return contextlib.nullcontext()
+
+    def _send(self, p: str, xps) -> tuple:
         """Start precision p's transfer: every group packs the rows it
-        sends from its x of ``xps`` (one tensor per group); across
-        processes, under gloo from the card, copy them out to the pinned
-        host buffer (the host waits on it in ``_receive``), under NCCL
-        start the all-to-all on the card's buffers. Returns the NCCL work
-        or None."""
+        sends from its x of ``xps`` (one tensor per group), and the copies
+        between this process's groups start (``_copies``). Across
+        processes the rows for the others are staged into the lead card's
+        send buffer (``StagePlan``; in place where the process holds one
+        group), then under NCCL the all-to-all starts on it, under gloo
+        from the card it is copied out to the pinned host buffer (the host
+        waits on it in ``_receive``). Returns (the NCCL work or None, the
+        (current, second) stream pairs to join before the unpack)."""
         import torch.distributed as dist
 
         layout = self.config.vector_layout
         pack = halo_pack_plain if self.plain else halo_pack
         for grp, xp in zip(self.groups, parts_of(xps)):
             pack(grp.transfers[p], xp, grp.tbufs[p]["send"], layout)
-        if self.n_processes == 1:
-            return None
-        grp = self.groups[0]  # across processes: one group per process
-        tr, b = grp.transfers[p], grp.tbufs[p]
-        if "host_send" in b:
-            b["host_send"].copy_(b["send"], non_blocking=True)
-            b["copied_out"].record()
-            return None
-        if multihost.transport() == "nccl":
-            return dist.all_to_all_single(
-                b["recv"], b["send"], tr.recv_counts, tr.send_counts,
-                async_op=True)
-        return None
-
-    def _start_moves(self, p: str) -> list:
-        """In one process: copy every group's rows for the others into
-        their receive buffers (``peer_copy``), after the packs. On the
-        cards each copy runs on the sender's second stream with the
-        receiver's second stream current (PyTorch orders a copy between
-        two cards after the receiver's current stream and makes it wait for
-        the copy), each second stream having first waited for its card's
-        current stream (the packs, the last unpack); elsewhere on the
-        current streams. Returns the (current, second) stream pairs to join
-        before the unpack: each card's own, and a sender's on the same card
-        as its receiver."""
-        plan = self.peer[p]
         sends = [grp.tbufs[p]["send"] for grp in self.groups]
         recvs = [grp.tbufs[p]["recv"] for grp in self.groups]
-        if self.plain or self.device.type != "cuda":
-            peer_copy(plan, sends, recvs)
+        plans = [(self.peer.get(p, []), sends, recvs)]
+        if self.n_processes == 1:
+            return None, self._copies(plans)
+        b, st = self.lead[p], self.stage[p]
+        lead = self.groups[0]
+        several = len(self.groups) > 1 and self._on_cards()
+        if several:
+            # every second stream after its card's packs and last unpack,
+            # here, before the interior launches: the copies into the
+            # receive buffers after the all-to-all need not wait for them
+            for grp in self.groups:
+                grp.comm().wait_stream(grp.cur())
+        if len(self.groups) > 1:
+            plans.append((st.stage, sends, [b["send"]]))
+        joins = self._copies(plans, wait=not several)
+        if several:
+            # the lead's second stream carries the all-to-all: after the
+            # staging copies that ran on the second stream of another
+            # group on the lead's card
+            for j in sorted({m.src for m in st.stage} - {0}):
+                if self.groups[j].device == lead.device:
+                    lead.comm().wait_stream(self.groups[j].comm())
+            joins.append((lead.cur(), lead.comm()))
+        with self._on_lead():
+            if "host_send" in b:
+                b["host_send"].copy_(b["send"], non_blocking=True)
+                b["copied_out"].record()
+            elif multihost.transport() == "nccl":
+                return dist.all_to_all_single(
+                    b["recv"], b["send"], st.recv_counts, st.send_counts,
+                    async_op=True), joins
+        return None, joins
+
+    def _copies(self, plans, wait: bool = True) -> list:
+        """Every move of ``plans``, a list of (``PeerSlice`` list, send
+        buffers, receive buffers), the moves' ``src`` and ``dst``
+        numbering this process's groups and indexing the buffer lists
+        (``peer_copy``). On the cards each copy runs on the sender's
+        second stream with the receiver's second stream current (PyTorch
+        orders a copy between two cards after the receiver's current
+        stream and makes it wait for the copy), each second stream having
+        first waited for its card's current stream (the packs, the last
+        unpack) where ``wait``, else earlier; elsewhere on the current
+        streams. Returns the (current, second) stream pairs to join before
+        the unpack: each card's own, and a sender's on the same card as
+        its receiver."""
+        plans = [(plan, s, r) for plan, s, r in plans if plan]
+        if not plans:
             return []
-        busy = sorted({i for m in plan for i in (m.src, m.dst)})
-        for i in busy:
+        if not self._on_cards():
+            for plan, sends, recvs in plans:
+                peer_copy(plan, sends, recvs)
+            return []
+        moves = [m for plan, _, _ in plans for m in plan]
+        busy = sorted({i for m in moves for i in (m.src, m.dst)})
+        for i in busy if wait else ():
             self.groups[i].comm().wait_stream(self.groups[i].cur())
-        peer_copy(plan, sends, recvs, [(self.groups[m.src].comm(),
-                                        self.groups[m.dst].comm())
-                                       for m in plan])
+        for plan, sends, recvs in plans:
+            peer_copy(plan, sends, recvs, [(self.groups[m.src].comm(),
+                                            self.groups[m.dst].comm())
+                                           for m in plan])
         pairs = [(i, i) for i in busy] + [
-            (m.dst, m.src) for m in plan
+            (m.dst, m.src) for m in moves
             if self.groups[m.dst].device == self.groups[m.src].device]
         return [(self.groups[h].cur(), self.groups[g].comm())
                 for h, g in dict.fromkeys(pairs)]
 
-    def _receive(self, p: str, xps, work, moves=()) -> None:
-        """Finish precision p's transfer: in one process join the moves
-        of ``_start_moves``; across processes wait for the NCCL all-to-all
-        or run gloo's, copied in under gloo from the card. Then every
-        group unpacks its rows into the halo rows of its x."""
+    def _receive(self, p: str, xps, work, joins=()) -> None:
+        """Finish precision p's transfer: across processes wait for the
+        NCCL all-to-all or run gloo's (copied in under gloo from the card)
+        and copy the lead card's receive buffer into each group's
+        (``StagePlan.unstage``); join the stream pairs of ``_send`` and of
+        those copies. Then every group unpacks its rows into the halo rows
+        of its x."""
         import torch.distributed as dist
 
-        for cur, comm in moves:
-            cur.wait_stream(comm)
+        joins = list(joins)
         if self.n_processes > 1:
-            grp = self.groups[0]
-            tr, b = grp.transfers[p], grp.tbufs[p]
-            if work is not None:
-                work.wait()
-            elif "host_send" in b:
-                b["copied_out"].synchronize()
-                dist.all_to_all_single(b["host_recv"], b["host_send"],
-                                       tr.recv_counts, tr.send_counts)
-                b["recv"].copy_(b["host_recv"], non_blocking=True)
-            else:
-                dist.all_to_all_single(b["recv"], b["send"], tr.recv_counts,
-                                       tr.send_counts)
+            b, st = self.lead[p], self.stage[p]
+            with self._on_lead():
+                if work is not None:
+                    work.wait()
+                elif "host_send" in b:
+                    b["copied_out"].synchronize()
+                    dist.all_to_all_single(b["host_recv"], b["host_send"],
+                                           st.recv_counts, st.send_counts)
+                    b["recv"].copy_(b["host_recv"], non_blocking=True)
+                else:
+                    dist.all_to_all_single(b["recv"], b["send"],
+                                           st.recv_counts, st.send_counts)
+            if len(self.groups) > 1:
+                # the second streams waited in _send (before the interior
+                # launches, which these copies need not follow)
+                recvs = [grp.tbufs[p]["recv"] for grp in self.groups]
+                joins += self._copies([(st.unstage, [b["recv"]], recvs)],
+                                      wait=False)
+        for cur, comm in dict.fromkeys(joins):
+            cur.wait_stream(comm)
         layout = self.config.vector_layout
         unpack = halo_unpack_plain if self.plain else halo_unpack
         for grp, xp in zip(self.groups, parts_of(xps)):
@@ -851,21 +962,26 @@ class DistributedSpmvOperator(OperatorBase):
 
     def _whole_xs(self, xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """Allgather mode: per group, the stacked x of all R shards as one
-        vector block: across processes every process's local rows
-        all-gathered; over several groups of one process, every group's
-        rows copied into each card's buffer."""
-        if self.n_processes > 1:
-            x = xs[0]
-            x = multihost.all_gather_blocks(x, self._stack_dim(x),
-                                            self.shard_counts())
-            return [self.whole(x)]
-        if len(self.groups) == 1:
-            return [self.whole(xs[0])]
+        vector block: across processes every process's local rows (its
+        groups' stacked x, gathered on the lead card) all-gathered; over
+        several groups, the whole x copied into each card's buffer."""
         dim = self._stack_dim(xs[0])
-        for grp in self.groups:
-            for src, x in zip(self.groups, xs):
-                grp.whole.narrow(dim, src.shards.start, len(src.shards)) \
-                    .copy_(x, non_blocking=True)
+        if self.n_processes > 1:
+            x = (xs[0] if len(xs) == 1
+                 else torch.cat([t.to(self.device) for t in xs], dim))
+            x = multihost.all_gather_blocks(x, dim, self.shard_counts())
+            if len(self.groups) == 1:
+                return [self.whole(x)]
+            for grp in self.groups:
+                grp.whole.copy_(x, non_blocking=True)
+        elif len(self.groups) == 1:
+            return [self.whole(xs[0])]
+        else:
+            for grp in self.groups:
+                for src, x in zip(self.groups, xs):
+                    grp.whole.narrow(dim, src.shards.start,
+                                     len(src.shards)).copy_(
+                        x, non_blocking=True)
         return [self.whole(grp.whole) for grp in self.groups]
 
     def _rows(self, p: str, part: str, xps: List[torch.Tensor],
@@ -924,7 +1040,7 @@ class DistributedSpmvOperator(OperatorBase):
         exchange = halo_exchange_plain if self.plain else halo_exchange
         # kernels on the card: with the overlap, the exchange inside a card
         # runs on its second stream
-        cuda = not self.plain and self.device.type == "cuda"
+        cuda = self._on_cards()
         written = False
         xws = None
         for p in self.precisions:
@@ -938,9 +1054,7 @@ class DistributedSpmvOperator(OperatorBase):
             # copies between cards, or under NCCL the all-to-all) before
             # the interior launches
             crossing = p in self.groups[0].tbufs and self.config.comm_halos
-            work = self._send(p, xps) if crossing else None
-            moves = (self._start_moves(p) if crossing
-                     and self.n_processes == 1 else [])
+            work, moves = self._send(p, xps) if crossing else (None, [])
             if self.overlap:
                 joins = self._fork(exs, xps) if cuda else []
                 for ex, xp in zip(exs, xps):
@@ -986,29 +1100,33 @@ class DistributedSpmvOperator(OperatorBase):
         one process "peer" (device-to-device copies: every pair of cards
         that exchanges rows is one card or has peer access) or
         "host-staged" (a pair without peer access: CUDA stages its
-        copies through the host); None where one group holds every
-        shard."""
-        if self.n_processes > 1:
-            return multihost.transport()
+        copies through the host); both, as "nccl+peer" say, where a
+        process of a run holds several groups (its copies to and from the
+        lead card count); None where one group holds every shard."""
+        between = multihost.transport() if self.n_processes > 1 else None
         if len(self.groups) == 1:
-            return None
+            return between
         devs = [grp.device for grp in self.groups]
         if any(hp is None for hp in self.halo_plans.values()):
             pairs = {(a, b) for a in devs for b in devs}  # allgather
         else:
-            pairs = {(devs[m.src], devs[m.dst])
-                     for plan in self.peer.values() for m in plan}
+            moves = [m for plan in self.peer.values() for m in plan] + [
+                m for st in self.stage.values()
+                for m in st.stage + st.unstage]
+            pairs = {(devs[m.src], devs[m.dst]) for m in moves}
         ok = all(a == b or (a.type == b.type == "cuda"
                             and torch.cuda.can_device_access_peer(a, b))
                  for a, b in pairs)
-        return "peer" if ok else "host-staged"
+        inside = "peer" if ok else "host-staged"
+        return inside if between is None else f"{between}+{inside}"
 
     def graph_capturable(self) -> bool:
         """Whether a whole SpMV can sit in one CUDA graph: across processes
-        under NCCL; in one process where its groups' copies are peer copies
-        and every launch is a kernel (the plain versions allocate on every
-        card, which a capture on one card cannot pool)."""
-        if self.n_processes == 1 and len(self.groups) > 1 and self.plain:
+        under NCCL; where a process holds several groups, where their
+        copies are peer copies and every launch is a kernel (the plain
+        versions allocate on every card, which a capture on one card cannot
+        pool)."""
+        if len(self.groups) > 1 and self.plain:
             return False
         return multihost.graph_capturable(self.transport())
 
@@ -1033,8 +1151,8 @@ class DistributedSpmvOperator(OperatorBase):
                 where = ("spread over processes" if self.n_processes > 1
                          else "over several cards")
                 why = ("through the plain version: it allocates on every "
-                       "card" if self.transport() == "peer" else
-                       "its transfer cannot be captured in a CUDA graph")
+                       "card" if multihost.graph_capturable(self.transport())
+                       else "its transfer cannot be captured in a CUDA graph")
                 raise ValueError(
                     f"an operator {where} solves by impl='loop': {why}")
             return impl
@@ -1084,16 +1202,15 @@ class DistributedSpmvOperator(OperatorBase):
 
     def to_host(self, y) -> np.ndarray:
         """The stacked y (one tensor or one per group) -> [n_rows(, bs)] in
-        the original row order. Across processes every process's shards are
-        gathered first (a collective: every process calls it, and every
-        process gets the whole y)."""
+        the original row order. Every group's shards are gathered on the
+        first group's device and, across processes, every process's (a
+        collective: every process calls it, and every process gets the
+        whole y)."""
         parts = parts_of(y)
         dim = self._stack_dim(parts[0])
-        if len(parts) > 1:
-            y = np.concatenate([t.detach().cpu().numpy() for t in parts],
-                               axis=dim)
-        else:
-            y = multihost.fetch_global(parts[0], dim, self.shard_counts())
+        local = (parts[0] if len(parts) == 1 else
+                 torch.cat([t.to(parts[0].device) for t in parts], dim))
+        y = multihost.fetch_global(local, dim, self.shard_counts())
         if dim == 1:
             y = np.moveaxis(y, 0, -1)  # [R, L, bs]
         out = np.zeros((self.n_rows,) + y.shape[2:], dtype=y.dtype)
@@ -1182,8 +1299,8 @@ class DistributedSpmvOperator(OperatorBase):
     def impl_name(self) -> str:
         """cuda-dist<R>-<tiers>-<value type>: the tiers of the shards'
         streams (scs, packed or both, +pieces), on the CPU
-        torch-plain-dist<R>-...; with several card groups in the process,
-        dist<R>-<G>cards."""
+        torch-plain-dist<R>-...; where a process holds several card
+        groups, dist<R>-<G>cards, G the groups of the whole run."""
         where = ("cuda" if self.device.type == "cuda" and not self.plain
                  else "torch-plain")
         kinds = {k for p in self.precisions for sm in self.summaries[p]
@@ -1193,7 +1310,8 @@ class DistributedSpmvOperator(OperatorBase):
                         if packed in kinds)
         if self.n_pieces():
             tier += "+pieces"
-        cards = f"-{len(self.groups)}cards" if len(self.groups) > 1 else ""
+        n_groups = int(self.card[-1]) + 1
+        cards = f"-{n_groups}cards" if n_groups > self.n_processes else ""
         return f"{where}-dist{self.R}{cards}-{tier}-{self.config.value_type}"
 
     def per_shard_nnz(self) -> list:

@@ -296,3 +296,20 @@ def split_exchange_rows(
             recv[qs].append(slot[r] * length + scat)
     return (_cat(src), _cat(dst), [_cat(p) for p in send],
             [_cat(p) for p in recv])
+
+
+def group_pair_counts(plan: HaloPlan, group_of: np.ndarray) -> np.ndarray:
+    """[G, G] rows of the exchange that move from group g to another group
+    h when shard r lives in group ``group_of[r]`` (ascending, G groups):
+    what ``split_exchange_rows(plan, length, group_of, g)`` sends to h,
+    counted for every pair of groups at once. The diagonal is zero."""
+    group_of = np.asarray(group_of, dtype=np.int64)
+    G = int(group_of.max()) + 1 if group_of.size else 1
+    out = np.zeros((G, G), dtype=np.int64)
+    R = plan.n_shards
+    for d in plan.offsets:
+        for s in range(R):
+            g, h = int(group_of[s]), int(group_of[(s + d) % R])
+            if g != h:
+                out[g, h] += int(plan.real_counts[d][s])
+    return out

@@ -4,8 +4,9 @@ operator needs beyond its halo transfer.
 Port of ``uspmv_tpu/parallel/multihost.py``. The reference scales across
 nodes through MPI: mpirun launches N ranks and MPI_Init wires them up
 (main.cpp:1822-1826). The JAX package runs one program per host under
-``jax.distributed``; this package runs one process per card (or several
-processes on one card) under ``torch.distributed``. Every process runs the
+``jax.distributed``, each process holding its local devices; this package
+runs its processes under ``torch.distributed``, each process holding the
+cards of its share of the host (``local_cards``). Every process runs the
 same program: it reads or generates the whole matrix, plans the partition,
 the splits, the precisions and the halo exchange of every shard on the host
 (deterministic, so bit-equal in every process), and builds device structs
@@ -15,19 +16,24 @@ The transport is fixed before the process group starts, never after a
 failure:
 
   * ``backend="cpu"``: gloo, on CPU tensors;
-  * ``backend="cuda"`` where no two processes of a host share a card:
-    NCCL, on the cards' own tensors (a failing NCCL start raises);
-  * ``backend="cuda"`` where they do (more processes on the host than
+  * ``backend="cuda"`` where every process of a host has a card of its
+    own: NCCL, on the cards' own tensors (a failing NCCL start raises);
+  * ``backend="cuda"`` where they share (more processes on the host than
     cards): gloo, through pinned host buffers that the operator stages
     explicitly. NCCL refuses two ranks on one device, so this is how
     several processes run on one card, for correctness runs: every
     transfer crosses the host.
 
-A process's card is ``cuda:{local_rank % device_count}``, its local rank
-``LOCAL_RANK`` where set (torchrun), else its process id; the processes of
-a host are ``LOCAL_WORLD_SIZE`` where set, else all of them. Shards go to
-processes as the JAX mesh takes its first R devices of the global list:
-shard r to process ``r // local_devices``.
+A process's cards: with ``count`` visible cards and ``n_local`` processes
+on the host (``LOCAL_WORLD_SIZE`` where set, else all of them), c = count
+// n_local. Where c >= 1, the process of local rank l (``LOCAL_RANK`` where
+set, torchrun's, else its process id) takes cards l*c .. l*c + c - 1, the
+first its lead card (``torch.cuda.set_device``, NCCL's ``device_id``);
+where c < 1 it takes card ``l % count``, which it shares.
+``CUDA_VISIBLE_DEVICES`` is the one way to pin a run to fewer cards. Shards
+go to processes as the JAX mesh takes its first R devices of the global,
+process-major list: shard r to process ``r // local_devices``, and inside
+the process over its cards (parallel/distributed.py).
 
 Result gather (the reference's MPI_Gatherv, main.cpp:968-990): ``to_host``
 calls ``fetch_global``, an all-gather, so every process returns the whole y.
@@ -50,13 +56,27 @@ _state: Optional[dict] = None
 _graphs: "weakref.WeakSet" = weakref.WeakSet()
 
 
+def local_cards(local_rank: int, n_local: int, device_count: int
+                ) -> List[int]:
+    """The cards of the process of local rank ``local_rank`` among
+    ``n_local`` processes of a host with ``device_count`` cards: c =
+    device_count // n_local of its own (cards l*c .. l*c + c - 1) where c
+    >= 1, else card ``local_rank % device_count``, shared. The first is its
+    lead card."""
+    c = device_count // n_local
+    if c >= 1:
+        first = local_rank % n_local * c
+        return list(range(first, first + c))
+    return [local_rank % device_count]
+
+
 def transport_for(backend: str, n_local_processes: int,
                   device_count: int) -> str:
     """The transport of a run, from what the host has: "gloo" on the CPU,
-    "nccl" where every process of the host has a card of its own,
-    "gloo-staged" (gloo through pinned host buffers) where processes share
-    a card. backend "cuda" without a card raises
-    DeviceUnavailableError."""
+    "nccl" where every process of the host has a card of its own
+    (``local_cards``: device_count // n_local_processes >= 1), "gloo-staged"
+    (gloo through pinned host buffers) where processes share a card.
+    backend "cuda" without a card raises DeviceUnavailableError."""
     if backend == "cpu":
         return "gloo"
     if backend != "cuda":
@@ -68,7 +88,8 @@ def transport_for(backend: str, n_local_processes: int,
             "backend 'cuda' requested but torch sees no CUDA device "
             f"(torch {torch.__version__}); use -backend cpu to run the "
             "processes on the CPU over gloo")
-    return "nccl" if n_local_processes <= device_count else "gloo-staged"
+    return ("nccl" if device_count // n_local_processes >= 1
+            else "gloo-staged")
 
 
 def initialize(
@@ -88,9 +109,15 @@ def initialize(
     each process); None takes ceil(R / n_processes) for an operator of R
     shards.
 
+    The process takes the cards of ``local_cards`` (the CPU with backend
+    "cpu"), and every process learns every process's cards (one
+    all-gather).
+
     Returns {'process_id', 'n_processes', 'n_devices', 'n_local_devices',
-    'transport', 'device'}: n_local_devices is ``local_devices`` and
-    n_devices n_processes times it (None where ``local_devices`` is)."""
+    'transport', 'device', 'devices', 'process_devices'}: n_local_devices
+    is ``local_devices`` and n_devices n_processes times it (None where
+    ``local_devices`` is); device is the lead card, devices this process's
+    cards and process_devices every process's, in process order."""
     global _state
     import torch.distributed as dist
 
@@ -127,15 +154,19 @@ def initialize(
     count = torch.cuda.device_count() if backend == "cuda" else 0
     transport = transport_for(backend, n_local, count)
     if backend == "cuda":
-        device = torch.device("cuda", local_rank % count)
-        torch.cuda.set_device(device)
+        devices = [torch.device("cuda", i)
+                   for i in local_cards(local_rank, n_local, count)]
+        torch.cuda.set_device(devices[0])
     else:
-        device = torch.device("cpu")
+        devices = [torch.device("cpu")]
     dist.init_process_group(
         "nccl" if transport == "nccl" else "gloo",
         init_method=init_method, world_size=n_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=TIMEOUT_S),
-        **({"device_id": device} if transport == "nccl" else {}))
+        **({"device_id": devices[0]} if transport == "nccl" else {}))
+    mine = [str(d) for d in devices]
+    every: List[Optional[list]] = [None] * n_processes
+    dist.all_gather_object(every, mine)
     _state = dict(
         process_id=process_id,
         n_processes=n_processes,
@@ -144,7 +175,9 @@ def initialize(
         n_local_devices=(None if local_devices is None
                          else int(local_devices)),
         transport=transport,
-        device=str(device),
+        device=mine[0],
+        devices=mine,
+        process_devices=every,
     )
     return dict(_state)
 
@@ -195,13 +228,16 @@ def transport() -> Optional[str]:
 
 def graph_capturable(transport: Optional[str]) -> bool:
     """Whether the transfer of a sharded operator over ``transport`` (None:
-    one card group, no transfer) can sit inside a CUDA graph. NCCL's
+    one card group, no transfer; "a+b": the moves between processes, then
+    between the cards of a process) can sit inside a CUDA graph. NCCL's
     all-to-all runs on the cards' own tensors and is captured, and so are
     the peer copies between the cards of one process ("peer"); a gloo
     transfer crosses the host, which waits on the copy out before it, so
     gloo and gloo-staged run a loop of launches, and so do copies the
     CUDA stages through the host ("host-staged")."""
-    return transport in (None, "nccl", "peer")
+    if transport is None:
+        return True
+    return all(t in ("nccl", "peer") for t in transport.split("+"))
 
 
 def agree_max(value: float) -> float:
@@ -216,6 +252,18 @@ def agree_max(value: float) -> float:
     t = torch.tensor([value], dtype=torch.float64, device=dev)
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return float(t.item())
+
+
+def gather_object(obj) -> list:
+    """Every process's ``obj`` (picklable), in process order (a collective:
+    every process calls it); ``[obj]`` outside a run of processes."""
+    if not is_multiprocess():
+        return [obj]
+    import torch.distributed as dist
+
+    out: List[object] = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def all_gather_blocks(local: torch.Tensor, dim: int,

@@ -248,12 +248,13 @@ def _result(op: OperatorBase, n_iter: int, samples: list, t_total: float,
         comm = op.comm_volume_per_spmv()
         comm_elems = sum(v["real"] for v in comm.values())
         halo = np.sum([v["per_shard"] for v in comm.values()], axis=0)
+        spread = int(op.card[-1]) + 1 > op.n_processes
         per_shard = [
             {"shard": r, "nnz": int(nz),
              "gflops": 2.0 * nz * bs * n_iter / elapsed / 1e9,
              "halo_elems_recv": int(halo[r]),
-             # the card group that holds it, where the process holds several
-             **({"card": int(op.card[r])} if len(op.devices()) > 1 else {})}
+             # the card group that holds it, where a process holds several
+             **({"card": int(op.card[r])} if spread else {})}
             for r, nz in enumerate(op.per_shard_nnz())]
         per_host = op.comm_volume_per_host()
     return BenchResult(

@@ -67,6 +67,15 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
                 f"host{h}={v}" for h, v in sorted(hosts.items())
             )
             lines.append(f"  [{p}] halo elems/SpMV per host: {per}")
+    if res.per_shard and "card" in res.per_shard[0]:
+        # card groups (of one process, or of several in a run): halo
+        # elements each receives, every precision's
+        cards: dict = {}
+        for sh in res.per_shard:
+            cards[sh["card"]] = cards.get(sh["card"], 0) + sh[
+                "halo_elems_recv"]
+        per = "  ".join(f"card{c}={v}" for c, v in sorted(cards.items()))
+        lines.append(f"  halo elems/SpMV per card: {per}")
     if cfg.comm_mode in ("singlevec", "multivec"):
         lines.append(
             f"note: comm_mode={cfg.comm_mode}: the reference's "

@@ -1,0 +1,32 @@
+"""The benchmark's own tests: on the CPU, at small sizes, through the plain
+PyTorch versions of the program's kernels (backend "cpu")."""
+
+import copy
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+from spmv_cells.lib import spec  # noqa: E402
+
+# each configuration's generator at a size a test run holds
+SMALL = {
+    "hpcg_256": {"nx": 8, "ny": 8, "nz": 8},
+}
+
+
+def small_cell(name: str) -> dict:
+    """The cell's files with its configuration's generator at SMALL."""
+    cell = copy.deepcopy(spec.cell(name))
+    cell["config"]["params"] = dict(SMALL[cell["config"]["name"]])
+    return cell
+
+
+@pytest.fixture
+def small():
+    return small_cell

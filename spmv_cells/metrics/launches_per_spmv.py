@@ -1,0 +1,18 @@
+"""launches_per_spmv: the kernel launches that the program's wrappers
+booked in the run (its counter "launches", lib/program.py) over the
+SpMVs the benchmark called in it: the warm-up's, the rate's, the host
+bursts' and the window's (traced or not). None where the program keeps no
+such counter, off the card (no kernel is launched there), or for a record
+of several runs on one build (the counter is the process's)."""
+
+from spmv_cells.lib import drive, program
+
+
+def read(ctx):
+    launches = program.counter("launches")
+    if not launches or len(ctx.record["runs"]) != 1:
+        return None
+    calls = drive.WARM_CALLS + drive.RATE_CALLS + sum(
+        ctx.run[k]["calls"] for k in ("host_burst", "traced", "window")
+        if k in ctx.run)
+    return launches / calls

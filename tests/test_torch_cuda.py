@@ -1886,6 +1886,44 @@ def test_log_prof_trace_names_the_sell_kernel(cuda, tmp_path, capsys):
     assert any("scs_spmv_kernel" in e.get("name", "") for e in kernels)
 
 
+def test_spmv_span_books_its_launches_on_the_card(cuda):
+    """With spans on, each ``spmv`` span holds the launches made inside it
+    (one SELL launch here, its heavy-row pieces' too with a split), the
+    process's launch total moves with the wrappers' counts, and the build
+    books the bytes of the device streams."""
+    from uspmv_tpu_torch.ops import scs_pieces
+    from uspmv_tpu_torch.runtime import profiling
+
+    mtx = random_banded(20_000, 400, 12)
+    for kw, per_call in ((dict(split_rows_threshold=-1), 1),
+                         (dict(split_rows_threshold=4), 2)):
+        profiling.reset()
+        profiling.enable()
+        try:
+            op = SpmvOperator.from_mtx(
+                Config(kernel_format="scs", chunk_size=32, sigma=1,
+                       value_type="dp", backend="cuda", mixed_tiles=False,
+                       **kw), mtx)
+            x = op.make_x()
+            y = torch.zeros_like(x)
+            n0 = launch_count() + scs_pieces.launch_count()
+            for _ in range(10):
+                op.spmv(x, out=y)
+            torch.cuda.synchronize()
+            n = launch_count() + scs_pieces.launch_count() - n0
+        finally:
+            profiling.disable()
+        snap = profiling.snapshot()
+        assert n == 10 * per_call
+        assert snap["spans"]["spmv"] == dict(
+            snap["spans"]["spmv"], count=10, launches=n)
+        assert snap["counters"]["launches"] == n
+        assert snap["counters"]["upload_bytes"] == sum(
+            op.device_bytes().values())
+        assert snap["spans"]["from_scs.upload"]["parent"] == "from_mtx"
+    profiling.reset()
+
+
 def test_hubbard_through_the_default_tiers_matches_scipy(cuda):
     from uspmv_tpu_torch.io.generators import generate_matrix
     from uspmv_tpu_torch.ops import scs_packed, scs_pieces

@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 
 from .ops._build import BUILD_DIR
+from .runtime import profiling
 
 SOURCE = Path(__file__).resolve().parents[1] / "native" / "uspmv_host.cpp"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-fvisibility=hidden")
@@ -119,7 +120,8 @@ def load(required: bool = False) -> Optional[ctypes.CDLL]:
             try:
                 path = library_path()
                 if not path.exists():
-                    _build(path)
+                    with profiling.span("kernels.build"):
+                        _build(path)
                 _lib = _bind(ctypes.CDLL(str(path)))
             except (OSError, NativeUnavailableError) as e:
                 _error = str(e)

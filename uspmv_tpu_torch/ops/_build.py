@@ -25,6 +25,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..runtime import profiling
+
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "uspmv_tpu_torch"
 NVCC_FLAGS = (
@@ -186,7 +188,8 @@ def load_library() -> KernelLibrary:
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         try:
-            log, steps = compile_library(sources, tmp)
+            with profiling.span("kernels.build"):
+                log, steps = compile_library(sources, tmp)
         except KernelBuildError:
             tmp.unlink(missing_ok=True)
             raise

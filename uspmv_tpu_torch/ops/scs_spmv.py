@@ -32,6 +32,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from ..runtime import profiling
 from . import _build
 from .device_format import VECTORS_PER_PASS, DeviceScs, vector_pass_count
 
@@ -103,14 +104,16 @@ def book_launch(lib, rc: int, name: str, launches: Dict[str, int],
                 nodes: int = 1) -> None:
     """After a call of kernel entry point ``name`` that returned ``rc`` and
     enqueued ``nodes`` kernels: raise when the launch was refused, else add
-    one to the wrapper's count ``launches`` -- or, while a CUDA graph is
-    captured, the kernel nodes to the capture's count. Shared by the
-    wrappers of every csrc/*.cu, which load one library."""
+    one to the wrapper's count ``launches`` and to the process-wide launch
+    total (``profiling.LAUNCHES``) -- or, while a CUDA graph is captured,
+    the kernel nodes to the capture's count. Shared by the wrappers of
+    every csrc/*.cu, which load one library."""
     raise_for(lib, rc, f"kernel {name} launch")
     if _captured is not None:
         _captured[name] = _captured.get(name, 0) + nodes
     else:
         launches[name] += 1
+        profiling.count(profiling.LAUNCHES)
 
 
 def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:

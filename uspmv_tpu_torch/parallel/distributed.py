@@ -175,6 +175,7 @@ from ..runtime.operator import (
     split_threshold,
     write_sparsity,
 )
+from ..runtime import profiling
 from . import multihost
 from .halo import (
     HaloPlan,
@@ -462,7 +463,16 @@ class DistributedSpmvOperator(OperatorBase):
         """The operator of ``mtx`` under ``config``, its shards spread over
         the card groups of ``card_devices(config, D, devices)`` (D =
         ``shard_slots(R)``) and, in a run of processes, those of the
-        others."""
+        others. Spans: ``dist.from_mtx`` and, inside it,
+        ``dist.from_mtx.shard`` (each shard's host build: split, partition,
+        conversion), ``dist.from_mtx.plan`` (the exchange plans) and
+        ``dist.from_mtx.upload`` (the device streams)."""
+        with profiling.span("dist.from_mtx"):
+            return cls._from_mtx(config, mtx, devices)
+
+    @classmethod
+    def _from_mtx(cls, config: Config, mtx: MtxData,
+                  devices: Optional[Sequence]) -> "DistributedSpmvOperator":
         config.validate()
         R = config.n_shards
         owner, shards = shard_owners(R)
@@ -512,49 +522,50 @@ class DistributedSpmvOperator(OperatorBase):
         shard_perms: List[np.ndarray] = []
         n_dropped = 0
         for r in range(R):
-            lo, hi = int(ws[r]), int(ws[r + 1])
-            local = mtx.slice_rows(lo, hi)
-            n_real = local.n_rows
-            lr_r = lr[lo:hi] if lr is not None else None
-            parent = None
-            if th:
-                local, parent = split_heavy_rows(local, th)
-                if lr_r is not None and parent is not None:
-                    lr_r = np.concatenate([lr_r, lr_r[parent]])
-            C_r, sigma_r = guard_scs_explosion(
-                real_rows(local, n_real), C, sigma)
-            if config.is_ap:
-                subs, dropped = partition_precisions(
-                    local,
-                    config.value_type,
-                    config.ap_threshold_1,
-                    config.ap_threshold_2,
-                    equilibrate=config.equilibrate,
-                    largest_row_elems=lr_r,
-                    largest_col_elems=lc,
-                    dropout=config.dropout,
-                    dropout_threshold=config.dropout_threshold,
-                )
-                n_dropped += dropped
-            else:
-                subs = {precs[0]: dataclasses.replace(
-                    local, values=host_values(local.values, precs[0]))}
-            primary = convert_to_scs(real_rows(subs[precs[0]], n_real),
-                                     C_r, sigma_r)
-            scs[precs[0]].append(primary)
-            for p in precs[1:]:
-                scs[p].append(convert_to_scs(
-                    real_rows(subs[p], n_real), C_r, sigma_r,
-                    fixed_permutation=primary.old_to_new_idx))
-            for p, sub in subs.items():
-                cut = int(np.searchsorted(sub.I, n_real))
-                pieces[p].append(
-                    (sub.I[cut:].astype(np.int64) - n_real,
-                     sub.J[cut:].astype(np.int64), sub.values[cut:])
-                    if parent is not None and cut < sub.nnz else None)
-            parent_rows.append(None if parent is None
-                               else primary.old_to_new_idx[parent])
-            shard_perms.append(primary.old_to_new_idx[:n_real])
+            with profiling.span("dist.from_mtx.shard"):
+                lo, hi = int(ws[r]), int(ws[r + 1])
+                local = mtx.slice_rows(lo, hi)
+                n_real = local.n_rows
+                lr_r = lr[lo:hi] if lr is not None else None
+                parent = None
+                if th:
+                    local, parent = split_heavy_rows(local, th)
+                    if lr_r is not None and parent is not None:
+                        lr_r = np.concatenate([lr_r, lr_r[parent]])
+                C_r, sigma_r = guard_scs_explosion(
+                    real_rows(local, n_real), C, sigma)
+                if config.is_ap:
+                    subs, dropped = partition_precisions(
+                        local,
+                        config.value_type,
+                        config.ap_threshold_1,
+                        config.ap_threshold_2,
+                        equilibrate=config.equilibrate,
+                        largest_row_elems=lr_r,
+                        largest_col_elems=lc,
+                        dropout=config.dropout,
+                        dropout_threshold=config.dropout_threshold,
+                    )
+                    n_dropped += dropped
+                else:
+                    subs = {precs[0]: dataclasses.replace(
+                        local, values=host_values(local.values, precs[0]))}
+                primary = convert_to_scs(real_rows(subs[precs[0]], n_real),
+                                         C_r, sigma_r)
+                scs[precs[0]].append(primary)
+                for p in precs[1:]:
+                    scs[p].append(convert_to_scs(
+                        real_rows(subs[p], n_real), C_r, sigma_r,
+                        fixed_permutation=primary.old_to_new_idx))
+                for p, sub in subs.items():
+                    cut = int(np.searchsorted(sub.I, n_real))
+                    pieces[p].append(
+                        (sub.I[cut:].astype(np.int64) - n_real,
+                         sub.J[cut:].astype(np.int64), sub.values[cut:])
+                        if parent is not None and cut < sub.nnz else None)
+                parent_rows.append(None if parent is None
+                                   else primary.old_to_new_idx[parent])
+                shard_perms.append(primary.old_to_new_idx[:n_real])
 
         n_loc = max(s.n_rows_padded for s in scs[precs[0]])
         allgather = config.comm_mode == "allgather"
@@ -566,82 +577,85 @@ class DistributedSpmvOperator(OperatorBase):
         exchanges = [dict() for _ in placed]
         transfers = [dict() for _ in placed]
         stage: Dict[str, StagePlan] = {}
-        for p in precs:
-            for ex, tr in zip(exchanges, transfers):
-                ex[p] = tr[p] = None
-            if allgather:
-                build_allgather_col_map(scs[p], ws, stride=n_loc)
-                halo_plans[p], lengths[p] = None, n_loc
+        with profiling.span("dist.from_mtx.plan"):
+            for p in precs:
+                for ex, tr in zip(exchanges, transfers):
+                    ex[p] = tr[p] = None
+                if allgather:
+                    build_allgather_col_map(scs[p], ws, stride=n_loc)
+                    halo_plans[p], lengths[p] = None, n_loc
+                    pieces[p] = [
+                        None if pc is None else (pc[0], _allgather_cols(
+                            pc[1], ws, shard_perms, n_loc), pc[2])
+                        for pc in pieces[p]]
+                    continue
+                hp = build_halo_plan(
+                    scs[p], ws,
+                    extra_cols=[None if pc is None else pc[1]
+                                for pc in pieces[p]])
+                halo_plans[p] = hp
+                lengths[p] = max(hp.H, n_loc) + 1
                 pieces[p] = [
-                    None if pc is None else (pc[0], _allgather_cols(
-                        pc[1], ws, shard_perms, n_loc), pc[2])
-                    for pc in pieces[p]]
-                continue
-            hp = build_halo_plan(
-                scs[p], ws,
-                extra_cols=[None if pc is None else pc[1]
-                            for pc in pieces[p]])
-            halo_plans[p] = hp
-            lengths[p] = max(hp.H, n_loc) + 1
-            pieces[p] = [
-                None if pc is None else (pc[0], _halo_cols(
-                    pc[1], int(ws[r]), int(ws[r + 1]), shard_perms[r],
-                    scs[p][r].n_rows_padded, hp.halo_cols[r]), pc[2])
-                for r, pc in enumerate(pieces[p])]
-            if n_groups == 1:
-                src, dst = exchange_rows(hp, lengths[p],
-                                         no_pack=config.no_pack)
-                exchanges[0][p] = build_device_exchange(
-                    src, dst, R, lengths[p], placed[0][2])
-                continue
-            # the same answer for every group: the plan is global
-            crossing = card[:, None] != card[None, :]
-            active = bool(hp.recv_counts[crossing].any())
-            for i, (g, shards, dev) in enumerate(placed):
-                src, dst, send, recv = split_exchange_rows(
-                    hp, lengths[p], card, g, no_pack=config.no_pack)
-                exchanges[i][p] = build_device_exchange(
-                    src, dst, len(shards), lengths[p], dev)
-                transfers[i][p] = build_device_transfer(
-                    send, recv, len(shards), lengths[p], active, dev)
-            if n_proc > 1 and active:
-                stage[p] = stage_plan(group_pair_counts(hp, card),
-                                      group_owner, multihost.process_index())
+                    None if pc is None else (pc[0], _halo_cols(
+                        pc[1], int(ws[r]), int(ws[r + 1]), shard_perms[r],
+                        scs[p][r].n_rows_padded, hp.halo_cols[r]), pc[2])
+                    for r, pc in enumerate(pieces[p])]
+                if n_groups == 1:
+                    src, dst = exchange_rows(hp, lengths[p],
+                                             no_pack=config.no_pack)
+                    exchanges[0][p] = build_device_exchange(
+                        src, dst, R, lengths[p], placed[0][2])
+                    continue
+                # the same answer for every group: the plan is global
+                crossing = card[:, None] != card[None, :]
+                active = bool(hp.recv_counts[crossing].any())
+                for i, (g, shards, dev) in enumerate(placed):
+                    src, dst, send, recv = split_exchange_rows(
+                        hp, lengths[p], card, g, no_pack=config.no_pack)
+                    exchanges[i][p] = build_device_exchange(
+                        src, dst, len(shards), lengths[p], dev)
+                    transfers[i][p] = build_device_transfer(
+                        send, recv, len(shards), lengths[p], active, dev)
+                if n_proc > 1 and active:
+                    stage[p] = stage_plan(group_pair_counts(hp, card),
+                                          group_owner,
+                                          multihost.process_index())
 
         # --- device streams, the tier chosen per struct
-        overlap = config.overlap_comm and not allgather
-        bs = config.block_vec_size
-        groups = []
-        for i, (g, shards, dev) in enumerate(placed):
-            streams: Dict[str, List[ShardStreams]] = {}
-            for p in precs:
-                dt = dtype_for(p)
+        with profiling.span("dist.from_mtx.upload"):
+            overlap = config.overlap_comm and not allgather
+            bs = config.block_vec_size
+            groups = []
+            for i, (g, shards, dev) in enumerate(placed):
+                streams: Dict[str, List[ShardStreams]] = {}
+                for p in precs:
+                    dt = dtype_for(p)
 
-                def put(s: ScsData) -> Stream:
-                    build = (build_device_packed if packed_tier(config, s)
-                             else build_device_scs)
-                    return build(s, dev, dt)
+                    def put(s: ScsData) -> Stream:
+                        build = (build_device_packed if packed_tier(config, s)
+                                 else build_device_scs)
+                        return build(s, dev, dt)
 
-                streams[p] = []
-                for r in shards:
-                    s = scs[p][r]
-                    if overlap:
-                        interior, halo = split_scs_for_overlap(s)
-                        sh = ShardStreams(
-                            main=put(interior),
-                            halo=put(halo) if halo.nnz else None)
-                    else:
-                        sh = ShardStreams(main=put(s))
-                    pc = pieces[p][r]
-                    if pc is not None:
-                        sh.pieces = build_device_pieces(
-                            pc[0], pc[1], pc[2], parent_rows[r],
-                            s.n_rows_padded, dev, dt,
-                            config.working_dtype(), bs)
-                    streams[p].append(sh)
-            groups.append(CardGroup(index=g, device=dev, shards=shards,
-                                    streams=streams, exchanges=exchanges[i],
-                                    transfers=transfers[i]))
+                    streams[p] = []
+                    for r in shards:
+                        s = scs[p][r]
+                        if overlap:
+                            interior, halo = split_scs_for_overlap(s)
+                            sh = ShardStreams(
+                                main=put(interior),
+                                halo=put(halo) if halo.nnz else None)
+                        else:
+                            sh = ShardStreams(main=put(s))
+                        pc = pieces[p][r]
+                        if pc is not None:
+                            sh.pieces = build_device_pieces(
+                                pc[0], pc[1], pc[2], parent_rows[r],
+                                s.n_rows_padded, dev, dt,
+                                config.working_dtype(), bs)
+                        streams[p].append(sh)
+                groups.append(CardGroup(
+                    index=g, device=dev, shards=shards, streams=streams,
+                    exchanges=exchanges[i], transfers=transfers[i]))
         overlap = overlap and any(
             sh.halo is not None for grp in groups
             for lst in grp.streams.values() for sh in lst)
@@ -1027,55 +1041,78 @@ class DistributedSpmvOperator(OperatorBase):
         tuple of one per card group), which it updates in place: the
         exchange fills its halo rows. Writes every shard's y into the local
         rows of ``out`` (default: new zeroed tensors of x's form; never x
-        itself) and returns it."""
-        xs = self._check(x, "x")
-        if out is None:
-            out = (torch.zeros_like(x) if len(xs) == 1
-                   else tuple(torch.zeros_like(t) for t in xs))
-        ys = self._check(out, "out")
-        if any(y.data_ptr() == t.data_ptr() for y, t in zip(ys, xs)):
-            raise ValueError("out must not be x: rows read x while others "
-                             "write")
-        layout = self.config.vector_layout
-        exchange = halo_exchange_plain if self.plain else halo_exchange
-        # kernels on the card: with the overlap, the exchange inside a card
-        # runs on its second stream
-        cuda = self._on_cards()
-        written = False
-        xws = None
-        for p in self.precisions:
-            xps = [self.x_for(p, t, grp) for t, grp in zip(xs, self.groups)]
-            if self.halo_plans[p] is None and xws is None:
-                xws = self._whole_xs(xs)
-            exs = [grp.exchanges[p] if self.config.comm_halos else None
-                   for grp in self.groups]
-            exs = [None if ex is None or ex.n == 0 else ex for ex in exs]
-            # the rows that cross groups: packed and on their way (the
-            # copies between cards, or under NCCL the all-to-all) before
-            # the interior launches
-            crossing = p in self.groups[0].tbufs and self.config.comm_halos
-            work, moves = self._send(p, xps) if crossing else (None, [])
-            if self.overlap:
-                joins = self._fork(exs, xps) if cuda else []
-                for ex, xp in zip(exs, xps):
-                    if ex is not None and not cuda:
-                        exchange(ex, xp, layout)
-                self._rows(p, "main", xps, ys, written, xws)
-                for cur, comm in joins:
-                    cur.wait_stream(comm)
+        itself) and returns it.
+
+        Spans (``runtime/profiling``), under ``dist.spmv``: ``dist.send``
+        (the pack, the copies between cards, the all-to-all's start),
+        ``dist.exchange`` (the halo rows inside a card; in allgather mode
+        the gather of the whole x), ``dist.rows.main``, ``dist.receive``
+        (the wait and the unpack), ``dist.rows.halo`` and
+        ``dist.rows.pieces``. Off, the flag is checked once a call."""
+        span = profiling.spans()
+        with span("dist.spmv"):
+            xs = self._check(x, "x")
+            if out is None:
+                out = (torch.zeros_like(x) if len(xs) == 1
+                       else tuple(torch.zeros_like(t) for t in xs))
+            ys = self._check(out, "out")
+            if any(y.data_ptr() == t.data_ptr() for y, t in zip(ys, xs)):
+                raise ValueError("out must not be x: rows read x while "
+                                 "others write")
+            layout = self.config.vector_layout
+            exchange = halo_exchange_plain if self.plain else halo_exchange
+            # kernels on the card: with the overlap, the exchange inside a
+            # card runs on its second stream
+            cuda = self._on_cards()
+            written = False
+            xws = None
+            for p in self.precisions:
+                xps = [self.x_for(p, t, grp)
+                       for t, grp in zip(xs, self.groups)]
+                if self.halo_plans[p] is None and xws is None:
+                    with span("dist.exchange"):
+                        xws = self._whole_xs(xs)
+                exs = [grp.exchanges[p] if self.config.comm_halos else None
+                       for grp in self.groups]
+                exs = [None if ex is None or ex.n == 0 else ex for ex in exs]
+                # the rows that cross groups: packed and on their way (the
+                # copies between cards, or under NCCL the all-to-all)
+                # before the interior launches
+                crossing = (p in self.groups[0].tbufs
+                            and self.config.comm_halos)
+                work, moves = None, []
                 if crossing:
-                    self._receive(p, xps, work, moves)
-                self._rows(p, "halo", xps, ys, True, xws)
-            else:
-                for ex, xp in zip(exs, xps):
-                    if ex is not None:
-                        exchange(ex, xp, layout)
-                if crossing:
-                    self._receive(p, xps, work, moves)
-                self._rows(p, "main", xps, ys, written, xws)
-            self._rows(p, "pieces", xps, ys, True, xws)
-            written = True
-        return out
+                    with span("dist.send"):
+                        work, moves = self._send(p, xps)
+                if self.overlap:
+                    with span("dist.exchange"):
+                        joins = self._fork(exs, xps) if cuda else []
+                        for ex, xp in zip(exs, xps):
+                            if ex is not None and not cuda:
+                                exchange(ex, xp, layout)
+                    with span("dist.rows.main"):
+                        self._rows(p, "main", xps, ys, written, xws)
+                    with span("dist.receive"):
+                        for cur, comm in joins:
+                            cur.wait_stream(comm)
+                        if crossing:
+                            self._receive(p, xps, work, moves)
+                    with span("dist.rows.halo"):
+                        self._rows(p, "halo", xps, ys, True, xws)
+                else:
+                    with span("dist.exchange"):
+                        for ex, xp in zip(exs, xps):
+                            if ex is not None:
+                                exchange(ex, xp, layout)
+                    if crossing:
+                        with span("dist.receive"):
+                            self._receive(p, xps, work, moves)
+                    with span("dist.rows.main"):
+                        self._rows(p, "main", xps, ys, written, xws)
+                with span("dist.rows.pieces"):
+                    self._rows(p, "pieces", xps, ys, True, xws)
+                written = True
+            return out
 
     def _fork(self, exs: List[Optional[DeviceExchange]],
               xps: List[torch.Tensor]) -> list:

@@ -76,6 +76,7 @@ from ..ops.scs_spmv import (
 from ..ops.vectors import from_device_layout, init_x_host, to_device_layout
 from ..parallel import multihost
 from ..precision.partition import partition_precisions
+from . import profiling
 
 
 class DeviceUnavailableError(RuntimeError):
@@ -548,80 +549,94 @@ class SpmvOperator(OperatorBase):
 
     @classmethod
     def from_mtx(cls, config: Config, mtx: MtxData) -> "SpmvOperator":
+        """The operator of ``mtx`` under ``config``, in the spans
+        ``from_mtx`` and, inside it, ``from_mtx.prepare`` (copy, sort,
+        stats, scaling, split, explosion guard, precision partition),
+        ``from_mtx.convert`` (``convert_to_scs`` of every precision),
+        ``from_mtx.permute`` (the symmetric column permutation, the
+        pieces' columns) and ``from_scs.upload``."""
+        with profiling.span("from_mtx"):
+            return cls._from_mtx(config, mtx)
+
+    @classmethod
+    def _from_mtx(cls, config: Config, mtx: MtxData) -> "SpmvOperator":
         config.validate()
         check_one_shard(config)
         device = resolve_device(config)
-        mtx = mtx.copy()
-        if not mtx.is_sorted:
-            mtx = mtx.sort_by_row()
-        stats = extract_matrix_min_mean_max(mtx)
+        with profiling.span("from_mtx.prepare"):
+            mtx = mtx.copy()
+            if not mtx.is_sorted:
+                mtx = mtx.sort_by_row()
+            stats = extract_matrix_min_mean_max(mtx)
 
-        # scaling is per original row, before partitioning
-        jac = jacobi_scale_matrix(mtx) if config.jacobi_scale else None
-        equilib = lr = lc = None
-        if config.equilibrate:
-            lr, lc = equilibrate_matrix(mtx)
-            equilib = (lr, lc)
+            # scaling is per original row, before partitioning
+            jac = jacobi_scale_matrix(mtx) if config.jacobi_scale else None
+            equilib = lr = lc = None
+            if config.equilibrate:
+                lr, lc = equilibrate_matrix(mtx)
+                equilib = (lr, lc)
 
-        C = config.chunk_size if config.kernel_format == "scs" else 1
-        sigma = config.sigma if config.kernel_format == "scs" else 1
+            C = config.chunk_size if config.kernel_format == "scs" else 1
+            sigma = config.sigma if config.kernel_format == "scs" else 1
 
-        # heavy-row splitting: after scaling, which is per original row;
-        # before conversion, whose padding it is there to bound. Virtual
-        # row n_real + v of the split matrix is piece v.
-        n_real, nnz = mtx.n_rows, mtx.nnz
-        parent = None
-        th = split_threshold(config, mtx, C)
-        if th:
-            mtx, parent = split_heavy_rows(mtx, th)
-            if lr is not None and parent is not None:
-                lr = np.concatenate([lr, lr[parent]])
+            # heavy-row splitting: after scaling, which is per original
+            # row; before conversion, whose padding it is there to bound.
+            # Virtual row n_real + v of the split matrix is piece v.
+            n_real, nnz = mtx.n_rows, mtx.nnz
+            parent = None
+            th = split_threshold(config, mtx, C)
+            if th:
+                mtx, parent = split_heavy_rows(mtx, th)
+                if lr is not None and parent is not None:
+                    lr = np.concatenate([lr, lr[parent]])
 
-        C, sigma = guard_scs_explosion(real_rows(mtx, n_real), C, sigma)
+            C, sigma = guard_scs_explosion(real_rows(mtx, n_real), C, sigma)
 
-        n_dropped = 0
-        if config.is_ap:
-            subs, n_dropped = partition_precisions(
-                mtx,
-                config.value_type,
-                config.ap_threshold_1,
-                config.ap_threshold_2,
-                equilibrate=config.equilibrate,
-                largest_row_elems=lr,
-                largest_col_elems=lc,
-                dropout=config.dropout,
-                dropout_threshold=config.dropout_threshold,
-            )
-        else:
-            prec = config.value_type
-            subs = {prec: dataclasses.replace(
-                mtx, values=host_values(mtx.values, prec))}
+            n_dropped = 0
+            if config.is_ap:
+                subs, n_dropped = partition_precisions(
+                    mtx,
+                    config.value_type,
+                    config.ap_threshold_1,
+                    config.ap_threshold_2,
+                    equilibrate=config.equilibrate,
+                    largest_row_elems=lr,
+                    largest_col_elems=lc,
+                    dropout=config.dropout,
+                    dropout_threshold=config.dropout_threshold,
+                )
+            else:
+                prec = config.value_type
+                subs = {prec: dataclasses.replace(
+                    mtx, values=host_values(mtx.values, prec))}
         # the highest precision defines the permutation; the rest reuse it
         # (reference main.cpp:1170-1221)
-        precs = list(subs)
-        primary = convert_to_scs(real_rows(subs[precs[0]], n_real), C,
-                                 sigma)
-        scs = {precs[0]: primary}
-        for p in precs[1:]:
-            scs[p] = convert_to_scs(
-                real_rows(subs[p], n_real), C, sigma,
-                fixed_permutation=primary.old_to_new_idx,
-            )
+        with profiling.span("from_mtx.convert"):
+            precs = list(subs)
+            primary = convert_to_scs(real_rows(subs[precs[0]], n_real), C,
+                                     sigma)
+            scs = {precs[0]: primary}
+            for p in precs[1:]:
+                scs[p] = convert_to_scs(
+                    real_rows(subs[p], n_real), C, sigma,
+                    fixed_permutation=primary.old_to_new_idx,
+                )
         # symmetric column permutation so x can live in permuted order
         # (reference main.cpp:1308 -> permute_scs_cols); the pieces' columns
         # go through the same one
-        full_perm = np.arange(primary.n_rows_padded, dtype=np.int32)
-        full_perm[: primary.n_rows] = primary.old_to_new_idx
-        for s in scs.values():
-            permute_scs_cols(s, full_perm)
-        pieces = None
-        if parent is not None:
-            pieces = {}
-            for p, sub in subs.items():
-                cut = int(np.searchsorted(sub.I, n_real))
-                if cut < sub.nnz:
-                    pieces[p] = (sub.I[cut:].astype(np.int64) - n_real,
-                                 full_perm[sub.J[cut:]], sub.values[cut:])
+        with profiling.span("from_mtx.permute"):
+            full_perm = np.arange(primary.n_rows_padded, dtype=np.int32)
+            full_perm[: primary.n_rows] = primary.old_to_new_idx
+            for s in scs.values():
+                permute_scs_cols(s, full_perm)
+            pieces = None
+            if parent is not None:
+                pieces = {}
+                for p, sub in subs.items():
+                    cut = int(np.searchsorted(sub.I, n_real))
+                    if cut < sub.nnz:
+                        pieces[p] = (sub.I[cut:].astype(np.int64) - n_real,
+                                     full_perm[sub.J[cut:]], sub.values[cut:])
         op = cls.from_scs(
             config, scs, stats, nnz, device, pieces=pieces,
             piece_parent_row=(None if parent is None
@@ -676,23 +691,33 @@ class SpmvOperator(OperatorBase):
         build = (build_device_packed if packed_tier(config, primary)
                  else build_device_scs)
         bs = config.block_vec_size
-        return cls(
-            config=config,
-            n_rows=primary.n_rows,
-            n_rows_padded=primary.n_rows_padded,
-            scs=scs,
-            devs={p: build(s, device, dtype_for(p)) for p, s in scs.items()},
-            old_to_new=primary.old_to_new_idx[: primary.n_rows],
-            matrix_stats=matrix_stats,
-            nnz=nnz,
-            device=device,
-            pieces={
+        # the device streams; while spans are on, the card drained at the
+        # end, so that the span holds the copies
+        with profiling.span("from_scs.upload"):
+            devs = {p: build(s, device, dtype_for(p)) for p, s in scs.items()}
+            dev_pieces = {
                 p: build_device_pieces(
                     ids, cols, vals, piece_parent_row, primary.n_rows_padded,
                     device, dtype_for(p), config.working_dtype(), bs)
                 for p, (ids, cols, vals) in (pieces or {}).items()
-            },
+            }
+            if profiling.enabled() and device.type == "cuda":
+                torch.cuda.synchronize(device)
+        op = cls(
+            config=config,
+            n_rows=primary.n_rows,
+            n_rows_padded=primary.n_rows_padded,
+            scs=scs,
+            devs=devs,
+            old_to_new=primary.old_to_new_idx[: primary.n_rows],
+            matrix_stats=matrix_stats,
+            nnz=nnz,
+            device=device,
+            pieces=dev_pieces,
         )
+        profiling.count(profiling.UPLOAD_BYTES,
+                        sum(op.device_bytes().values()))
+        return op
 
     # ------------------------------------------------------------- execution
 
@@ -703,18 +728,20 @@ class SpmvOperator(OperatorBase):
         first writes y, each later one adds into it (the JAX closure's
         y = y + y_k); after each stream its heavy-row pieces, if any, add
         into their parents' rows. With ``out`` given, y is written into
-        that buffer (not x itself) instead of a new tensor."""
-        layout = self.config.vector_layout
-        plain = self.plain
-        y = None
-        for p, dev in self.devs.items():
-            if y is None:
-                y = run_rows(dev, x, layout, plain, out=out)
-            else:
-                run_rows(dev, x, layout, plain, y=y)
-            if p in self.pieces:
-                run_pieces(self.pieces[p], x, layout, y, plain)
-        return y
+        that buffer (not x itself) instead of a new tensor. Span ``spmv``:
+        the launches inside it are booked to it."""
+        with profiling.span("spmv"):
+            layout = self.config.vector_layout
+            plain = self.plain
+            y = None
+            for p, dev in self.devs.items():
+                if y is None:
+                    y = run_rows(dev, x, layout, plain, out=out)
+                else:
+                    run_rows(dev, x, layout, plain, y=y)
+                if p in self.pieces:
+                    run_pieces(self.pieces[p], x, layout, y, plain)
+            return y
 
     def is_packed(self) -> bool:
         """Whether the real rows run as packed row groups."""
@@ -864,6 +891,18 @@ class SpmvOperator(OperatorBase):
     def nnz_per_precision(self) -> Dict[str, int]:
         return {p: s.nnz + (self.pieces[p].nnz if p in self.pieces else 0)
                 for p, s in self.scs.items()}
+
+    def device_bytes(self) -> Dict[str, int]:
+        """Bytes of each device buffer, read from the tensors when asked:
+        ``<precision>.<field>`` of each row stream (values, col_idxs,
+        row_idxs and the chunk and group tables, or the packed tier's row
+        pointers and groups) and ``<precision>.pieces.<field>`` of its
+        heavy-row pieces."""
+        streams = [*self.devs.items(),
+                   *((f"{p}.pieces", pc) for p, pc in self.pieces.items())]
+        return {f"{prefix}.{f.name}": getattr(dev, f.name).nbytes
+                for prefix, dev in streams for f in dataclasses.fields(dev)
+                if isinstance(getattr(dev, f.name), torch.Tensor)}
 
     def n_pieces(self) -> int:
         """Virtual rows split off heavy rows, over all precisions."""

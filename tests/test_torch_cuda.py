@@ -1924,6 +1924,35 @@ def test_spmv_span_books_its_launches_on_the_card(cuda):
     profiling.reset()
 
 
+@pytest.mark.parametrize("impl,sigma", [("auto", 1), ("auto", 8),
+                                         ("xla", 1)])
+def test_row_index_is_built_only_where_read_on_the_card(cuda, impl, sigma):
+    """The kernels read no row index: after the build and SpMVs on the
+    kernel route none is on the card and ``row_index_builds`` reads 0; the
+    plain route (impl='xla') builds it once at its first SpMV; read, it is
+    the host's ``flat_row_idx()`` element for element, on the card."""
+    from uspmv_tpu_torch.runtime import profiling
+
+    profiling.reset()
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=32, sigma=sigma,
+               value_type="dp", backend="cuda", impl=impl,
+               split_rows_threshold=-1, mixed_tiles=False),
+        random_banded(20_000, 400, 12))
+    x = op.make_x()
+    y = torch.zeros_like(x)
+    for _ in range(3):
+        op.spmv(x, out=y)
+    torch.cuda.synchronize()
+    builds = profiling.snapshot()["counters"].get("row_index_builds", 0)
+    assert builds == (1 if impl == "xla" else 0)
+    assert ("dp.row_idxs" in op.device_bytes()) == (impl == "xla")
+    rows = op.devs["dp"].row_idxs
+    assert rows.device.type == "cuda" and rows.dtype == torch.int32
+    assert np.array_equal(rows.cpu().numpy(), op.scs["dp"].flat_row_idx())
+    profiling.reset()
+
+
 def test_hubbard_through_the_default_tiers_matches_scipy(cuda):
     from uspmv_tpu_torch.io.generators import generate_matrix
     from uspmv_tpu_torch.ops import scs_packed, scs_pieces

@@ -140,7 +140,14 @@ def test_device_bytes_counts_every_device_tensor(kw):
         profiling.UPLOAD_BYTES: sum(got.values())}
     p = op.config.ap_precisions[0]
     assert got[f"{p}.values"] == op.devs[p].values.nbytes
-    assert got[f"{p}.row_idxs"] == op.devs[p].row_idxs.nbytes
+    # a packed stream holds its row index from the build, a SELL-C-sigma
+    # stream from its first read on, and is counted from then on
+    assert (f"{p}.row_idxs" in got) == op.is_packed()
+    rows = op.devs[p].row_idxs
+    got = op.device_bytes()
+    assert got[f"{p}.row_idxs"] == rows.nbytes
+    assert profiling.snapshot()["counters"].get(
+        profiling.ROW_INDEX_BUILDS, 0) == (0 if op.is_packed() else 1)
     if op.pieces:
         assert got[f"{p}.pieces.values"] == op.pieces[p].values.nbytes
 

@@ -53,11 +53,12 @@ def dtype_for(prec: str) -> torch.dtype:
 def host_values(values: np.ndarray, prec: str) -> np.ndarray:
     """``values`` in precision ``prec`` on the host: float64 (dp), float32
     (sp), or float32 carrying bf16-rounded values (hp) — the same numbers
-    the JAX package holds as ``ml_dtypes.bfloat16``."""
+    the JAX package holds as ``ml_dtypes.bfloat16``. Values already in
+    that dtype (dp, sp) come back as they are, not copied."""
     if prec == "hp":
         t = torch.from_numpy(np.ascontiguousarray(values))
         return t.to(torch.bfloat16).to(torch.float32).numpy()
-    return values.astype(HOST_DTYPES[prec])
+    return values.astype(HOST_DTYPES[prec], copy=False)
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:

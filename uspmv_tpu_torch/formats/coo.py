@@ -12,6 +12,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -100,7 +101,11 @@ class MtxData:
         )
 
     def row_counts(self) -> np.ndarray:
-        return np.bincount(self.I, minlength=self.n_rows).astype(np.int64)
+        """int64 nonzeros per row, ``np.bincount(I, minlength=n_rows)``:
+        counted by torch, which reads the int32 rows as they are where
+        numpy first widens all of them to int64."""
+        return torch.bincount(torch.from_numpy(self.I),
+                              minlength=self.n_rows).numpy()
 
     def permute(self, perm: np.ndarray, inv_perm: np.ndarray) -> "MtxData":
         """Symmetric row+col permutation, ``perm[old] = new`` for rows and
@@ -131,7 +136,7 @@ class MtxData:
 
 
 def split_heavy_rows(
-    mtx: MtxData, threshold: int
+    mtx: MtxData, threshold: int, row_counts: Optional[np.ndarray] = None
 ) -> Tuple[MtxData, Optional[np.ndarray]]:
     """Split rows with more than ``threshold`` nonzeros into virtual rows of
     at most ``threshold`` elements appended after the real rows.
@@ -148,10 +153,11 @@ def split_heavy_rows(
     ``mtx'`` has ``n_rows + n_virtual`` rows (columns untouched) and
     ``parent[v]`` is the real row of virtual row ``n_rows + v`` -- or
     ``(mtx, None)`` when nothing splits. Requires row-sorted input.
+    ``row_counts``: ``mtx.row_counts()``, where the caller has them.
     """
     if not mtx.is_sorted:
         raise ValueError("split_heavy_rows requires row-sorted input")
-    counts = np.bincount(mtx.I, minlength=mtx.n_rows).astype(np.int64)
+    counts = mtx.row_counts() if row_counts is None else row_counts
     if not (counts > threshold).any():
         return mtx, None
     order = np.lexsort((mtx.J, mtx.I))
@@ -279,11 +285,25 @@ def jacobi_scale_matrix(mtx: MtxData) -> np.ndarray:
     return diag
 
 
+# values per block of ``extract_matrix_min_mean_max``: |a| of a block stays
+# in cache, and no array of the matrix's size is made
+STATS_BLOCK = 1 << 20
+
+
 def extract_matrix_min_mean_max(mtx: MtxData) -> Tuple[float, float, float]:
     """(min|a|, midpoint, max|a|) — 'mean' is the min/max midpoint, not
     the average (reference extract_matrix_min_mean_max,
-    utilities.hpp:2501-2540)."""
-    a = np.abs(mtx.values.astype(np.float64))
-    mn = float(a.min()) if a.size else 0.0
-    mx = float(a.max()) if a.size else 0.0
+    utilities.hpp:2501-2540). |a| of float values is exact in their own
+    dtype, so it is taken there, a block at a time."""
+    v = mtx.values
+    if v.dtype.kind != "f":
+        v = v.astype(np.float64)
+    if not v.size:
+        return 0.0, 0.0, 0.0
+    lows, highs = [], []
+    for s in range(0, v.size, STATS_BLOCK):
+        a = np.abs(v[s:s + STATS_BLOCK])
+        lows.append(a.min())
+        highs.append(a.max())
+    mn, mx = float(np.min(lows)), float(np.max(highs))
     return mn, mn + (mx - mn) / 2.0, mx

@@ -5,9 +5,10 @@ host ``ScsData`` into static-shape bricks for XLA and lane tiles for the
 TPU; on a GPU the hand-written kernel (csrc/scs_spmv.cu) reads the SCS
 arrays as they are, so ``DeviceScs`` is the host layout moved onto a
 ``torch.device``, plus the longest row of each group of GROUP_ROWS rows,
-where the kernel's row loop stops (``group_lengths``), and the permuted row
-of each flat element, which only the plain PyTorch version
-(ops/scs_spmv.spmv_scs_plain) reads.
+where the kernel's row loop stops (``group_lengths``). The permuted row of
+each flat element, which only the plain PyTorch version
+(ops/scs_spmv.spmv_scs_plain) and the probes read, is built on the device
+at its first read (``DeviceScs.row_idxs``).
 
 Two more streams serve matrices whose rows are badly imbalanced:
 ``DevicePacked`` is the same ``ScsData`` with its padding dropped, cut into
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..formats.scs import ScsData
+from ..runtime import profiling
 
 # Rows of a group (csrc/scs_row.cuh kGroupRows): the SELL row loop stops the
 # rows of a group at the longest of them, found at r / GROUP_ROWS. The
@@ -65,7 +67,6 @@ class DeviceScs:
     # [n_elements]: float64, float32 or bfloat16; empty float32 for a unit
     # stream
     values: torch.Tensor
-    row_idxs: torch.Tensor  # int32 [n_elements], permuted row of each element
 
     C: int
     n_rows: int
@@ -81,10 +82,31 @@ class DeviceScs:
     # an all-ones matrix without a value stream: col_idxs is -1 at padding
     # slots (build_device_scs(unit_values=True))
     unit_vals: bool = False
+    # ``row_idxs`` once read; None before
+    _row_idxs: Optional[torch.Tensor] = dataclasses.field(
+        default=None, init=False, repr=False)
 
     @property
     def device(self) -> torch.device:
         return self.values.device
+
+    @property
+    def row_idxs(self) -> torch.Tensor:
+        """int32 [n_elements]: the permuted row of each element,
+        ``ScsData.flat_row_idx()`` element for element. No kernel reads it,
+        so it is built at its first read, on the stream's device, booked
+        as the counter ``profiling.ROW_INDEX_BUILDS``, and kept. Every
+        chunk starts at a multiple of C, so element j*C + i of chunk c
+        holds row c*C + i: the chunk's C rows, chunk_lengths[c] times."""
+        if self._row_idxs is None:
+            rows = torch.arange(self.n_chunks * self.C, dtype=torch.int32,
+                                device=self.chunk_lengths.device)
+            rows = rows.view(self.n_chunks, self.C).repeat_interleave(
+                self.chunk_lengths.long(), dim=0,
+                output_size=self.n_elements // self.C)
+            self._row_idxs = rows.reshape(-1)
+            profiling.count(profiling.ROW_INDEX_BUILDS)
+        return self._row_idxs
 
     @property
     def group_length_bytes(self) -> int:
@@ -196,9 +218,11 @@ def build_device_scs(
     tables mark it with bit 15. Only float32 values are taken, as there.
 
     The group lengths come from ``scs.row_counts_new`` (``group_table``;
-    none for a unit stream, whose loop walks each chunk to its length)."""
+    none for a unit stream, whose loop walks each chunk to its length).
+    The row of each element is left to its first read
+    (``DeviceScs.row_idxs``)."""
     lengths, n_read = group_table(scs)
-    col_idxs = scs.col_idxs.astype(np.int32)
+    col_idxs = np.asarray(scs.col_idxs, dtype=np.int32)
     values = _put_values(scs.values, device, dtype)
     if unit_values:
         if values.dtype != torch.float32:
@@ -215,7 +239,6 @@ def build_device_scs(
         group_lengths=_put(lengths, device),
         col_idxs=_put(col_idxs, device),
         values=values,
-        row_idxs=_put(scs.flat_row_idx(), device),
         C=scs.C,
         n_rows=scs.n_rows,
         n_rows_padded=scs.n_rows_padded,
@@ -309,7 +332,9 @@ def build_device_packed(
     """Host ScsData -> DevicePacked on ``device``: the stored elements of
     every permuted row r = c*C + i, j = 0..count-1, gathered from
     ``chunk_ptrs[c] + j*C + i``. Raises when a row exceeds a group's
-    element capacity."""
+    element capacity. Unlike ``build_device_scs`` it places ``row_idxs`` on
+    the device at once: the gather computes the row of each element
+    anyway."""
     if scs.row_counts_new is None:
         raise ValueError("packing needs ScsData.row_counts_new")
     counts = scs.row_counts_new.astype(np.int64)

@@ -217,14 +217,16 @@ def real_rows(m: MtxData, n_real: int) -> MtxData:
                                J=m.J[:cut], values=m.values[:cut])
 
 
-def guard_scs_explosion(mtx: MtxData, C: int, sigma: int):
+def guard_scs_explosion(mtx: MtxData, C: int, sigma: int,
+                        row_counts: Optional[np.ndarray] = None):
     """Estimate SCS padding before converting; degrade to CRS when (C,
     sigma) would explode (e.g. one 17k-nnz row at C=1024 inflates its
     whole chunk to 17M elements). Port of the JAX operator's
-    ``_guard_scs_explosion``: same rule, same warning."""
+    ``_guard_scs_explosion``: same rule, same warning. ``row_counts``:
+    ``mtx.row_counts()``, where the caller has them."""
     if C <= 1 or mtx.nnz == 0:
         return C, sigma
-    counts = np.bincount(mtx.I, minlength=mtx.n_rows).astype(np.int64)
+    counts = mtx.row_counts() if row_counts is None else row_counts
     n_pad = ((mtx.n_rows + C - 1) // C) * C
     counts = np.pad(counts, (0, n_pad - counts.size))
     if sigma > 1:
@@ -550,11 +552,12 @@ class SpmvOperator(OperatorBase):
     @classmethod
     def from_mtx(cls, config: Config, mtx: MtxData) -> "SpmvOperator":
         """The operator of ``mtx`` under ``config``, in the spans
-        ``from_mtx`` and, inside it, ``from_mtx.prepare`` (copy, sort,
-        stats, scaling, split, explosion guard, precision partition),
+        ``from_mtx`` and, inside it, ``from_mtx.prepare`` (sort, stats,
+        scaling, row counts, split, explosion guard, precision partition),
         ``from_mtx.convert`` (``convert_to_scs`` of every precision),
         ``from_mtx.permute`` (the symmetric column permutation, the
-        pieces' columns) and ``from_scs.upload``."""
+        pieces' columns) and ``from_scs.upload``. ``mtx`` is left as it
+        was, its arrays and its attributes."""
         with profiling.span("from_mtx"):
             return cls._from_mtx(config, mtx)
 
@@ -564,7 +567,10 @@ class SpmvOperator(OperatorBase):
         check_one_shard(config)
         device = resolve_device(config)
         with profiling.span("from_mtx.prepare"):
-            mtx = mtx.copy()
+            # the sort, the scalings and the split make new arrays and
+            # rebind them; nothing writes into an array of ``mtx``, so its
+            # arrays are shared and only the record is copied
+            mtx = dataclasses.replace(mtx)
             if not mtx.is_sorted:
                 mtx = mtx.sort_by_row()
             stats = extract_matrix_min_mean_max(mtx)
@@ -585,12 +591,18 @@ class SpmvOperator(OperatorBase):
             n_real, nnz = mtx.n_rows, mtx.nnz
             parent = None
             th = split_threshold(config, mtx, C)
+            # nonzeros per row, counted once for the split and the guard
+            # (neither runs without chunks)
+            counts = mtx.row_counts() if C > 1 else None
             if th:
-                mtx, parent = split_heavy_rows(mtx, th)
-                if lr is not None and parent is not None:
-                    lr = np.concatenate([lr, lr[parent]])
+                mtx, parent = split_heavy_rows(mtx, th, counts)
+                if parent is not None:
+                    counts = np.minimum(counts, th)  # the real rows' share
+                    if lr is not None:
+                        lr = np.concatenate([lr, lr[parent]])
 
-            C, sigma = guard_scs_explosion(real_rows(mtx, n_real), C, sigma)
+            C, sigma = guard_scs_explosion(real_rows(mtx, n_real), C, sigma,
+                                           counts)
 
             n_dropped = 0
             if config.is_ap:
@@ -623,12 +635,14 @@ class SpmvOperator(OperatorBase):
                 )
         # symmetric column permutation so x can live in permuted order
         # (reference main.cpp:1308 -> permute_scs_cols); the pieces' columns
-        # go through the same one
+        # go through the same one. The identity (sigma = 1) moves nothing.
         with profiling.span("from_mtx.permute"):
             full_perm = np.arange(primary.n_rows_padded, dtype=np.int32)
-            full_perm[: primary.n_rows] = primary.old_to_new_idx
-            for s in scs.values():
-                permute_scs_cols(s, full_perm)
+            if not np.array_equal(primary.old_to_new_idx,
+                                  full_perm[: primary.n_rows]):
+                full_perm[: primary.n_rows] = primary.old_to_new_idx
+                for s in scs.values():
+                    permute_scs_cols(s, full_perm)
             pieces = None
             if parent is not None:
                 pieces = {}
@@ -894,13 +908,13 @@ class SpmvOperator(OperatorBase):
 
     def device_bytes(self) -> Dict[str, int]:
         """Bytes of each device buffer, read from the tensors when asked:
-        ``<precision>.<field>`` of each row stream (values, col_idxs,
-        row_idxs and the chunk and group tables, or the packed tier's row
-        pointers and groups) and ``<precision>.pieces.<field>`` of its
-        heavy-row pieces."""
+        ``<precision>.<field>`` of each row stream (values, col_idxs and
+        the chunk and group tables, or the packed tier's row pointers,
+        groups and row_idxs; a SELL-C-sigma stream's row_idxs once read)
+        and ``<precision>.pieces.<field>`` of its heavy-row pieces."""
         streams = [*self.devs.items(),
                    *((f"{p}.pieces", pc) for p, pc in self.pieces.items())]
-        return {f"{prefix}.{f.name}": getattr(dev, f.name).nbytes
+        return {f"{prefix}.{f.name.lstrip('_')}": getattr(dev, f.name).nbytes
                 for prefix, dev in streams for f in dataclasses.fields(dev)
                 if isinstance(getattr(dev, f.name), torch.Tensor)}
 

@@ -17,9 +17,11 @@ measures bandwidth externally with likwid-perfctr. Here:
     range of its name, so it sits on the device trace's clock;
   * counters: ``count(name, n)`` adds to a process-wide table. Every
     kernel wrapper books its launches there as ``LAUNCHES`` (through
-    ``ops/scs_spmv.book_launch``), and each ``SpmvOperator`` build the
-    bytes of its device streams as ``UPLOAD_BYTES``, whether spans are on
-    or not; kernel nodes a CUDA graph replays are not launches
+    ``ops/scs_spmv.book_launch``), each ``SpmvOperator`` build the
+    bytes of its device streams as ``UPLOAD_BYTES``, and each SELL-C-sigma
+    stream the build of its row index at its first read as
+    ``ROW_INDEX_BUILDS`` (ops/device_format.DeviceScs.row_idxs), whether
+    spans are on or not; kernel nodes a CUDA graph replays are not launches
     (``runtime/operator.graph_nodes_replayed``);
   * ``snapshot()`` returns both tables as plain JSON-able dicts,
     ``reset()`` empties them;
@@ -48,6 +50,9 @@ LAUNCHES = "launches"  # the counter of kernel launches
 # the counter of bytes that ``SpmvOperator`` builds placed on the device
 # in their matrix streams (their ``device_bytes()``)
 UPLOAD_BYTES = "upload_bytes"
+# the counter of row indices built on the device at their first read: only
+# the plain versions and the probes read one, never a kernel
+ROW_INDEX_BUILDS = "row_index_builds"
 
 _on = False
 # name -> [entries, total ns, self ns, launches, parent's name or None]

@@ -1,7 +1,9 @@
 """Where each piece of a cell lives, found by the names in BENCHMARK.json.
 
   configs/<config>.json     a deployment: its source, its generator and
-                            its parameters, the program's format
+                            its parameters ("params"), the same keys at a
+                            size a CPU test run holds ("small"), the
+                            program's format
   inputs/<generator>.py     generate(params) -> (n_rows, n_cols, I, J, V)
   cells/<cell>.json         a traffic mix: operation, precision, vectors,
                             the limits of ``correct``

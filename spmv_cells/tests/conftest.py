@@ -14,16 +14,13 @@ if ROOT not in sys.path:
 
 from spmv_cells.lib import spec  # noqa: E402
 
-# each configuration's generator at a size a test run holds
-SMALL = {
-    "hpcg_256": {"nx": 8, "ny": 8, "nz": 8},
-}
-
 
 def small_cell(name: str) -> dict:
-    """The cell's files with its configuration's generator at SMALL."""
+    """The cell's files with its configuration's generator at the size a
+    test run holds: the configuration file's "small" in place of its
+    "params"."""
     cell = copy.deepcopy(spec.cell(name))
-    cell["config"]["params"] = dict(SMALL[cell["config"]["name"]])
+    cell["config"]["params"] = dict(cell["config"]["small"])
     return cell
 
 

@@ -100,7 +100,6 @@ def test_scamac_models_listed_alike():
     "NoSuchModel,3",
     "Hubbard,n_sites",  # an option without a value
     "Hubbard,n_sites=21",  # over the size guard
-    "Hubbard,n_sites=20,n_fermions=10",  # over the 2^28 nnz estimate
     "Hubbard,n_sites=4,n_fermions=6",
     "Hubbard,n_sites=4,colour=red",  # an unknown option
     "SpinChainXXZ,L=25",
@@ -114,6 +113,21 @@ def test_generator_router_errors_alike(spec):
         tgen.generate_matrix(spec)
     assert type(terr.value) is type(jerr.value)
     assert str(terr.value) == str(jerr.value)
+
+
+@pytest.mark.parametrize("spec", [
+    "Hubbard,n_sites=20,n_fermions=10",  # rows and nonzeros over int32
+    "Hubbard,n_sites=16,n_fermions=8",  # nonzeros over int32
+])
+def test_hubbard_guard_is_int32_indices(spec):
+    """The port's Hubbard chain refuses only what int32 indices cannot
+    address, with its own message; the JAX package keeps its estimate of
+    2^28 nonzeros, so here the two refuse alike but say it differently."""
+    with pytest.raises(ValueError, match="reduce the sector size"):
+        jgen.generate_matrix(spec)
+    with pytest.raises(ValueError, match=r"int32 indices address at most "
+                       r"2147483647 of each"):
+        tgen.generate_matrix(spec)
 
 
 def test_scamac_parse_spec_alike():

@@ -1924,6 +1924,41 @@ def test_spmv_span_books_its_launches_on_the_card(cuda):
     profiling.reset()
 
 
+@pytest.mark.parametrize("bs,layout", [(1, "colwise"), (8, "colwise"),
+                                       (16, "colwise"), (16, "rowwise")])
+@pytest.mark.parametrize("tier", ["sell", "packed", "sell+pieces"])
+def test_matrix_passes_booked_per_launch_on_the_card(cuda, tier, bs,
+                                                     layout):
+    """Each SpMV books beside its launches the passes its kernels make
+    over their matrix streams: a SELL-C-sigma or pieces stream one per
+    pass of up to 8 vectors, a packed stream one (``matrix_passes``)."""
+    from uspmv_tpu_torch.runtime import profiling
+
+    kw = {"sell": dict(mixed_tiles=False, split_rows_threshold=-1),
+          "packed": dict(mixed_tiles=True, split_rows_threshold=-1),
+          "sell+pieces": dict(mixed_tiles=False, split_rows_threshold=4)}
+    op = SpmvOperator.from_mtx(
+        Config(kernel_format="scs", chunk_size=32, sigma=1, value_type="sp",
+               backend="cuda", block_vec_size=bs, vector_layout=layout,
+               **kw[tier]), random_banded(20_000, 400, 12))
+    assert bool(op.pieces) == (tier == "sell+pieces")
+    per_call = op.matrix_passes(tier == "packed") + (
+        vector_pass_count(bs) if op.pieces else 0)
+    x = op.make_x()
+    y = torch.zeros_like(x)
+    op.spmv(x, out=y)
+    torch.cuda.synchronize()
+    profiling.reset()
+    for _ in range(5):
+        op.spmv(x, out=y)
+    torch.cuda.synchronize()
+    counters = profiling.snapshot()["counters"]
+    profiling.reset()
+    assert counters[profiling.MATRIX_PASSES] == 5 * per_call
+    assert per_call == {"sell": vector_pass_count(bs), "packed": 1,
+                        "sell+pieces": 2 * vector_pass_count(bs)}[tier]
+
+
 @pytest.mark.parametrize("impl,sigma", [("auto", 1), ("auto", 8),
                                          ("xla", 1)])
 def test_row_index_is_built_only_where_read_on_the_card(cuda, impl, sigma):

@@ -38,7 +38,9 @@ runs the vendor comparison (ops/spmv_bcoo.py: cuSPARSE CSR on the card),
 the matrix statistics and exits, -output_sparsity dumps each precision's
 matrix as .mtx into -mtx_out and exits, -debug 1 writes the sanity
 checker's solve dumps there, and -log_prof DIR writes a torch.profiler
-Chrome trace of the bench loop into DIR. With -backend cuda on a host
+Chrome trace of the bench into DIR, from the matrix's generation or read
+(span ``scamac.generate`` for a ScaMaC model) through the operator's build
+to the bench loop. With -backend cuda on a host
 without a GPU the CLI prints one line and exits with rc 3.
 """
 
@@ -55,6 +57,7 @@ from .config import Config
 from .formats.stats import get_matrix_stats
 from .io.generators import generate_matrix
 from .io.mmio import read_mtx
+from .runtime import profiling
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -274,6 +277,18 @@ def _run(args, cfg: Config, primary: bool, info=None) -> int:
     writes its files."""
     if cfg.verbose and primary and info is not None:
         print(f"[multihost] {info}")
+    on = (cfg.mode == "b" and args.log_prof is not None and primary
+          and not (args.matrix_stats or args.output_sparsity))
+    with profiling.trace(args.log_prof, enabled=on):
+        rc = _run_traced(args, cfg, primary)
+    if on:
+        print(f"[log_prof] trace -> {profiling.last_trace_path()}")
+    return rc
+
+
+def _run_traced(args, cfg: Config, primary: bool) -> int:
+    """The CLI from loading the matrix on, inside -log_prof's trace in
+    bench mode."""
     mtx = load_matrix(args.matrix)
     if args.matrix_stats:
         if primary:
@@ -316,15 +331,9 @@ def _run(args, cfg: Config, primary: bool, info=None) -> int:
         return 0
 
     if cfg.mode == "b":
-        from .runtime import profiling
-
-        on = args.log_prof is not None and primary
-        with profiling.trace(args.log_prof, enabled=on):
-            with profiling.marker(profiling.kernel_marker_name(cfg),
-                                  enabled=on):
-                res = bench_spmv(op)
-        if on:
-            print(f"[log_prof] trace -> {profiling.last_trace_path()}")
+        with profiling.marker(profiling.kernel_marker_name(cfg),
+                              enabled=args.log_prof is not None and primary):
+            res = bench_spmv(op)
         if primary:  # reference: rank 0 writes (main.cpp:1772-1800)
             write_bench_to_file(cfg, res)
             if args.json:

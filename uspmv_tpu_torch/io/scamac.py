@@ -3,7 +3,10 @@
 Port of ``uspmv_tpu/io/scamac.py``: the same models, option names,
 defaults and guards, and matrices bit-equal to the JAX package's for the
 same spec (the random parts draw from ``np.random.default_rng(seed)`` in
-the same order).
+the same order). One guard differs: ``hubbard`` refuses only what int32
+indices cannot address, and so builds specs the JAX package refuses.
+``scamac_generate`` runs inside the span ``scamac.generate``
+(runtime/profiling.py).
 
 The reference can generate inputs with the ScaMaC library instead of
 reading .mtx files (scamac_generate, utilities.hpp:1585-1752: parses an
@@ -18,7 +21,10 @@ interface:
                   (params: n_sites, n_fermions, t, U, ranpot, seed, pbc) —
                   the reference's canonical ScaMaC example
                   ("Hubbard,n_sites=10,n_fermions=5,U=1.3",
-                  utilities.hpp:1610)
+                  utilities.hpp:1610); built row block by row block up to
+                  2^31 - 1 rows and nonzeros (15/7: 41,409,225 rows,
+                  659,786,985 nonzeros), where the JAX package stops at
+                  an estimate of 2^28 nonzeros
   SpinChainXXZ    Heisenberg XXZ chain, dimension 2^L
                   (params: L, Jxy, Jz, Bz, seed — Bz>0 adds a random field)
   SpinChainXY     anisotropic XY chain, dimension 2^L (params: L, Jx, Jy,
@@ -36,6 +42,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..formats.coo import MtxData
+from ..runtime import profiling
 
 
 def _parse_spec(spec: str):
@@ -174,6 +181,25 @@ def _sector_hops(states: np.ndarray, n_sites: int, t: float, pbc: int):
     return np.concatenate(I), np.concatenate(J), np.concatenate(V)
 
 
+# The port's indices are int32: a matrix of more rows or nonzeros than
+# this cannot be addressed.
+INT32_MAX = 2**31 - 1
+# Nonzeros that one block of up-spin states of ``hubbard`` builds at a
+# time: its int64 positions and columns stay small beside the output.
+HUBBARD_BLOCK_NNZ = 1 << 24
+
+
+def _by_source(hi: np.ndarray, hj: np.ndarray, hv: np.ndarray, d: int):
+    """The hops of ``_sector_hops`` grouped by source state, each group in
+    the hop list's own order (a stable sort by source): (ptr [d + 1],
+    sources, targets, amplitudes), the hops of state s at ptr[s] ..
+    ptr[s + 1] - 1."""
+    order = np.argsort(hi, kind="stable")
+    ptr = np.zeros(d + 1, dtype=np.int64)
+    np.cumsum(np.bincount(hi, minlength=d), out=ptr[1:])
+    return ptr, hi[order], hj[order], hv[order]
+
+
 def hubbard(n_sites: int = 10, n_fermions: int = 5, t: float = 1.0,
             U: float = 0.0, ranpot: float = 0.0, seed: int = 1,
             pbc: int = 0) -> MtxData:
@@ -186,7 +212,17 @@ def hubbard(n_sites: int = 10, n_fermions: int = 5, t: float = 1.0,
     n_fermions) per species — the structure ScaMaC's Hubbard generator
     produces (reference bridge: utilities.hpp:1585-1752). Hops of one
     species are block-structured (kron with identity on the other), the
-    interaction is diagonal.
+    interaction is diagonal; diagonal entries that come out 0 are stored.
+
+    Size: dim^2 rows and dim^2 + 2 H dim nonzeros, H the hops of one
+    species (both directions); more than 2^31 - 1 of either raises, as
+    int32 indices cannot address them. Order: rows ascending, and within
+    a row the diagonal, then the up-spin hops, then the down-spin hops,
+    each in ``_sector_hops``' order: the order of the JAX package's stable
+    sort of (diagonal, up hops, down hops) by row, bit for bit. The rows
+    are built in that order, one block of up-spin states at a time
+    (``HUBBARD_BLOCK_NNZ``), into int32 I and J and float64 values, with
+    no sort of the whole.
     """
     if not (0 <= n_fermions <= n_sites):
         raise ValueError("hubbard: need 0 <= n_fermions <= n_sites")
@@ -196,37 +232,69 @@ def hubbard(n_sites: int = 10, n_fermions: int = 5, t: float = 1.0,
     d = states.size
     dim = d * d
     hi, hj, hv = _sector_hops(states, n_sites, t, pbc)
-    est_nnz = dim + 2 * hi.size * d
-    if est_nnz > (1 << 28):
+    nnz = dim + 2 * hi.size * d
+    if max(dim, nnz) > INT32_MAX:
         raise ValueError(
-            f"hubbard: n_sites={n_sites}, n_fermions={n_fermions} would "
-            f"generate ~{est_nnz} nonzeros; reduce the sector size"
+            f"hubbard: n_sites={n_sites}, n_fermions={n_fermions} gives "
+            f"{dim} rows and {nnz} nonzeros; int32 indices address at most "
+            f"{INT32_MAX} of each"
         )
-
-    # diagonal: U * (# doubly occupied sites) + random site potential
-    docc = _popcount((states[:, None] & states[None, :]).reshape(-1))
-    diag = U * docc.astype(np.float64)
+    pot1 = None
     if ranpot:
         rng = np.random.default_rng(seed)
         eps = rng.uniform(-ranpot, ranpot, n_sites)
         pot1 = ((states[:, None] >> np.arange(n_sites)[None, :]) & 1) @ eps
-        diag = diag + (pot1[:, None] + pot1[None, :]).reshape(-1)
-    rows = np.arange(dim, dtype=np.int64)
-    I, J, V = [rows], [rows], [diag]
-
-    # up hops: kron(H_up, I_d) -> (su*d + k, du*d + k) for every k
+    ptr, src, dst, amp = _by_source(hi, hj, hv, d)
+    cnt = np.diff(ptr)  # hops out of each state
+    # within its group: position of each hop past the group's first
+    rank = np.arange(src.size, dtype=np.int64) - ptr[src]
     k = np.arange(d, dtype=np.int64)
-    I.append((hi[:, None] * d + k[None, :]).reshape(-1))
-    J.append((hj[:, None] * d + k[None, :]).reshape(-1))
-    V.append(np.repeat(hv, d))
-    # down hops: kron(I_d, H_dn) -> (k*d + sd, k*d + dd)
-    I.append((k[:, None] * d + hi[None, :]).reshape(-1))
-    J.append((k[:, None] * d + hj[None, :]).reshape(-1))
-    V.append(np.tile(hv, d))
-    return MtxData.from_arrays(
-        np.concatenate(I), np.concatenate(J), np.concatenate(V),
-        n_rows=dim, n_cols=dim,
-    ).sort_by_row()
+    pop = _popcount(np.arange(1 << n_sites, dtype=np.int64))
+    # nonzeros of the rows of each up-spin state, and where they start
+    per_up = d * (1 + cnt) + hi.size
+    up_start = np.zeros(d + 1, dtype=np.int64)
+    np.cumsum(per_up, out=up_start[1:])
+    I = np.empty(nnz, dtype=np.int32)
+    J = np.empty(nnz, dtype=np.int32)
+    V = np.empty(nnz, dtype=np.float64)
+    u0 = 0
+    while u0 < d:
+        # the up-spin states u0 .. u1 - 1: at least one, at most
+        # HUBBARD_BLOCK_NNZ nonzeros where more than one
+        u1 = min(d, max(u0 + 1, int(np.searchsorted(
+            up_start, up_start[u0] + HUBBARD_BLOCK_NNZ, side="right")) - 1))
+        base = int(up_start[u0])
+        lens = 1 + cnt[u0:u1, None] + cnt[None, :]  # [nu, d]
+        starts = np.zeros(lens.size, dtype=np.int64)
+        np.cumsum(lens.ravel()[:-1], out=starts[1:])
+        starts = starts.reshape(lens.shape)
+        out = slice(base, int(up_start[u1]))
+        Ib, Jb, Vb = I[out], J[out], V[out]
+        rows = np.arange(u0 * d, u1 * d, dtype=np.int32)
+        Ib[:] = np.repeat(rows, lens.ravel())
+        # the diagonal: U * (# doubly occupied sites) + site potential
+        diag = U * pop[
+            (states[u0:u1, None] & states[None, :]).reshape(-1)
+        ].astype(np.float64)
+        if pot1 is not None:
+            diag = diag + (pot1[u0:u1, None] + pot1[None, :]).reshape(-1)
+        at = starts.ravel()
+        Jb[at] = rows
+        Vb[at] = diag
+        # up hops: (su*d + k, du*d + k) for every k
+        m = slice(int(ptr[u0]), int(ptr[u1]))
+        at = starts[src[m] - u0] + (1 + rank[m])[:, None]
+        Jb[at] = dst[m][:, None] * d + k[None, :]
+        Vb[at] = amp[m][:, None]
+        # down hops: (u*d + sd, u*d + dd) for every up state u
+        at = (starts[:, src] + (1 + cnt[u0:u1])[:, None]
+              + rank[None, :])
+        Jb[at] = np.arange(u0 * d, u1 * d, d, dtype=np.int64)[:, None] \
+            + dst[None, :]
+        Vb[at] = amp[None, :]
+        u0 = u1
+    return MtxData(n_rows=dim, n_cols=dim, nnz=nnz, is_sorted=True,
+                   is_symmetric=False, I=I, J=J, values=V)
 
 
 def free_fermion_chain(n_sites: int = 16, n_fermions: int = 8,
@@ -445,7 +513,13 @@ def scamac_models() -> tuple:
 
 def scamac_generate(spec: str) -> MtxData:
     """Generate a matrix from a ScaMaC-style spec string
-    (reference scamac_generate, utilities.hpp:1585-1752)."""
+    (reference scamac_generate, utilities.hpp:1585-1752), inside the span
+    ``scamac.generate``."""
+    with profiling.span("scamac.generate"):
+        return _generate(spec)
+
+
+def _generate(spec: str) -> MtxData:
     name, kwargs = _parse_spec(spec)
     kwargs = {k.lower(): v for k, v in kwargs.items()}
     if name == "tridiagonal":

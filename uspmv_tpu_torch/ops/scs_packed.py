@@ -205,5 +205,6 @@ def spmv_packed(dev: DevicePacked, x: torch.Tensor, layout: str = "rowwise",
             ncols, n_vec, int(accumulate), stage_bytes(dev, x.dtype),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    book_launch(lib, rc, name, _launches)
+    # one pass over the groups: the vectors re-read each from L1/L2
+    book_launch(lib, rc, name, _launches, passes=1)
     return y

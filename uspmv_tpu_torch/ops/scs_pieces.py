@@ -194,7 +194,8 @@ def spmv_pieces(dev: DevicePieces, x: torch.Tensor, layout: str,
             dev.arrivals.data_ptr(), y.data_ptr(), x_ld, y_vstride, n_vec,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
-    book_launch(lib, rc, name, _launches, nodes=KERNELS_PER_LAUNCH)
+    book_launch(lib, rc, name, _launches, nodes=KERNELS_PER_LAUNCH,
+                passes=vector_pass_count(n_vec))
     return y
 
 

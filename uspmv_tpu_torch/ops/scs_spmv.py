@@ -101,19 +101,23 @@ def record_captured_launches() -> Iterator[Dict[str, int]]:
 
 
 def book_launch(lib, rc: int, name: str, launches: Dict[str, int],
-                nodes: int = 1) -> None:
-    """After a call of kernel entry point ``name`` that returned ``rc`` and
-    enqueued ``nodes`` kernels: raise when the launch was refused, else add
-    one to the wrapper's count ``launches`` and to the process-wide launch
-    total (``profiling.LAUNCHES``) -- or, while a CUDA graph is captured,
-    the kernel nodes to the capture's count. Shared by the wrappers of
-    every csrc/*.cu, which load one library."""
+                nodes: int = 1, passes: int = 0) -> None:
+    """After a call of kernel entry point ``name`` that returned ``rc``,
+    enqueued ``nodes`` kernels and made ``passes`` passes over a matrix
+    stream: raise when the launch was refused, else add one to the
+    wrapper's count ``launches`` and to the process-wide launch total
+    (``profiling.LAUNCHES``) and the passes to ``profiling.MATRIX_PASSES``
+    -- or, while a CUDA graph is captured, the kernel nodes to the
+    capture's count. Shared by the wrappers of every csrc/*.cu, which load
+    one library."""
     raise_for(lib, rc, f"kernel {name} launch")
     if _captured is not None:
         _captured[name] = _captured.get(name, 0) + nodes
     else:
         launches[name] += 1
         profiling.count(profiling.LAUNCHES)
+        if passes:
+            profiling.count(profiling.MATRIX_PASSES, passes)
 
 
 def entry_point(value_dtype: torch.dtype, x_dtype: torch.dtype) -> str:
@@ -307,7 +311,7 @@ def _launch(lib, name: str, dev: DeviceScs, x_ptr: int, x_ld: int,
         x_ptr, x_ld, x_vstride, y_ptr, y_ld, y_vstride,
         ncols, n_vec, int(accumulate), stream,
     )
-    book_launch(lib, rc, name, _launches)
+    book_launch(lib, rc, name, _launches, passes=vector_pass_count(n_vec))
 
 
 def spmv_scs(dev: DeviceScs, x: torch.Tensor, layout: str = "rowwise",

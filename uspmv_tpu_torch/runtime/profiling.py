@@ -17,7 +17,11 @@ measures bandwidth externally with likwid-perfctr. Here:
     range of its name, so it sits on the device trace's clock;
   * counters: ``count(name, n)`` adds to a process-wide table. Every
     kernel wrapper books its launches there as ``LAUNCHES`` (through
-    ``ops/scs_spmv.book_launch``), each ``SpmvOperator`` build the
+    ``ops/scs_spmv.book_launch``), each SELL-C-sigma, packed and pieces
+    launch beside it the passes it makes over its matrix stream as
+    ``MATRIX_PASSES`` (``vector_pass_count(bs)`` for a SELL or pieces
+    launch of bs colwise vectors, else 1: ``SpmvOperator.matrix_passes``),
+    each ``SpmvOperator`` build the
     bytes of its device streams as ``UPLOAD_BYTES``, and each SELL-C-sigma
     stream the build of its row index at its first read as
     ``ROW_INDEX_BUILDS`` (ops/device_format.DeviceScs.row_idxs), whether
@@ -47,6 +51,9 @@ from typing import Dict, Iterator, Optional
 import torch
 
 LAUNCHES = "launches"  # the counter of kernel launches
+# the counter of passes that the SpMV kernels' launches made over their
+# matrix streams (one per pass of up to 8 block vectors)
+MATRIX_PASSES = "matrix_passes"
 # the counter of bytes that ``SpmvOperator`` builds placed on the device
 # in their matrix streams (their ``device_bytes()``)
 UPLOAD_BYTES = "upload_bytes"

@@ -84,12 +84,6 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
             "transfer of the rows that cross cards, each carrying every "
             "vector of a block"
         )
-    if cfg.block_vec_size > 1 and cfg.vector_layout == "colwise":
-        lines.append(
-            f"note: colwise SpMMV streams the matrix once per vector "
-            f"({cfg.block_vec_size} passes); -layout rowwise streams it once "
-            "for up to 8 vectors"
-        )
     if cfg.comm_mode == "graphtopo":
         lines.append(
             "note: comm_mode=graphtopo: the reference's "
